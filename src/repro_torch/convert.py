@@ -1,0 +1,39 @@
+"""Reference params (nested numpy arrays) -> the port's params.
+
+The reference initialises with ``jax.random``, which torch cannot
+reproduce, so parity tests hand the same params to both packages through
+numpy: ``params_from_reference(jax.tree.map(np.asarray, ref_params))``.
+The nested dict/list structure (stacked groups included) is kept 1:1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes bfloat16: cross as the 16-bit pattern, bit-exactly
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_reference(tree, *, device="cuda"):
+    """Map a nested dict/list/tuple of numpy arrays onto torch tensors on
+    ``device``. fp32 crosses as is; bfloat16 through an int16 view."""
+    dev = resolve(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _tensor(np.asarray(x), dev)
+
+    return conv(tree)
