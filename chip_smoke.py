@@ -7,10 +7,13 @@ Phases (each failed check raises; the script then exits non-zero):
 
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a;
-2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (qwen2-0.5b heads, bf16) and the smoke shapes (fp32), plus
-   three bitwise properties on the kernel itself;
+   sm_90a (one nvcc per source, all started together);
+2. every kernel against its plain PyTorch version on the card: the paged
+   kernel at the serving shapes (qwen2-0.5b heads, bf16) and the smoke
+   shapes (fp32), plus three bitwise properties; the flash kernel over the
+   reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal) and
+   the prefill shapes (qwen2-0.5b and gemma-2b heads, bf16, S = T = 4096,
+   and S != T), plus bitwise suffix and batch invariance;
 3. timing with CUDA events (L2 flushed before every launch) of kernel,
    plain version and a ``scaled_dot_product_attention`` yardstick, beside
    the least time the card could take (bytes at the HBM rate, or flops at
@@ -22,7 +25,16 @@ Phases (each failed check raises; the script then exits non-zero):
 5. speculative decode at full width on a repetition-friendly trace, counters
    zeroed again, verify steps through the prefill kernel;
 6. a ``torch.profiler`` window over 3 full-width decode steps: the device's
-   busy share and the kernels that fill it (informational).
+   busy share and the kernels that fill it (informational);
+7. full-width prefill: ``LM.prefill`` and ``make_eval_step`` of qwen2-0.5b
+   (B = 4) and gemma-2b (B = 1) at S = 4096, every layer's attention
+   through the flash kernel (counters zeroed before each forward, exactly
+   ``num_layers`` launches), then the same forwards through the plain
+   chunked path: last-token logits and loss compared; a profiler window
+   over the kernel forward (informational);
+8. recompute-prefill serving: phase 4's trace with
+   ``incremental_prefill=False``, every recompute chunk a 24-layer forward
+   through the flash kernel.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the result JSON.
@@ -53,13 +65,18 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py: ceiling
 # value; 1e-4 covers fp32 reordering next to zero)
 BF16_ULPS = (2.0 ** -6, 1e-4)
 LOGIT_TOL = 0.1                  # |kernel - plain| on full-width bf16 logits
+LOSS_TOL = 1e-2                  # |kernel - plain| on the full-width loss
 PS = 16                          # serving page size
 MAIN = dict(nq=14, nkv=2, h=64)  # qwen2-0.5b attention heads
 SMOKE = dict(nq=4, nkv=2, h=16)  # qwen2 smoke config heads
+GEMMA = dict(nq=8, nkv=1, h=256)  # gemma-2b attention heads
+PREFILL_S = 4096                 # train_4k's sequence length
+LONG_S = 32768                   # prefill_32k's sequence length
 FLUSH_BYTES = 64 << 20           # > the H100's 50 MB L2
 
 torch = None
-kernel = ops = None
+kernel = ops = None              # paged attention
+fkernel = fops = None            # flash attention
 
 
 class SmokeFailure(RuntimeError):
@@ -221,12 +238,74 @@ def _bitwise(rng, kp, vp, pool, heads, dtype) -> None:
     log(f"bitwise properties hold on the kernel ({dtype}, h={h})")
 
 
+def _flash_inputs(rng, b, s, t, heads, dtype):
+    nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
+    return (_data(rng, (b, s, nq, h), dtype),
+            _data(rng, (b, t, nkv, h), dtype),
+            _data(rng, (b, t, nkv, h), dtype))
+
+
+def phase_flash_correctness() -> float:
+    """The flash kernel against its plain version: tests/test_kernels.py's
+    sweep (:28-70) in fp32 and bf16, windows 1/7/64/200 (1 and 7 leave a
+    row's first 64-key tile fully masked), non-causal, then the prefill
+    shapes in bf16 (qwen2-0.5b and gemma-2b heads at S = T = 4096, and
+    S = 1000 < T = 4096), then bitwise suffix and batch invariance."""
+    rng = np.random.default_rng(4)
+    mha, gqa = dict(nq=4, nkv=4, h=64), dict(nq=8, nkv=2, h=64)
+    mqa, small = dict(nq=4, nkv=1, h=32), dict(nq=2, nkv=2, h=128)
+    win = dict(nq=4, nkv=2, h=32)
+    cases = [(b, s, s, heads, dtype, 0, True)
+             for dtype in ("float32", "bfloat16")
+             for b, s, heads in ((1, 128, mha), (2, 256, gqa), (1, 192, mqa),
+                                 (1, 64, small))]
+    cases += [(1, 200, 200, win, "float32", w, True) for w in (1, 7, 64, 200)]
+    cases += [(2, 128, 128, mha, "float32", 0, False),
+              (1, PREFILL_S, PREFILL_S, MAIN, "bfloat16", 0, True),
+              (1, PREFILL_S, PREFILL_S, GEMMA, "bfloat16", 0, True),
+              (1, 1000, PREFILL_S, MAIN, "bfloat16", 0, True)]
+    err = 0.0
+    for b, s, t, heads, dtype, window, causal in cases:
+        q, k, v = _flash_inputs(rng, b, s, t, heads, dtype)
+        kw = dict(window=window, causal=causal)
+        out = fops.flash_attention(q, k, v, **kw)
+        want = fops.flash_attention(q, k, v, impl="reference", **kw)
+        err = max(err, _max_err(out, want, dtype))
+    torch.cuda.synchronize()
+    log(f"flash kernel vs plain version over {len(cases)} cases: max |err| "
+        f"{err:.3g} (tolerance {TOL['float32']} fp32 / {TOL['bfloat16']} "
+        f"bf16, and bf16 within {BF16_ULPS[0]} |want| + {BF16_ULPS[1]})")
+    for heads in (MAIN, GEMMA):
+        _flash_bitwise(rng, heads)
+    return err
+
+
+def _flash_bitwise(rng, heads) -> None:
+    """On the kernel, bit for bit: the first S' rows of a run at S = T =
+    1024 equal a run at S' = T' < 1024; row b of a B = 4 run equals that
+    row alone."""
+    q, k, v = _flash_inputs(rng, 4, 1024, 1024, heads, "bfloat16")
+    full = fops.flash_attention(q, k, v)
+    for s2 in (1, 64, 65, 700):
+        part = fops.flash_attention(*(x[:, :s2].contiguous()
+                                      for x in (q, k, v)))
+        check(torch.equal(part, full[:, :s2]),
+              f"flash suffix invariance broke at S' = {s2}")
+    for b in range(4):
+        one = fops.flash_attention(*(x[b:b + 1].contiguous()
+                                     for x in (q, k, v)))
+        check(torch.equal(one, full[b:b + 1]),
+              f"flash batch invariance broke at row {b}")
+    log(f"flash bitwise suffix and batch invariance hold on the kernel "
+        f"(bf16, nq {heads['nq']}, nkv {heads['nkv']}, h {heads['h']})")
+
+
 # -- phase 3 -----------------------------------------------------------------
 
-def _timed(fn, iters: int = 20) -> float:
+def _timed(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms per call; the L2 is flushed (not timed) before each call."""
     scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -266,68 +345,139 @@ def _sdpa_inputs(q4, kp, vp, tables, q_start, t):
     """Dense K/V gathered beforehand per row, and the causal mask at each
     row's absolute positions, for the library yardstick."""
     b, _, nq, h = q4.shape
+    dev = q4.device
     ctx = int(max(q_start)) + t
     mp = -(-ctx // PS)
-    idx = torch.as_tensor(tables[:, :mp], device="cuda").long()
+    idx = torch.as_tensor(tables[:, :mp], device=dev).long()
     k = kp[idx].reshape(b, mp * PS, -1, h)[:, :ctx].transpose(1, 2)
     v = vp[idx].reshape(b, mp * PS, -1, h)[:, :ctx].transpose(1, 2)
-    qpos = torch.as_tensor(q_start, device="cuda")[:, None] + \
-        torch.arange(t, device="cuda")
-    mask = torch.arange(ctx, device="cuda")[None, None] <= qpos[:, :, None]
+    qpos = torch.as_tensor(q_start, device=dev)[:, None] + \
+        torch.arange(t, device=dev)
+    mask = torch.arange(ctx, device=dev)[None, None] <= qpos[:, :, None]
     return (q4.transpose(1, 2).contiguous(), k.contiguous(), v.contiguous(),
             mask[:, None])
 
 
-def phase_timing() -> dict[str, dict]:
+def _paged_row(name, run, plain, q4, kp, vp, tables, q_start, t,
+               dtype) -> dict:
+    """Time one paged entry point (q4 [B,T,nq,h] is its query) beside its
+    bound and the SDPA yardstick over K/V gathered beforehand."""
     import torch.nn.functional as F
+    b, _, nq, h = q4.shape
+    heads = dict(nq=nq, nkv=kp.shape[2], h=h)
+    sq, sk, sv, mask = _sdpa_inputs(q4, kp, vp, tables, q_start, t)
+    lib = lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask, enable_gqa=True)
+    got = run().float().reshape(b, t, nq, h)
+    lib_err = float((got - lib().transpose(1, 2).float()).abs().max())
+    ms, plain_ms, lib_ms = _timed(run), _timed(plain, 5), _timed(lib)
+    bound_ms, bound_by, core_ms = _bound(q_start, t, tables, heads, dtype)
+    log(f"time {name} (B={b}, T={t}, ctx<=800, bf16, qwen2-0.5b heads):"
+        f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"yardstick (SDPA over pre-gathered K/V, never called by the "
+        f"port) {lib_ms:.4f} ms [|kernel-SDPA| {lib_err:.3g}], bound "
+        f"{bound_ms:.5f} ms ({bound_by}; {dtype} peak "
+        f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, HBM "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s) -- {smi_line()}")
+    log(f"  {name}: the same flops on fp32 CUDA cores (what this kernel "
+        f"uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
+        f"{core_ms:.5f} ms; not the bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _flash_bound(b, s, t, heads, dtype, window=0,
+                 causal=True) -> tuple[float, str]:
+    """Least time for full-sequence attention on these shapes: flops
+    4·h·nq·B per unmasked (query, key) pair at the dense peak for
+    ``dtype``, or q, out and the un-repeated K and V once each at the HBM
+    rate, whichever is larger."""
+    nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
+    itemsize = torch.finfo(getattr(torch, dtype)).bits // 8
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(s)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    flops = 4.0 * h * nq * b * pairs
+    nbytes = itemsize * (2 * b * s * nq * h + 2 * b * t * nkv * h)
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_mem, t_ops),
+            "bytes" if t_mem >= t_ops else "operations")
+
+
+def _flash_row(rng, heads, s, tag) -> dict:
+    """Time the flash kernel, its plain version (S <= 4096: it holds
+    [B,nkv,g,S,T] fp32 scores) and SDPA (causal, GQA) at B = 1, S = T,
+    bf16, causal."""
+    import torch.nn.functional as F
+    dtype = "bfloat16"
+    q, k, v = _flash_inputs(rng, 1, s, s, heads, dtype)
+    run = lambda: fops.flash_attention(q, k, v)
+    plain = lambda: fops.flash_attention(q, k, v, impl="reference")
+    sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                                 enable_gqa=True)
+    lib_err = float((run().float() - lib().transpose(1, 2).float())
+                    .abs().max())
+    long = s > PREFILL_S         # the plain version would need > 8 GB
+    iters, warm = (3, 1) if long else (20, 3)
+    ms = _timed(run, iters, warm)
+    lib_ms = _timed(lib, iters, warm)
+    plain_ms = None if long else _timed(plain, 3, 1)
+    bound_ms, bound_by = _flash_bound(1, s, s, heads, dtype)
+    plain_txt = "not run (S > 4096)" if long else f"{plain_ms:.4f} ms"
+    log(f"time flash_attention ({tag} heads nq {heads['nq']}/nkv "
+        f"{heads['nkv']}/h {heads['h']}, B=1, S=T={s}, bf16, causal): "
+        f"kernel {ms:.4f} ms, plain {plain_txt}, library yardstick (SDPA, "
+        f"is_causal, enable_gqa; never called by the port) {lib_ms:.4f} ms "
+        f"[|kernel-SDPA| {lib_err:.3g}], bound {bound_ms:.5f} ms "
+        f"({bound_by}; bf16 peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
+        f"HBM {HBM_BYTES_PER_S / 1e12} TB/s), kernel/bound "
+        f"{ms / bound_ms:.1f}x, kernel/SDPA {ms / lib_ms:.2f}x -- "
+        f"{smi_line()}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_timing() -> dict[str, dict]:
     rng = np.random.default_rng(2)
     heads, dtype, pool, b = MAIN, "bfloat16", 1280, 8
     nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
     kp, vp = _pools(rng, pool, nkv, h, dtype)
     rows = {}
-    for name, t in (("paged_attention", 1),
-                    ("paged_prefill_attention_batch", 256)):
-        if t == 1:
-            lens = rng.integers(128, 801, b).astype(np.int32)
-            q_start = lens - 1
-        else:
-            q_start = rng.integers(0, 800 - t + 1, b).astype(np.int32)
-        tables = _tables(rng, -(-(q_start + t) // PS), 50, pool,
-                         repeat=False)
-        tb = _ints(tables)
-        q4 = _data(rng, (b, t, nq, h), dtype)
-        if t == 1:
-            q, ln = q4[:, 0].contiguous(), _ints(q_start + 1)
-            run = lambda: ops.paged_attention(q, kp, vp, tb, ln)
-            plain = lambda: ops.paged_attention(q, kp, vp, tb, ln,
-                                                impl="reference")
-        else:
-            qs = _ints(q_start)
-            run = lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb,
-                                                            qs)
-            plain = lambda: ops.paged_prefill_attention_batch(
-                q4, kp, vp, tb, qs, impl="reference")
-        sq, sk, sv, mask = _sdpa_inputs(q4, kp, vp, tables, q_start, t)
-        lib = lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=mask, enable_gqa=True)
-        got = run().float().reshape(b, t, nq, h)
-        ref_out = lib().transpose(1, 2).float()
-        lib_err = float((got - ref_out).abs().max())
-        ms, plain_ms, lib_ms = _timed(run), _timed(plain, 5), _timed(lib)
-        bound_ms, bound_by, core_ms = _bound(q_start, t, tables, heads,
-                                             dtype)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"time {name} (B={b}, T={t}, ctx<=800, bf16, qwen2-0.5b heads):"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"yardstick (SDPA over pre-gathered K/V, never called by the "
-            f"port) {lib_ms:.4f} ms [|kernel-SDPA| {lib_err:.3g}], bound "
-            f"{bound_ms:.5f} ms ({bound_by}; {dtype} peak "
-            f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, HBM "
-            f"{HBM_BYTES_PER_S / 1e12} TB/s) -- {smi_line()}")
-        log(f"  {name}: the same flops on fp32 CUDA cores (what this kernel "
-            f"uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
-            f"{core_ms:.5f} ms; not the bound")
+    # decode (T = 1) and batched prefill (T = 256) at the serving shapes
+    lens = rng.integers(128, 801, b).astype(np.int32)
+    tables = _tables(rng, -(-lens // PS), 50, pool, repeat=False)
+    q, tb, ln = _data(rng, (b, nq, h), dtype), _ints(tables), _ints(lens)
+    rows["paged_attention"] = _paged_row(
+        "paged_attention", lambda: ops.paged_attention(q, kp, vp, tb, ln),
+        lambda: ops.paged_attention(q, kp, vp, tb, ln, impl="reference"),
+        q[:, None], kp, vp, tables, lens - 1, 1, dtype)
+    t = 256
+    q_start = rng.integers(0, 800 - t + 1, b).astype(np.int32)
+    tables = _tables(rng, -(-(q_start + t) // PS), 50, pool, repeat=False)
+    q4, tb, qs = _data(rng, (b, t, nq, h), dtype), _ints(tables), \
+        _ints(q_start)
+    rows["paged_prefill_attention_batch"] = _paged_row(
+        "paged_prefill_attention_batch",
+        lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs),
+        lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs,
+                                                  impl="reference"),
+        q4, kp, vp, tables, q_start, t, dtype)
+    # the single-sequence entry point (B = 1) at the same prefill shape
+    q1, tb1, qs1 = q4[0].contiguous(), _ints(tables[0]), int(q_start[0])
+    rows["paged_prefill_attention"] = _paged_row(
+        "paged_prefill_attention",
+        lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1),
+        lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1,
+                                            impl="reference"),
+        q1[None], kp, vp, tables[:1], q_start[:1], t, dtype)
+    del kp, vp
+    frng = np.random.default_rng(6)
+    rows["flash_attention_bh"] = _flash_row(frng, MAIN, PREFILL_S,
+                                            "qwen2-0.5b")
+    _flash_row(frng, MAIN, LONG_S, "qwen2-0.5b, prefill_32k length")
+    _flash_row(frng, GEMMA, PREFILL_S, "gemma-2b")
     return rows
 
 
@@ -343,7 +493,7 @@ def _domains():
 
 
 def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
-          check_decode=False) -> dict:
+          check_decode=False, incremental_prefill=True) -> dict:
     """Drive ServeEngine over ``prompts`` (all submitted at once) on a fresh
     pool; launch counts zeroed just before the first step, read after the
     last. Returns tokens, counters, step times."""
@@ -351,13 +501,15 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
     from repro_torch.serve.engine import ServeEngine
     pool = BwapPagePool(cfg, _domains(), page_size=PS, device=device)
     eng = ServeEngine(cfg, params, pool, max_batch=8, max_new=max_new,
-                      wall_clock=False, drafter=drafter, device=device)
+                      wall_clock=False, drafter=drafter, device=device,
+                      incremental_prefill=incremental_prefill)
     for prompt in prompts:
         eng.submit(prompt)
     logit_err = None
     step_s, decode_s, prefill_steps = [], [], 0
     torch.cuda.synchronize()
     kernel.reset_launch_counts()
+    fkernel.reset_launch_counts()
     while eng.active or eng.waiting:
         if check_decode and logit_err is None:
             logit_err = _decode_plain_check(eng)
@@ -371,7 +523,7 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
         if eng.decode_steps > d0:
             decode_s.append(dt)
         check(len(step_s) < 10_000, "serving did not finish")
-    launches = dict(kernel.LAUNCHES)
+    launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
     eng.view.fabric.check_invariants()
     reclaimed = (pool.free_count() + int(pool.reserved.sum())
                  == pool.total_pages and not pool.table.ref)
@@ -380,6 +532,7 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
                 produced=[s.produced for s in eng.finished],
                 finished=len(eng.finished), steps=len(step_s),
                 decode_steps=eng.decode_steps, prefill_steps=prefill_steps,
+                prefill_chunks=eng.prefill_chunks_run,
                 verify_steps=spec["steps"], spec=spec, launches=launches,
                 reclaimed=reclaimed, wall_s=sum(step_s), step_s=step_s,
                 decode_s=decode_s, tokens_emitted=eng.tokens_emitted,
@@ -459,9 +612,11 @@ def phase_serve(device, cfg) -> dict:
     check(r["launches"]["paged_prefill_attention_batch"]
           == r["prefill_steps"] * nl,
           "a prefill step did not go through the prefill kernel")
+    check(r["launches"]["flash_attention"] == 0,
+          "the incremental path ran a full-sequence forward")
     check(r["reclaimed"], "pool not fully reclaimed")
     check(r["logit_err"] is not None, "decode check never ran")
-    return dict(cfg=cfg, params=params, greedy=r)
+    return dict(cfg=cfg, params=params, greedy=r, prompts=prompts)
 
 
 def phase_spec(device, cfg, params) -> dict:
@@ -500,13 +655,34 @@ def phase_spec(device, cfg, params) -> dict:
     return spec
 
 
-def phase_profile(device, cfg, params) -> None:
-    """torch.profiler over 3 full-width decode steps at batch 8 (context
-    ~400): the device's busy share of the window and the kernels that fill
-    it. Informational: nothing here gates."""
+def _profile(tag: str, fn, reps: int, unit: str) -> None:
+    """torch.profiler over ``reps`` calls of ``fn``: the device's busy share
+    of the window and the kernels that fill it. Informational: nothing
+    here gates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    log(f"profile, {tag}: {1e3 * wall / reps:.2f} ms per {unit} (profiler "
+        f"on), device busy {busy / wall:.1%} of the window -- {smi_line()}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms/{unit} "
+            f"{e.count // reps:5d}/{unit}  {e.key[:90]}")
 
+
+def phase_profile(device, cfg, params) -> None:
+    """The profile of 3 full-width decode steps at batch 8 (context
+    ~400)."""
     from repro_torch.placement.pool import BwapPagePool
     from repro_torch.serve.engine import ServeEngine
     pool = BwapPagePool(cfg, _domains(), page_size=PS, device=device)
@@ -518,31 +694,134 @@ def phase_profile(device, cfg, params) -> None:
     while eng.waiting or any(s.produced == 0 for s in eng.active):
         eng.step()                               # prefill, first token
     eng.step()
+    _profile("3 decode steps at batch 8", eng.step, 3, "step")
+
+
+# -- phases 7 and 8 ------------------------------------------------------------
+
+def _forward(lm, params, toks, step) -> tuple[dict, dict]:
+    """``LM.prefill`` then ``make_eval_step`` on ``toks``, each with the
+    flash counter zeroed just before and read just after; the prefill's
+    wall time is synchronised."""
     torch.cuda.synchronize()
-    steps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    log(f"profile, {steps} decode steps at batch 8: {1e3 * wall / steps:.2f}"
-        f" ms per step (profiler on), device busy {busy / wall:.1%} of the "
-        f"window -- {smi_line()}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-            f"{e.count // steps:5d}/step  {e.key[:90]}")
+    fkernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = lm.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"prefill": fkernel.LAUNCHES["flash_attention"]}
+    fkernel.reset_launch_counts()
+    metrics = step(params, {"tokens": toks})
+    loss = float(metrics["loss"])
+    launches["eval"] = fkernel.LAUNCHES["flash_attention"]
+    return dict(logits=logits[:, 0].float(), loss=loss, wall=wall), launches
+
+
+def phase_prefill(device, arch, batch, params=None) -> int:
+    """Full-width ``LM.prefill`` and ``make_eval_step`` at S = 4096 (seeded
+    random weights and tokens): first through the flash kernel, exactly
+    ``num_layers`` launches per forward, then through the plain chunked
+    path (``attn_impl = "reference"``); logits and loss compared. Returns
+    the kernel forwards' flash launches."""
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.train.trainstep import make_eval_step
+    cfg = registry.get_config(arch)
+    lm = LM(cfg)
+    if params is None:
+        params = lm.init(torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (batch, PREFILL_S))).to(device)
+    step = make_eval_step(lm)
+    nl = cfg.num_layers
+    lm.prefill(params, {"tokens": toks})          # warm-up, not timed
+    fast, n_fast = _forward(lm, params, toks, step)
+    lm.attn_impl = "reference"
+    plain, n_plain = _forward(lm, params, toks, step)
+    lm.attn_impl = None
+    err = float((fast["logits"] - plain["logits"]).abs().max())
+    agree = int((fast["logits"].argmax(-1) == plain["logits"].argmax(-1))
+                .sum())
+    dloss = abs(fast["loss"] - plain["loss"])
+    tok_s = batch * PREFILL_S / fast["wall"]
+    log(f"full-width prefill {arch} ({nl} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, h {cfg.head_dim_}, B={batch}, "
+        f"S={PREFILL_S}): flash launches {n_fast} through the kernel, "
+        f"{n_plain} through the plain path; prefill wall "
+        f"{fast['wall']:.4f} s ({tok_s:.0f} tokens/s) vs plain chunked path "
+        f"{plain['wall']:.4f} s; last-token logits max |diff| {err:.4g} "
+        f"(gate {LOGIT_TOL}; |logit| up to "
+        f"{float(plain['logits'].abs().max()):.3g}), argmax agrees on "
+        f"{agree}/{batch} rows; loss {fast['loss']:.6f} vs "
+        f"{plain['loss']:.6f} (|diff| {dloss:.3g}, gate {LOSS_TOL}) -- "
+        f"{smi_line()}")
+    check(n_fast == {"prefill": nl, "eval": nl},
+          f"{arch}: flash launches {n_fast}, want {nl} per forward")
+    check(n_plain == {"prefill": 0, "eval": 0},
+          f"{arch}: the plain path launched the kernel")
+    check(all(np.isfinite([fast["loss"], plain["loss"]]))
+          and bool(torch.isfinite(fast["logits"]).all()),
+          f"{arch}: non-finite logits or loss")
+    check(err <= LOGIT_TOL, f"{arch}: logits differ by {err} > {LOGIT_TOL}")
+    check(agree == batch, f"{arch}: argmax differs on {batch - agree} rows")
+    check(dloss <= LOSS_TOL, f"{arch}: loss differs by {dloss} > {LOSS_TOL}")
+    _profile(f"{arch} prefill forward, B={batch}, S={PREFILL_S}",
+             lambda: lm.prefill(params, {"tokens": toks}), 2, "forward")
+    if cfg.head_dim_ not in kernel.HEAD_DIMS:
+        _engine_refuses(device, cfg, params)
+    return n_fast["prefill"] + n_fast["eval"]
+
+
+def _engine_refuses(device, cfg, params) -> None:
+    """A serving engine for a head dim the paged kernel lacks fails when it
+    is built, with the kernel's message."""
+    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
+    from repro_torch.serve.engine import ServeEngine
+    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 8, 819.0, True)],
+                        page_size=PS, device=device)
+    try:
+        ServeEngine(cfg, params, pool, device=device)
+    except ValueError as e:
+        check("head dim" in str(e), f"unexpected error: {e}")
+        log(f"{cfg.name} ServeEngine refused at construction: {e}")
+        return
+    raise SmokeFailure(f"{cfg.name}: ServeEngine accepted head dim "
+                       f"{cfg.head_dim_}")
+
+
+def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
+    """Phase 4's trace with ``incremental_prefill=False``: each prefill
+    chunk recomputes the prompt prefix with ``LM.hidden`` (the engine's
+    exactness oracle), every layer through the flash kernel."""
+    r = serve(cfg, params, device, prompts, incremental_prefill=False)
+    _report("full-width recompute-prefill serving", r)
+    nl = cfg.num_layers
+    check(r["finished"] == 8 and r["produced"] == [32] * 8,
+          f"finished {r['finished']}, produced {r['produced']}")
+    check(r["prefill_chunks"] > 0
+          and r["launches"]["flash_attention"] == nl * r["prefill_chunks"],
+          f"flash launches {r['launches']['flash_attention']}, want "
+          f"{nl} x {r['prefill_chunks']} recompute chunks")
+    check(r["launches"]["paged_prefill_attention_batch"] == 0,
+          "the recompute path ran the paged prefill kernel")
+    check(r["launches"]["paged_attention"] == r["decode_steps"] * nl,
+          "a decode step did not go through the decode kernel")
+    check(r["reclaimed"], "pool not fully reclaimed")
+    same = sum(greedy["tokens"][k] == r["tokens"].get(k)
+               for k in greedy["tokens"])
+    log(f"recompute prefill: {r['prefill_chunks']} chunks, "
+        f"{r['launches']['flash_attention']} flash launches; tokens equal "
+        f"the incremental run's for {same} of 8 sequences (an observation, "
+        f"not a gate: the two paths run different kernels; workload seed 0)")
+    return r
 
 
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
-    global torch, kernel, ops
+    global torch, kernel, ops, fkernel, fops
     import torch as _torch
     torch = _torch
     if not torch.cuda.is_available():
@@ -554,33 +833,48 @@ def main() -> int:
             "checkout of the repository")
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention import kernel as _fk
+    from repro_torch.kernels.flash_attention import ops as _fo
     from repro_torch.kernels.paged_attention import kernel as _k
     from repro_torch.kernels.paged_attention import ops as _o
-    kernel, ops = _k, _o
+    kernel, ops, fkernel, fops = _k, _o, _fk, _fo
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t0 = time.perf_counter()
     phase_build()
     errs = phase_correctness()
+    errs["flash_attention_bh"] = phase_flash_correctness()
     times = phase_timing()
     from repro_torch.configs import registry
     s = phase_serve(device, registry.get_config("qwen2-0.5b"))
     phase_spec(device, s["cfg"], s["params"])
     phase_profile(device, s["cfg"], s["params"])
+    flash_launches = phase_prefill(device, "qwen2-0.5b", 4, s["params"])
+    flash_launches += phase_prefill(device, "gemma-2b", 1)
+    phase_recompute(device, s["cfg"], s["params"], s["prompts"],
+                    s["greedy"])
     greedy = s["greedy"]
-    replaces = {"paged_attention":
-                "src/repro/kernels/paged_attention/kernel.py:317",
-                "paged_prefill_attention_batch":
-                "src/repro/kernels/paged_attention/kernel.py:233"}
+    paged_src = "src/repro_torch/csrc/paged_attention.cu"
+    paged_tpu = "src/repro/kernels/paged_attention/kernel.py"
+    # (name, source, TPU kernel's pallas_call, launches on its main path)
+    table = [
+        ("paged_attention", paged_src, f"{paged_tpu}:317",
+         greedy["launches"]["paged_attention"]),
+        ("paged_prefill_attention_batch", paged_src, f"{paged_tpu}:233",
+         greedy["launches"]["paged_prefill_attention_batch"]),
+        ("paged_prefill_attention", paged_src, f"{paged_tpu}:276",
+         greedy["launches"]["paged_prefill_attention"]),
+        ("flash_attention_bh", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:114", flash_launches),
+    ]
     rows = []
-    for name in ("paged_attention", "paged_prefill_attention_batch"):
-        check(greedy["launches"][name] > 0, f"{name} never launched")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/csrc/paged_attention.cu",
-            replaces=replaces[name], launches=greedy["launches"][name],
-            max_abs_err=errs[name], **times[name]))
+    for name, source, replaces, launches in table:
+        if name != "paged_prefill_attention":   # no call site on a path
+            check(launches > 0, f"{name} never launched on its path")
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=launches,
+                         max_abs_err=errs[name], **times[name]))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

@@ -1,15 +1,20 @@
-"""Architecture registry (port of ``repro.configs.registry``).
+"""Architecture registry and the LM shapes (port of
+``repro.configs.registry``).
 
-The ids are the reference's ten. Only ``qwen2-0.5b`` (dense, GQA) is
-ported so far; the others raise until their model family lands
-(ROADMAP queue 1 item 13).
+The ids are the reference's ten. The dense ``qwen2-0.5b`` (GQA) and
+``gemma-2b`` (MQA, head dim 256) are ported; the others raise until their
+model family lands (ROADMAP queue 1 item 13). ``step_fn`` gives the train
+and prefill steps; decode raises until ``LM.decode_step`` is ported.
+``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
 
 ARCH_IDS = [
     "granite-moe-3b-a800m",
@@ -24,7 +29,7 @@ ARCH_IDS = [
     "whisper-tiny",
 ]
 
-PORTED = ("qwen2-0.5b",)
+PORTED = ("qwen2-0.5b", "gemma-2b")
 
 
 def _module(arch: str):
@@ -44,3 +49,50 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode
+
+
+SHAPES: dict[str, Shape] = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
+
+
+def make_model(cfg: ModelConfig) -> LM:
+    """The dense LM (``LM`` raises for a family that is not ported)."""
+    return LM(cfg)
+
+
+def cell_supported(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
+    """Whether (arch x shape) is a valid cell; the reason if skipped."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("quadratic full attention at 524288 tokens "
+                       "(assignment: long_500k only for SSM/hybrid)")
+    return True, ""
+
+
+def step_fn(cfg: ModelConfig, shape: Shape, model=None):
+    """The cell's step (no optimizer): the train branch returns the loss
+    and metrics, the prefill branch the last token's logits."""
+    model = model or make_model(cfg)
+    if shape.kind == "train":
+        def train_loss(params, batch):
+            return model.loss(params, batch)
+        return train_loss
+    if shape.kind == "prefill":
+        def prefill(params, batch):
+            return model.prefill(params, batch)
+        return prefill
+    raise NotImplementedError(
+        f"{shape.name}: the decode step needs LM.decode_step and "
+        "decode_attention, which are not ported yet (ROADMAP queue 1 "
+        "item 3); serving decodes through the paged kernel instead")

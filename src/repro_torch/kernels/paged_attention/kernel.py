@@ -36,6 +36,14 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def check_head_dim(h: int) -> None:
+    """Raises ``ValueError`` for a head dim the kernel has no instance of
+    (the serving engine calls it when it is built, before any step)."""
+    if h not in HEAD_DIMS:
+        raise ValueError(f"head dim {h}: the paged-attention kernel needs "
+                         f"one of {HEAD_DIMS}")
+
+
 def _entry():
     fn = build.library("paged_attention").bwap_paged_attention
     if fn.argtypes is None:
@@ -65,8 +73,9 @@ def _check(q4, k_pool, v_pool, page_table, qstart):
         raise ValueError(f"pools must be [P,ps,nkv,h] alike, got "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     _, ps, nkv, hk = k_pool.shape
-    if hk != h or h not in HEAD_DIMS:
-        raise ValueError(f"head dim {h} (pool {hk}): need one of {HEAD_DIMS}")
+    if hk != h:
+        raise ValueError(f"head dim {h} (pool {hk}): q and pool differ")
+    check_head_dim(h)
     if not 1 <= ps <= MAX_PAGE_SIZE:
         raise ValueError(f"page size {ps}: need 1..{MAX_PAGE_SIZE}")
     if nq % nkv:

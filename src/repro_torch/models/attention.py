@@ -1,8 +1,10 @@
 """Dense GQA attention (port of the dense part of ``repro.models.attention``).
 
-The full-sequence reference path (``chunked_mha``) and the grouped decode
-einsum (``gqa_attention``) on plain tensors. MLA and the Pallas flash
-route (``impl="flash"``) are not ported yet.
+The full-sequence reference path (``chunked_mha``), the grouped decode
+einsum (``gqa_attention``), and ``full_attention``, whose causal
+attention goes through the flash-attention op: on a card that is the
+hand-written CUDA kernel (``kernels/flash_attention``), the counterpart of
+the reference's Pallas route (``impl="flash"``). MLA is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import dtype_of
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init
@@ -116,15 +119,22 @@ def _mha_one_chunk(q, k, v, bias, compute_dtype,
 
 
 def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
-                   impl: str = "reference", causal: bool = True):
-    """Full-sequence self-attention (train / prefill), reference branch.
+                   impl: str | None = None, causal: bool = True):
+    """Full-sequence self-attention (train / prefill).
+
+    ``impl`` picks the branch of causal attention: ``None`` takes the flash
+    branch on a CUDA tensor (the CUDA kernel) and the chunked reference
+    branch on the CPU; ``"flash"`` takes the flash branch on any device (on
+    the CPU that is the kernel's plain version); ``"reference"`` takes the
+    chunked branch. Non-causal attention always takes the chunked branch,
+    as in the reference. The flash branch assumes ``positions`` is
+    ``arange(S)`` per row, as the reference's does.
 
     Returns (out [B,S,d], (k, v)) with k/v [B,S,nkv,hd] for cache priming.
     """
-    if impl != "reference":
-        raise NotImplementedError(
-            "full_attention(impl='flash') waits for the flash-attention "
-            "kernel port (ROADMAP queue 2)")
+    if impl not in (None, "flash", "reference"):
+        raise ValueError(f"unknown impl {impl!r}: None, 'flash' or "
+                         "'reference'")
     assert not cfg.mrope, "M-RoPE is not ported yet"
     cdt = dtype_of(cfg.compute_dtype)
     b, s, _ = x.shape
@@ -143,11 +153,16 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    # repeat KV to full query heads, as the reference does
-    g = nq // nkv
-    kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-    vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-    out = chunked_mha(q, kf, vf, positions, positions, int(window), causal,
-                      cdt, scores_dtype=dtype_of(cfg.attn_scores_dtype))
+    flash = causal and (impl == "flash" or (impl is None and x.is_cuda))
+    if flash:
+        out = flash_ops.flash_attention(q, k, v, window=int(window))
+    else:
+        # repeat KV to full query heads, as the reference does
+        g = nq // nkv
+        kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+        vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+        out = chunked_mha(q, kf, vf, positions, positions, int(window),
+                          causal, cdt,
+                          scores_dtype=dtype_of(cfg.attn_scores_dtype))
     out = out.reshape(b, s, nq * hd) @ p["wo"].to(cdt)
     return out, (k, v)

@@ -24,14 +24,17 @@ def layer_params(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x, positions,
-              window: int, want_cache: bool = False):
-    """Returns (x_out, aux_loss, cache_entry_or_None)."""
+              window: int, want_cache: bool = False,
+              attn_impl: str | None = None):
+    """Returns (x_out, aux_loss, cache_entry_or_None). ``attn_impl`` is
+    ``full_attention``'s ``impl``."""
     if kind != "dense":
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet (ROADMAP queue 1)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(cfg, p["norm1"], x)
-    a, kv = attention.full_attention(cfg, p["attn"], h, positions, window)
+    a, kv = attention.full_attention(cfg, p["attn"], h, positions, window,
+                                     impl=attn_impl)
     cache = {"k": kv[0], "v": kv[1]} if want_cache else None
     x = x + a
     h = layers.apply_norm(cfg, p["norm2"], x)

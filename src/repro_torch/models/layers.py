@@ -1,5 +1,6 @@
 """Shared layer primitives on plain tensors (port of ``repro.models.layers``:
-norms, the gated MLP, rotary embeddings and the initialisers).
+norms, the gated MLP, rotary embeddings, the initialisers and the
+cross-entropy losses).
 
 Params are the reference's nested dicts of tensors. Initialisers draw from
 an explicit ``torch.Generator``; they cannot reproduce ``jax.random``, so
@@ -119,3 +120,45 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# -- losses -----------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross-entropy; logits [..., V] in fp32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def softmax_xent_fused(h, w_head, labels, chunk: int = 0):
+    """CE from hidden states h [B,S,d] (aligned with labels [B,S]) without
+    [B,S,V] logits: the head matmul and logsumexp run per sequence chunk.
+    The chunk rule is the reference's (fp32 logits of 2**28 bytes per
+    device under 16-way batch and vocab sharding), so both chunk alike.
+    Returns the mean NLL."""
+    b, s, _ = h.shape
+    v = w_head.shape[-1]
+    if chunk <= 0:
+        budget = 2 ** 28
+        b_local = max(b // 16, 1)
+        v_local = v // 16 if v % 16 == 0 else v
+        chunk = max(8, min(s, budget // max(b_local * v_local * 4, 1)))
+    w = w_head.to(h.dtype)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = 0
+    for i in range(0, s, chunk):
+        hc = h[:, i:i + chunk]
+        lc = labels[:, i:i + chunk]
+        logits = (hc @ w).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lc[..., None].long(),
+                                    dim=-1)[..., 0]
+        nll_sum = nll_sum + (logz - gold).sum()
+        n += hc.shape[1] * b
+    return nll_sum / n

@@ -1,5 +1,5 @@
 """Causal LM assembly for the dense family (port of ``repro.models.lm``:
-``init``, ``embed``, ``hidden`` and ``logits``).
+``init``, ``embed``, ``hidden``, ``logits``, ``loss`` and ``prefill``).
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
 (+ ``"head"`` when embeddings are untied), where each group of 4 or more
@@ -59,6 +59,10 @@ class LM:
         self.cfg = cfg
         self.groups = make_groups(cfg)
         self.windows = np.asarray(cfg.window_array(), np.int32)
+        # full_attention's impl for every layer: None takes the CUDA flash
+        # kernel on a card and the chunked path on the CPU; "reference"
+        # forces the chunked path (chip_smoke.py compares the two)
+        self.attn_impl: str | None = None
 
     # -- parameters ----------------------------------------------------------
 
@@ -93,6 +97,12 @@ class LM:
             x = x * np.sqrt(cfg.d_model)
         return x
 
+    def _positions(self, batch: dict, seq: int, batchsz: int):
+        """[B, S] int32 positions 0..S-1 (M-RoPE is not ported)."""
+        dev = batch["tokens"].device
+        return torch.arange(seq, dtype=torch.int32, device=dev).expand(
+            batchsz, seq)
+
     # -- full-sequence forward ---------------------------------------------------
 
     def hidden(self, params: Params, x, positions, want_cache: bool = False):
@@ -107,7 +117,7 @@ class LM:
             for j, li in enumerate(g.indices):
                 x, aux, cache = blocks.layer_fwd(
                     cfg, g.kind, layer_params_of(gp, j), x, positions,
-                    int(self.windows[li]), want_cache)
+                    int(self.windows[li]), want_cache, self.attn_impl)
                 aux_total = aux_total + aux
                 group_cache.append(cache)
             if want_cache and g.scanned:
@@ -125,3 +135,25 @@ class LM:
     def logits(self, params: Params, h):
         cdt = dtype_of(self.cfg.compute_dtype)
         return h.to(cdt) @ self.head_matrix(params).to(cdt)
+
+    # -- losses and prefill ----------------------------------------------------------
+
+    def loss(self, params: Params, batch: dict):
+        """Mean next-token cross-entropy over ``batch["tokens"]`` [B,S]
+        (fused head + CE, no [B,S,V] logits), plus the layers' aux loss.
+        Returns (total, {"ce", "aux"})."""
+        tokens = batch["tokens"]
+        x = self.embed(params, batch)
+        positions = self._positions(batch, x.shape[1], x.shape[0])
+        h, aux, _ = self.hidden(params, x, positions)
+        ce = layers.softmax_xent_fused(h[:, :-1, :], self.head_matrix(params),
+                                       tokens[:, 1:])
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def prefill(self, params: Params, batch: dict):
+        """Full-sequence forward; returns the last token's logits
+        [B,1,V]."""
+        x = self.embed(params, batch)
+        positions = self._positions(batch, x.shape[1], x.shape[0])
+        h, _, _ = self.hidden(params, x, positions)
+        return self.logits(params, h[:, -1:, :])

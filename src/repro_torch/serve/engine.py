@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import dtype_of, resolve
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -57,6 +58,8 @@ class PagedDecoder:
         # the CUDA kernel on a card; impl="reference" forces the plain
         # version (chip_smoke.py compares the two on one pool state)
         self.impl = "cuda" if self.device.type == "cuda" else "reference"
+        if self.impl == "cuda":
+            paged_kernel.check_head_dim(cfg.head_dim_)
         cdt = dtype_of(cfg.compute_dtype)
         gp = params["groups"][0]
         # weights in the compute dtype, cast once (norm gains stay fp32:

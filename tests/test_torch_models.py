@@ -51,7 +51,7 @@ def test_registry_mirrors_reference():
     assert t_registry.get_smoke_config("qwen2-0.5b") == ModelConfig(
         **dataclasses.asdict(registry.get_smoke_config("qwen2-0.5b")))
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_registry.get_config("gemma-2b")
+        t_registry.get_config("gemma3-27b")
 
 
 def test_bf16_params_cross_bit_exactly():

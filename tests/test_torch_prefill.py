@@ -1,0 +1,166 @@
+"""repro_torch's full-sequence forward against the reference: ``LM.prefill``,
+``LM.loss``, ``make_eval_step``, the cross-entropy losses, the registry's
+shapes and step functions, and the gemma-2b config.
+
+Both packages get the same params (drawn by the reference, crossing through
+numpy) and the same seeded tokens, on the qwen2 and gemma smoke configs in
+fp32. Tolerance 5e-5, as ``test_torch_models.py``: both sides compute in
+fp32 but sum in different orders (XLA:CPU vs ATen). The port's forward runs
+with ``attn_impl=None`` (the chunked branch on the CPU) and ``"flash"``
+(the flash kernel's plain version); the reference's LM takes its chunked
+branch. The reference runs under ``jax.jit``. On a card, the serving engine
+must refuse a head dim its paged kernel lacks when it is built.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax", reason="parity with the reference needs jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as r_registry  # noqa: E402
+from repro.models import layers as r_layers  # noqa: E402
+from repro.models.lm import LM  # noqa: E402
+from repro.train.trainstep import make_eval_step as r_eval_step  # noqa: E402
+from repro_torch.configs import registry as t_registry  # noqa: E402
+from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.models import layers as t_layers  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.lm import LM as TLM  # noqa: E402
+from repro_torch.train.trainstep import make_eval_step  # noqa: E402
+
+TOL = dict(rtol=5e-5, atol=5e-5)
+ARCHS = ["qwen2-0.5b", "gemma-2b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    """(reference cfg, reference LM, its params, port LM, port params,
+    tokens) for one smoke config in fp32."""
+    cfg = dataclasses.replace(r_registry.get_smoke_config(request.param),
+                              compute_dtype="float32")
+    rm = LM(cfg)
+    params = jax.tree.map(np.asarray, jax.jit(rm.init)(jax.random.PRNGKey(0)))
+    tm = TLM(ModelConfig(**dataclasses.asdict(cfg)))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 21))
+    return (cfg, rm, params, tm, params_from_reference(params, device="cpu"),
+            toks)
+
+
+@pytest.mark.parametrize("attn_impl", [None, "flash"])
+def test_prefill_and_loss_match_reference(model, attn_impl):
+    _, rm, params, tm, tparams, toks = model
+    tm.attn_impl = attn_impl
+    batch = {"tokens": torch.from_numpy(toks)}
+    rbatch = {"tokens": jnp.asarray(toks)}
+    want = jax.jit(rm.prefill)(params, rbatch)
+    got = tm.prefill(tparams, batch)
+    assert got.shape == want.shape == (2, 1, rm.cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    (want, wm), (got, gm) = jax.jit(rm.loss)(params, rbatch), \
+        tm.loss(tparams, batch)
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    np.testing.assert_allclose(gm["ce"].item(), float(wm["ce"]), **TOL)
+    assert gm["aux"].item() == float(wm["aux"]) == 0.0
+
+
+def test_eval_step_matches_reference(model):
+    _, rm, params, tm, tparams, toks = model
+    want = jax.jit(r_eval_step(rm))(params, {"tokens": jnp.asarray(toks)})
+    got = make_eval_step(tm)(tparams, {"tokens": torch.from_numpy(toks)})
+    assert set(got) == set(want) == {"ce", "aux", "loss"}
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), float(want[k]), **TOL)
+
+
+@pytest.mark.parametrize("chunk", [0, 3, 8])
+def test_softmax_xent_matches_reference(chunk):
+    """Both losses, with and without a mask; the fused loss at its default
+    chunk rule (``chunk=0``) and at ragged chunks."""
+    rng = np.random.default_rng(chunk)
+    b, s, d, v = 2, 10, 16, 48
+    h = rng.standard_normal((b, s, d)).astype(np.float32)
+    w = rng.standard_normal((d, v)).astype(np.float32)
+    labels = rng.integers(0, v, (b, s))
+    mask = (rng.random((b, s)) < 0.7).astype(np.float32)
+    logits = h @ w
+    t = torch.from_numpy
+    xent = jax.jit(r_layers.softmax_xent)
+    np.testing.assert_allclose(
+        t_layers.softmax_xent(t(logits), t(labels)).item(),
+        float(xent(logits, labels)), **TOL)
+    np.testing.assert_allclose(
+        t_layers.softmax_xent(t(logits), t(labels), t(mask)).item(),
+        float(xent(logits, labels, mask)), **TOL)
+    np.testing.assert_allclose(
+        t_layers.softmax_xent_fused(t(h), t(w), t(labels), chunk).item(),
+        float(jax.jit(r_layers.softmax_xent_fused, static_argnums=3)(
+            h, w, labels, chunk)), **TOL)
+
+
+def test_registry_shapes_and_steps_mirror_reference(model):
+    cfg, rm, params, tm, tparams, toks = model
+    tcfg = tm.cfg
+    assert list(t_registry.SHAPES) == list(r_registry.SHAPES)
+    for name, shape in r_registry.SHAPES.items():
+        tshape = t_registry.SHAPES[name]
+        assert dataclasses.asdict(tshape) == dataclasses.asdict(shape)
+        assert t_registry.cell_supported(tcfg, tshape) == \
+            r_registry.cell_supported(cfg, shape)
+    assert isinstance(t_registry.make_model(tcfg), TLM)
+    batch = {"tokens": torch.from_numpy(toks)}
+    rbatch = {"tokens": jnp.asarray(toks)}
+    train = t_registry.step_fn(tcfg, t_registry.SHAPES["train_4k"], tm)
+    want = jax.jit(r_registry.step_fn(cfg, r_registry.SHAPES["train_4k"],
+                                      rm))(params, rbatch)
+    np.testing.assert_allclose(train(tparams, batch)[0].item(),
+                               float(want[0]), **TOL)
+    prefill = t_registry.step_fn(tcfg, t_registry.SHAPES["prefill_32k"], tm)
+    want = jax.jit(r_registry.step_fn(cfg, r_registry.SHAPES["prefill_32k"],
+                                      rm))(params, rbatch)
+    np.testing.assert_allclose(prefill(tparams, batch).numpy(),
+                               np.asarray(want), **TOL)
+    for name in ("decode_32k", "long_500k"):
+        with pytest.raises(NotImplementedError, match="queue 1"):
+            t_registry.step_fn(tcfg, t_registry.SHAPES[name], tm)
+
+
+def test_gemma_config_mirrors_reference():
+    for arch in ARCHS:
+        assert t_registry.get_config(arch) == ModelConfig(
+            **dataclasses.asdict(r_registry.get_config(arch)))
+        assert t_registry.get_smoke_config(arch) == ModelConfig(
+            **dataclasses.asdict(r_registry.get_smoke_config(arch)))
+    full = t_registry.get_config("gemma-2b")
+    assert (full.num_layers, full.head_dim_, full.num_kv_heads) == (18, 256, 1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_registry.get_config("gemma3-27b")
+
+
+def test_paged_kernel_head_dim_check():
+    """gemma-2b's head dim 256 has no paged-kernel instance; the check the
+    engine runs when it is built on a card says so."""
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
+    with pytest.raises(ValueError, match="head dim 256"):
+        paged_kernel.check_head_dim(t_registry.get_config("gemma-2b")
+                                    .head_dim_)
+    for h in paged_kernel.HEAD_DIMS:
+        paged_kernel.check_head_dim(h)
+
+
+def test_cuda_engine_refuses_head_dim_256_when_built():
+    """On a card the engine fails at construction, not in a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(t_registry.get_smoke_config("gemma-2b"),
+                              head_dim=256)
+    params = TLM(cfg).init(torch.Generator().manual_seed(0), device="cuda")
+    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 8, 819.0, True)],
+                        page_size=16, device="cuda")
+    with pytest.raises(ValueError, match="head dim 256"):
+        ServeEngine(cfg, params, pool, device="cuda")
