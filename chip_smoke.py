@@ -7,13 +7,17 @@ Phases (each failed check raises; the script then exits non-zero):
 
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a (one nvcc per source, all started together);
+   sm_90a (one nvcc per source, all started together); ptxas registers,
+   spills and dynamic shared memory per kernel instance; the bf16 flash
+   instances must hold HGMMA (tensor-core) instructions in their SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
    kernel at the serving shapes (qwen2-0.5b heads, bf16) and the smoke
    shapes (fp32), plus three bitwise properties; the flash kernel over the
-   reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal) and
-   the prefill shapes (qwen2-0.5b and gemma-2b heads, bf16, S = T = 4096,
-   and S != T), plus bitwise suffix and batch invariance;
+   reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal),
+   its bf16 instances at every head dim (ragged T, S < T, S > T, windows,
+   non-causal, B > 1) and the prefill shapes (qwen2-0.5b and gemma-2b
+   heads, bf16, S = T = 4096, and S != T), each case on the instance its
+   dtype and head dim select, plus bitwise suffix and batch invariance;
 3. timing with CUDA events (L2 flushed before every launch) of kernel,
    plain version and a ``scaled_dot_product_attention`` yardstick, beside
    the least time the card could take (bytes at the HBM rate, or flops at
@@ -28,10 +32,10 @@ Phases (each failed check raises; the script then exits non-zero):
    busy share and the kernels that fill it (informational);
 7. full-width prefill: ``LM.prefill`` and ``make_eval_step`` of qwen2-0.5b
    (B = 4) and gemma-2b (B = 1) at S = 4096, every layer's attention
-   through the flash kernel (counters zeroed before each forward, exactly
-   ``num_layers`` launches), then the same forwards through the plain
-   chunked path: last-token logits and loss compared; a profiler window
-   over the kernel forward (informational);
+   through the flash kernel's tensor-core instance (counters zeroed before
+   each forward, exactly ``num_layers`` launches), then the same forwards
+   through the plain chunked path: last-token logits and loss compared; a
+   profiler window over the kernel forward (informational);
 8. recompute-prefill serving: phase 4's trace with
    ``incremental_prefill=False``, every recompute chunk a 24-layer forward
    through the flash kernel.
@@ -44,6 +48,7 @@ Nothing here imports JAX: the machine with the card has none.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,9 +115,80 @@ def phase_build() -> None:
     log(f"build: {secs:.1f} s (nvcc, sm_90a) of "
         f"{sorted(p.name for p in build.CSRC.glob('*.cu'))}")
     for name, out in build.LOGS.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}] {line.strip()}")
+        for fn, regs, spill in _ptxas_report(build, out):
+            smem = ""
+            m = re.match(r"flash(_wgmma)?_kernel<(?:(float|__nv_bfloat16), )?"
+                         r"(\d+)>", fn)
+            if m:
+                dtype = torch.float32 if m.group(2) == "float" else \
+                    torch.bfloat16
+                smem = (f"; {fkernel.smem_bytes(dtype, int(m.group(3)))} "
+                        f"bytes dynamic shared memory")
+            log(f"  ptxas[{name}] {fn}: {regs}; {spill}{smem}")
+    _check_tensor_cores(build)
+
+
+def _ptxas_report(build, out) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) for each entry function in nvcc's
+    ``-Xptxas -v`` output, kernel names demangled where ``cu++filt`` is
+    found."""
+    rows, fn, spill = [], None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            rows.append((fn, line.split(":", 1)[-1].strip(), spill))
+            fn = None
+    names = _short_names(build, [r[0] for r in rows])
+    return [(n, regs, spill) for n, (_, regs, spill) in zip(names, rows)]
+
+
+def _short_names(build, mangled: list[str]) -> list[str]:
+    """Kernel names as ``name<template args>``, demangled with ``cu++filt``
+    where it is found (else as they came)."""
+    try:
+        names = subprocess.run(
+            [build.cuda_tool("cu++filt")], input="\n".join(mangled),
+            capture_output=True, text=True, check=True, timeout=60
+        ).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        names = mangled
+    if len(names) != len(mangled):
+        names = mangled
+    short = []
+    for n in names:
+        # name<args>( ... ): template arguments may print as "(int)256"
+        m = re.search(r"(\w+)<(.*?)>\(", n)
+        args = re.sub(r"[(][\w ]+[)]", "", m.group(2)) if m else ""
+        short.append(f"{m.group(1)}<{args}>" if m else n)
+    return short
+
+
+def _check_tensor_cores(build) -> None:
+    """The bf16 flash instances (h = 64, 128, 256) run on tensor cores:
+    each has HGMMA instructions in its SASS (``cuobjdump -sass``)."""
+    so = build.library_path("flash_attention")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    wgmma = {k: v for k, v in counts.items() if "flash_wgmma_kernel" in k}
+    names = _short_names(build, list(counts))
+    log(f"SASS of {so.name}: HGMMA instructions per kernel "
+        + ", ".join(f"{n} {v}" for n, v in zip(names, counts.values())))
+    check(len(wgmma) == len(fkernel.WGMMA_HEAD_DIMS)
+          and all(v > 0 for v in wgmma.values()),
+          f"the bf16 flash instances lack HGMMA: {wgmma}")
 
 
 # -- inputs --------------------------------------------------------------------
@@ -248,9 +324,13 @@ def _flash_inputs(rng, b, s, t, heads, dtype):
 def phase_flash_correctness() -> float:
     """The flash kernel against its plain version: tests/test_kernels.py's
     sweep (:28-70) in fp32 and bf16, windows 1/7/64/200 (1 and 7 leave a
-    row's first 64-key tile fully masked), non-causal, then the prefill
-    shapes in bf16 (qwen2-0.5b and gemma-2b heads at S = T = 4096, and
-    S = 1000 < T = 4096), then bitwise suffix and batch invariance."""
+    row's first 64-key tile fully masked), non-causal, then the bf16
+    instances at every head dim (h >= 64: the tensor-core instance) with T
+    not a multiple of the 64-key tile, S < T, S > T, windows 1/7/33/200,
+    non-causal and B > 1, then the prefill shapes in bf16 (qwen2-0.5b and
+    gemma-2b heads at S = T = 4096, and S = 1000 < T = 4096), then bitwise
+    suffix and batch invariance. Each case must launch the instance that
+    its dtype and head dim select."""
     rng = np.random.default_rng(4)
     mha, gqa = dict(nq=4, nkv=4, h=64), dict(nq=8, nkv=2, h=64)
     mqa, small = dict(nq=4, nkv=1, h=32), dict(nq=2, nkv=2, h=128)
@@ -260,33 +340,45 @@ def phase_flash_correctness() -> float:
              for b, s, heads in ((1, 128, mha), (2, 256, gqa), (1, 192, mqa),
                                  (1, 64, small))]
     cases += [(1, 200, 200, win, "float32", w, True) for w in (1, 7, 64, 200)]
-    cases += [(2, 128, 128, mha, "float32", 0, False),
-              (1, PREFILL_S, PREFILL_S, MAIN, "bfloat16", 0, True),
+    cases += [(2, 128, 128, mha, "float32", 0, False)]
+    cases += [(2, 131, 131, dict(nq=4, nkv=2, h=h), "bfloat16", 0, True)
+              for h in fkernel.HEAD_DIMS]
+    cases += [(1, 100, 250, dict(nq=6, nkv=2, h=64), "bfloat16", 0, True),
+              (1, 250, 100, dict(nq=4, nkv=1, h=128), "bfloat16", 0, True),
+              (3, 190, 190, dict(nq=8, nkv=1, h=256), "bfloat16", 0, False)]
+    cases += [(2, 300, 300, dict(nq=4, nkv=2, h=h), "bfloat16", w, True)
+              for h, w in ((64, 1), (128, 7), (256, 33), (64, 200))]
+    cases += [(1, PREFILL_S, PREFILL_S, MAIN, "bfloat16", 0, True),
               (1, PREFILL_S, PREFILL_S, GEMMA, "bfloat16", 0, True),
               (1, 1000, PREFILL_S, MAIN, "bfloat16", 0, True)]
-    err = 0.0
+    errs = dict.fromkeys(fkernel.LAUNCHES, 0.0)
     for b, s, t, heads, dtype, window, causal in cases:
         q, k, v = _flash_inputs(rng, b, s, t, heads, dtype)
         kw = dict(window=window, causal=causal)
+        name = fkernel.instance(q.dtype, heads["h"])
+        n0 = fkernel.LAUNCHES[name]
         out = fops.flash_attention(q, k, v, **kw)
+        check(fkernel.LAUNCHES[name] == n0 + 1,
+              f"{dtype} h={heads['h']} did not launch the {name} instance")
         want = fops.flash_attention(q, k, v, impl="reference", **kw)
-        err = max(err, _max_err(out, want, dtype))
+        errs[name] = max(errs[name], _max_err(out, want, dtype))
     torch.cuda.synchronize()
     log(f"flash kernel vs plain version over {len(cases)} cases: max |err| "
-        f"{err:.3g} (tolerance {TOL['float32']} fp32 / {TOL['bfloat16']} "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tolerance {TOL['float32']} fp32 / {TOL['bfloat16']} "
         f"bf16, and bf16 within {BF16_ULPS[0]} |want| + {BF16_ULPS[1]})")
     for heads in (MAIN, GEMMA):
         _flash_bitwise(rng, heads)
-    return err
+    return max(errs.values())
 
 
 def _flash_bitwise(rng, heads) -> None:
     """On the kernel, bit for bit: the first S' rows of a run at S = T =
-    1024 equal a run at S' = T' < 1024; row b of a B = 4 run equals that
-    row alone."""
+    1024 equal a run at S' = T' < 1024 (S' on both sides of the 64- and
+    128-row tiles); row b of a B = 4 run equals that row alone."""
     q, k, v = _flash_inputs(rng, 4, 1024, 1024, heads, "bfloat16")
     full = fops.flash_attention(q, k, v)
-    for s2 in (1, 64, 65, 700):
+    for s2 in (1, 64, 65, 127, 128, 129, 700):
         part = fops.flash_attention(*(x[:, :s2].contiguous()
                                       for x in (q, k, v)))
         check(torch.equal(part, full[:, :s2]),
@@ -612,7 +704,8 @@ def phase_serve(device, cfg) -> dict:
     check(r["launches"]["paged_prefill_attention_batch"]
           == r["prefill_steps"] * nl,
           "a prefill step did not go through the prefill kernel")
-    check(r["launches"]["flash_attention"] == 0,
+    check(r["launches"]["flash_attention"] == 0
+          and r["launches"]["flash_attention_wgmma"] == 0,
           "the incremental path ran a full-sequence forward")
     check(r["reclaimed"], "pool not fully reclaimed")
     check(r["logit_err"] is not None, "decode check never ran")
@@ -701,19 +794,19 @@ def phase_profile(device, cfg, params) -> None:
 
 def _forward(lm, params, toks, step) -> tuple[dict, dict]:
     """``LM.prefill`` then ``make_eval_step`` on ``toks``, each with the
-    flash counter zeroed just before and read just after; the prefill's
-    wall time is synchronised."""
+    flash counters zeroed just before and read just after (launches per
+    instance); the prefill's wall time is synchronised."""
     torch.cuda.synchronize()
     fkernel.reset_launch_counts()
     t0 = time.perf_counter()
     logits = lm.prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"prefill": fkernel.LAUNCHES["flash_attention"]}
+    launches = {"prefill": dict(fkernel.LAUNCHES)}
     fkernel.reset_launch_counts()
     metrics = step(params, {"tokens": toks})
     loss = float(metrics["loss"])
-    launches["eval"] = fkernel.LAUNCHES["flash_attention"]
+    launches["eval"] = dict(fkernel.LAUNCHES)
     return dict(logits=logits[:, 0].float(), loss=loss, wall=wall), launches
 
 
@@ -721,8 +814,9 @@ def phase_prefill(device, arch, batch, params=None) -> int:
     """Full-width ``LM.prefill`` and ``make_eval_step`` at S = 4096 (seeded
     random weights and tokens): first through the flash kernel, exactly
     ``num_layers`` launches per forward, then through the plain chunked
-    path (``attn_impl = "reference"``); logits and loss compared. Returns
-    the kernel forwards' flash launches."""
+    path (``attn_impl = "reference"``); logits and loss compared. Every
+    flash launch of the kernel forwards (bf16, h 64 or 256) must be the
+    tensor-core instance's. Returns those launches."""
     from repro_torch.configs import registry
     from repro_torch.models.lm import LM
     from repro_torch.train.trainstep import make_eval_step
@@ -757,9 +851,11 @@ def phase_prefill(device, arch, batch, params=None) -> int:
         f"{agree}/{batch} rows; loss {fast['loss']:.6f} vs "
         f"{plain['loss']:.6f} (|diff| {dloss:.3g}, gate {LOSS_TOL}) -- "
         f"{smi_line()}")
-    check(n_fast == {"prefill": nl, "eval": nl},
-          f"{arch}: flash launches {n_fast}, want {nl} per forward")
-    check(n_plain == {"prefill": 0, "eval": 0},
+    want = {"flash_attention": 0, "flash_attention_wgmma": nl}
+    check(n_fast == {"prefill": want, "eval": want},
+          f"{arch}: flash launches {n_fast}, want {nl} per forward, all "
+          f"on the tensor-core instance")
+    check(all(n == 0 for f in n_plain.values() for n in f.values()),
           f"{arch}: the plain path launched the kernel")
     check(all(np.isfinite([fast["loss"], plain["loss"]]))
           and bool(torch.isfinite(fast["logits"]).all()),
@@ -771,7 +867,8 @@ def phase_prefill(device, arch, batch, params=None) -> int:
              lambda: lm.prefill(params, {"tokens": toks}), 2, "forward")
     if cfg.head_dim_ not in kernel.HEAD_DIMS:
         _engine_refuses(device, cfg, params)
-    return n_fast["prefill"] + n_fast["eval"]
+    return (n_fast["prefill"]["flash_attention_wgmma"]
+            + n_fast["eval"]["flash_attention_wgmma"])
 
 
 def _engine_refuses(device, cfg, params) -> None:
@@ -801,9 +898,12 @@ def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
     check(r["finished"] == 8 and r["produced"] == [32] * 8,
           f"finished {r['finished']}, produced {r['produced']}")
     check(r["prefill_chunks"] > 0
-          and r["launches"]["flash_attention"] == nl * r["prefill_chunks"],
-          f"flash launches {r['launches']['flash_attention']}, want "
-          f"{nl} x {r['prefill_chunks']} recompute chunks")
+          and r["launches"]["flash_attention_wgmma"]
+          == nl * r["prefill_chunks"]
+          and r["launches"]["flash_attention"] == 0,
+          f"flash launches {r['launches']}, want {nl} x "
+          f"{r['prefill_chunks']} recompute chunks on the tensor-core "
+          f"instance")
     check(r["launches"]["paged_prefill_attention_batch"] == 0,
           "the recompute path ran the paged prefill kernel")
     check(r["launches"]["paged_attention"] == r["decode_steps"] * nl,
@@ -812,8 +912,9 @@ def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
     same = sum(greedy["tokens"][k] == r["tokens"].get(k)
                for k in greedy["tokens"])
     log(f"recompute prefill: {r['prefill_chunks']} chunks, "
-        f"{r['launches']['flash_attention']} flash launches; tokens equal "
-        f"the incremental run's for {same} of 8 sequences (an observation, "
+        f"{r['launches']['flash_attention_wgmma']} flash launches; tokens "
+        f"equal the incremental run's for {same} of 8 sequences (an "
+        f"observation, "
         f"not a gate: the two paths run different kernels; workload seed 0)")
     return r
 
@@ -875,6 +976,8 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches,
                          max_abs_err=errs[name], **times[name]))
+    # the flash row's launches and times are the bf16 tensor-core instance's
+    rows[-1]["instance"] = "flash_attention_wgmma"
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

@@ -15,44 +15,80 @@
 // 1/sqrt(H); the softmax is online, in fp32 (m, l, acc); out = acc / l
 // rounded once to the element type, and 0 where l == 0 (no key seen).
 //
-// Design (simple first). Grid (ceil(S/BQ), nq, B), heaviest query tiles
-// first; a block of 256 threads owns BQ = 64 query rows of one (b, head)
-// and walks BK = 64-key tiles in ascending order of their absolute index,
-// from the first tile the window can reach to the last tile causality
-// allows (the tile skipping of :46-51, keyed on absolute starts). Q (once),
-// each K and V tile are converted to fp32 in shared memory (Q and K stored
-// transposed, [H][64], so the score loop reads float4s). Thread (ty, tx) of
-// a 16 x 16 grid owns rows ty*4..ty*4+3: it scores keys tx*4..tx*4+3 of the
-// tile (a 4 x 4 register tile) and accumulates output dims
-// tx*VEC + 16*VEC*c + e (VEC = min(4, H/16)). The tile's probabilities go
-// through shared memory (P, [64][64]) from the score layout to the PV
-// layout. All arithmetic is fp32 on CUDA cores.
+// What bounds it on the H100: causal prefill at S = 4096 with qwen2-0.5b
+// heads does 4*H*nq*S(S+1)/2 = 30 GFLOP and moves 17 MB, so it is bound by
+// operations: ~30 us at the 989 TFLOP/s dense bf16 tensor-core peak, against
+// ~5 us for the bytes at 3.35 TB/s. Only the tensor cores can approach that.
+// Two instances, chosen by element type and head dim only (never by S, T,
+// B or window, so a row's bits never depend on them):
+//
+// 1. bf16, H = 64, 128, 256: the tensor-core instance (flash_wgmma_kernel).
+//    A block of three warpgroups owns BQ = 128 query rows of one (b, head)
+//    and walks 64-key tiles.
+//    - Warpgroup 0 is the producer: one thread issues TMA loads from 4-D
+//      tensor maps over [B, len, heads, H] (a box is one head's [rows x 64]
+//      slab, 128-byte swizzled; rows past S or T read as zeros), Q once and
+//      K and V through a ring of 6, 4 or 2 stages (H = 64, 128, 256), each
+//      with an mbarrier for K, one for V and one that the consumers
+//      release. It gives its registers away (setmaxnreg 24).
+//    - Warpgroups 1 and 2 consume 64 query rows each (setmaxnreg 240; the
+//      role is taken from a warp-uniform warpgroup index, without which
+//      ptxas spills the pipelined loop as if the consumers had the
+//      launch's 168 registers):
+//      S = Q K^T by wgmma (bf16 in, fp32 accumulate, both operands from
+//      shared memory, K-major), fp32 online softmax in the accumulator
+//      layout (a row lives on the 4 lanes of a quad), then O += P V by wgmma
+//      with P from registers and V from shared memory as the MN-major
+//      (transposed) B operand, so V is never transposed in memory. O is
+//      H/64 accumulators of m64n64 (128 fp32 registers a thread at H = 256).
+//    - At H = 64 and 128 the tiles are pipelined as in FlashAttention-3:
+//      S(i+1) = Q K(i+1)^T and O += P(i) V(i) are issued together and the
+//      softmax of tile i+1 runs while they do; the two warpgroups take turns
+//      to issue (named barriers), so one's softmax overlaps the other's
+//      products. At H = 256, O leaves too few registers for a second tile in
+//      flight, and a warpgroup takes one tile at a time.
+//    - P goes in as a hi/lo pair, hi = bf16(p), lo = bf16(p - hi), two PV
+//      products into one fp32 accumulator. A single bf16 P breaks the gate of
+//      two bf16 ulps of the plain version; the pair keeps p to ~16 bits, as
+//      close as fp32 P (tests/test_torch_flash.py holds an emulation of this
+//      rounding against both gates). It costs 1.5x the nominal flops.
+//    - p = 2^(s * scale * log2(e) - m), one fma and one MUFU ex2 per score.
+//    Shared memory at H = 256: Q 64 KB + two stages of K and V, 32 KB each =
+//    192 KB, one block per SM.
+// 2. fp32 (any H) and bf16 at H = 16, 32: the CUDA-core instance
+//    (flash_kernel, the port's first design). fp32 stays on CUDA cores as its
+//    gate is 2e-5 and TF32 tensor cores keep about three decimal digits;
+//    fp32 is on no full-width path. H = 16 and 32 have 32- and 64-byte rows,
+//    which would need the 32- and 64-byte swizzle modes and descriptor
+//    layouts of their own for a fraction of the work per key; no full-width
+//    configuration uses them.
 //
 // Masking without the reference's accident. _flash_kernel starts at
 // m = -1e38 and lets a row whose first tile is fully masked sum
 // exp(0) = 1 over masked keys, which a later alpha = 0 wipes. Here a masked
-// key's p is set to exactly 0 and never enters the max, m starts at the
-// finite -2e38 (exp(-2e38 - -2e38) = 1, never NaN): a tile fully masked for
-// a row leaves m unchanged, so alpha = 1, p = 0, and (m, l, acc) keep their
-// bits. Keys at or past T and rows at or past S are zero-filled in shared
-// memory, so no stale value reaches an fma (0 * NaN would not be 0).
+// key's p is exactly 0 (hi and lo both 0) and never enters the max, m
+// starts at the finite -2e38 (exp(-2e38 - -2e38) = 1, never NaN): a tile
+// fully masked for a row after its first key leaves m unchanged, so
+// alpha = 1, p = 0, and (m, l, acc) keep their bits; before its first key
+// it leaves l = acc = 0 (in the tensor-core instance, whose max is taken on
+// raw scores, m may move from -2e38 to -2e38 * scale * log2(e), which gives
+// alpha = 0 at the first key all the same). Keys at or past T and rows at
+// or past S are zero in shared memory, so no stale value reaches a product
+// (0 * NaN would not be 0).
 //
-// Bitwise invariance. A row's arithmetic does not depend on S, T (once they
-// exceed the row), B, or the block it lands in: tiles start at multiples of
-// 64 in absolute key position, each score is one fmaf chain over d = 0..H-1,
-// the row max and the row sum of p are one xor butterfly over the 16 lanes
-// of the row group (equal bits on every lane), and PV adds keys 0..63 of a
-// tile in order. Tiles past a row's last visible key are exact no-ops for
-// it, so a longer S or T changes none of its bits.
-//
-// Bound on the H100 (989 TFLOP/s dense bf16, 3.35 TB/s HBM): causal
-// prefill at S = 4096 with qwen2-0.5b heads does 4*H*nq*S(S+1)/2 = 30 GFLOP
-// and moves 17 MB, so it is bound by operations (~30 us at the bf16 peak).
-// This kernel runs those flops on fp32 CUDA cores (67 TFLOP/s peak, so
-// ~0.45 ms at best). Left for later: wgmma for QK^T and PV (with p kept
-// accurate enough for the fp32 gates), TMA double-buffering of the next
-// K/V tile, and warp specialisation.
+// Bitwise invariance (the engine's recompute oracle equals one-shot prefill
+// bit for bit). A row's arithmetic does not depend on S, T (once they
+// exceed the row), B, or the block it lands in: query tiles start at
+// multiples of BQ and key tiles at multiples of 64 in absolute position,
+// each score is one product over d = 0..H-1 in an order fixed by the
+// instance, the row max and the row sum of p are one xor butterfly over the
+// lanes that hold the row (equal bits on each), every multiply and fma of the
+// softmax is written out (__fmul_rn, __fmaf_rn) so that the masked and the
+// unmasked code paths round alike, and PV adds a tile's keys in a fixed
+// order. Tiles past a row's last visible key are exact no-ops for it, so a
+// longer S or T changes none of its bits.
 
+#include <cuda.h>           // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,12 +96,29 @@
 namespace {
 
 constexpr float NEG_INF = -2.0e38f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// The CUDA-core instance: fp32 at every head dim, bf16 at H = 16, 32.
+// Grid (ceil(S/BQ), nq, B), heaviest query tiles first; a block of 256
+// threads owns BQ = 64 query rows of one (b, head) and walks BK = 64-key
+// tiles in ascending order of their absolute index, from the first tile the
+// window can reach to the last tile causality allows (the tile skipping of
+// :46-51, keyed on absolute starts). Q (once), each K and V tile are
+// converted to fp32 in shared memory (Q and K stored transposed, [H][64], so
+// the score loop reads float4s). Thread (ty, tx) of a 16 x 16 grid owns rows
+// ty*4..ty*4+3: it scores keys tx*4..tx*4+3 of the tile (a 4 x 4 register
+// tile) and accumulates output dims tx*VEC + 16*VEC*c + e (VEC = min(4,
+// H/16)). The tile's probabilities go through shared memory (P, [64][64])
+// from the score layout to the PV layout. Each score is one fmaf chain over
+// d; the row max and sum are xor butterflies over the 16 lanes of a row.
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;                 // query rows per block
 constexpr int BK = 64;                 // keys per tile
 constexpr int THREADS = 256;           // 16 x 16 thread grid
 constexpr int RPT = 4;                 // rows per thread
 constexpr int KPT = 4;                 // keys per thread (scores)
-constexpr unsigned FULL = 0xffffffffu;
 
 // 16 bytes of Elem -> fp32
 __device__ __forceinline__ void load16(const float* p, float* out) {
@@ -282,13 +335,16 @@ flash_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
 }
 
+// Q^T, K^T, V and P in fp32
+constexpr int simt_smem_bytes(int h) {
+  return (int)sizeof(float) * (h * BQ + h * BK + BK * h + BQ * BK);
+}
+
 template <typename Elem, int H>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int t, int nq, int nkv, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)H * BQ + (size_t)H * BK + (size_t)BK * H +
-                       (size_t)BQ * BK);
+  const size_t smem = simt_smem_bytes(H);
   auto kern = flash_kernel<Elem, H>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -303,37 +359,638 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   return (int)cudaGetLastError();
 }
 
-template <typename Elem>
-int dispatch_h(int h, const void* q, const void* k, const void* v, void* out,
-               int b, int s, int t, int nq, int nkv, int causal, int window,
-               float scale, cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// The tensor-core instance: bf16 at H = 64, 128, 256 (see the top of file).
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 128;                // query rows per block
+constexpr int WK = 64;                 // keys per tile
+constexpr int WG_THREADS = 384;        // producer warpgroup + two consumers
+constexpr int CHUNK = 64;              // bf16 of one 128-byte swizzled row
+constexpr int ROW_BYTES = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Dynamic shared memory of the H instance, from a 1024-byte aligned base:
+// Q as H/64 chunks of [WQ][64], then per stage K and V as H/64 chunks of
+// [WK][64] (each chunk one TMA box, 128-byte swizzled), then the mbarriers:
+// q_full, full_k[STAGES], full_v[STAGES], empty[STAGES].
+template <int H>
+struct WgLayout {
+  static constexpr int NC = H / CHUNK;
+  // K/V ring depth: as deep as shared memory allows (Q + 2 stages of K and
+  // V is 192 KB at H = 256)
+  static constexpr int STAGES = H == 256 ? 2 : H == 128 ? 4 : 6;
+  static constexpr int Q_BYTES = WQ * H * 2;
+  static constexpr int KV_BYTES = WK * H * 2;     // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  // mbarrier addresses of stage st, from the barriers' base
+  static __device__ uint32_t full_k(uint32_t bars, int st) {
+    return bars + 8 * (1 + st);
+  }
+  static __device__ uint32_t full_v(uint32_t bars, int st) {
+    return bars + 8 * (1 + STAGES + st);
+  }
+  static __device__ uint32_t empty(uint32_t bars, int st) {
+    return bars + 8 * (1 + 2 * STAGES + st);
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// arrive, and expect `bytes` more from the copies that signal this barrier
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed; a wait that
+// outlasts ~2^34 cycles (seconds) traps, so a lost arrival ends the launch
+// with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// one box of a 4-D tensor map into shared memory, signalling `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte swizzled operand:
+// start address, leading and stride byte offsets (stored in 16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most N committed wgmma groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of accumulator registers across
+// an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define ACC32_LIST                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31}"
+#define ACC32_OPERANDS(d)                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+      "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B for A [64 x 16] and B [16 x 64], both bf16 in shared memory,
+// K-major; d = A B when `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC32_OPERANDS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for A [64 x 16] bf16 in registers (four bf16 pairs a thread, the
+// accumulator layout of S) and B [16 x 64] bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : ACC32_OPERANDS(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// 2^x (the MUFU approximation; -inf -> 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers over the two consumer warpgroups (256 threads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Per-thread state of a consumer: the thread holds rows a and b (8 apart)
+// of its warpgroup's 64; in each 8-key group of a tile, keys kc and kc + 1.
+struct Rows {
+  int qa, qb, kc;
+  float m_a, m_b, l_a, l_b;     // running max (log2 units) and sum
+};
+
+// S = Q K^T for one 64-key tile, 16 dims a step (issued, committed)
+template <int H>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t dq,
+                                         uint64_t dk) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  keep(s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    // chunk kk / 4 of the row, 32 bytes a step within its 128 bytes
+    const uint32_t off = (kk % 4) * 2;            // 16-byte units
+    wgmma_ss(s, dq + (kk / 4) * (WQ * ROW_BYTES / 16) + off,
+             dk + (kk / 4) * (WK * ROW_BYTES / 16) + off, kk > 0);
+  }
+  wg_commit();
+}
+
+// O += P_hi V + P_lo V for one tile, 16 keys a step (issued, committed)
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
+                                         const uint32_t (&ph)[16],
+                                         const uint32_t (&pl)[16],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int j = 0; j < NC; ++j) keep(o[j]);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      const uint64_t d = dv + (j * WK * ROW_BYTES + kk * 16 * ROW_BYTES) / 16;
+      wgmma_rs(o[j], ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+               ph[4 * kk + 3], d);
+      wgmma_rs(o[j], pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+               pl[4 * kk + 3], d);
+    }
+  wg_commit();
+}
+
+// The online softmax of one tile of scores s (keys k0 ..): masked keys
+// (tested only where the tile can hold one for a row of this warpgroup,
+// whose first row is row0) go to -inf; (m, l) move to the tile; s becomes
+// p = 2^(s c2 - m) in fp32; returns the factors alpha that O must take.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
+                                             int row0, int t_len, int causal,
+                                             int window, float c2,
+                                             float& al_a, float& al_b) {
+  const bool edge = k0 + WK > t_len || (causal && k0 + WK - 1 > row0) ||
+                    (window > 0 && row0 + 63 - k0 >= window);
+  float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e];
+      if (edge) {
+        const int kpos = k0 + 8 * n + r.kc + (e & 1);
+        const int qpos = e < 2 ? r.qa : r.qb;
+        const bool ok = kpos < t_len && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        x = ok ? x : __int_as_float(0xff800000);
+      }
+      s[4 * n + e] = x;
+      if (e < 2)
+        mx_a = fmaxf(mx_a, x);
+      else
+        mx_b = fmaxf(mx_b, x);
+    }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+  const float mn_a = fmaxf(r.m_a, __fmul_rn(mx_a, c2));
+  const float mn_b = fmaxf(r.m_b, __fmul_rn(mx_b, c2));
+  al_a = ex2(r.m_a - mn_a);
+  al_b = ex2(r.m_b - mn_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(__fmaf_rn(s[4 * n + e], c2, e < 2 ? -mn_a : -mn_b));
+      s[4 * n + e] = p;
+      if (e < 2)
+        sum_a += p;
+      else
+        sum_b += p;
+    }
+  sum_a += __shfl_xor_sync(FULL, sum_a, 1);
+  sum_a += __shfl_xor_sync(FULL, sum_a, 2);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 1);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 2);
+  r.l_a = __fmaf_rn(r.l_a, al_a, sum_a);
+  r.l_b = __fmaf_rn(r.l_b, al_b, sum_b);
+}
+
+// p (fp32) -> the hi/lo bf16 pair, the A operand of P V: pair r holds
+// p[2r], p[2r+1] (row a for even r, b for odd), register r % 4 of key step
+// r / 4. Then O = O * alpha, ready for the tile's P V.
+template <int NC>
+__device__ __forceinline__ void stage_p(const float (&s)[32],
+                                        uint32_t (&ph)[16],
+                                        uint32_t (&pl)[16],
+                                        float (&o)[NC][32], float al_a,
+                                        float al_b) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * r], s[2 * r + 1]);
+    const float2 hf = __bfloat1622float2(hi);
+    ph[r] = bf16x2_bits(hi);
+    pl[r] = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(s[2 * r], hf.x),
+                                              __fsub_rn(s[2 * r + 1], hf.y)));
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[j][4 * n] = __fmul_rn(o[j][4 * n], al_a);
+      o[j][4 * n + 1] = __fmul_rn(o[j][4 * n + 1], al_a);
+      o[j][4 * n + 2] = __fmul_rn(o[j][4 * n + 2], al_b);
+      o[j][4 * n + 3] = __fmul_rn(o[j][4 * n + 3], al_b);
+    }
+}
+
+template <int H>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int s_len, int t_len,
+                   int nq, int nkv, int causal, int window, float scale) {
+  using L = WgLayout<H>;
+  constexpr int NC = L::NC;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem)) + 1023u) &
+      ~1023u;
+  const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF, q_full = bars;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (nq / nkv);
+  const int q0 = qt * WQ;
+  // KV tiles this block needs: from the first the window reaches to the
+  // last causality allows, by absolute key position
+  const int q_last = min(q0 + WQ, s_len) - 1;
+  int kt_hi = (t_len - 1) / WK;
+  if (causal) kt_hi = min(kt_hi, q_last / WK);
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / WK : 0;
+  const int n_tiles = kt_hi - kt_lo + 1;          // may be <= 0
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(L::full_k(bars, st), 1);
+      mbar_init(L::full_v(bars, st), 1);
+      mbar_init(L::empty(bars, st), 8);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform to the compiler (a shuffle from
+  // lane 0), so that each role gets its own register budget
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: one thread keeps the K/V ring filled
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < NC; ++c)
+        tma_load(q_s + c * WQ * ROW_BYTES, &tq, q_full, c * CHUNK, head, q0,
+                 b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % L::STAGES;
+        const int k0 = (kt_lo + i) * WK;
+        mbar_wait(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
+        const uint32_t kd = k_s + st * L::KV_BYTES;
+        const uint32_t vd = v_s + st * L::KV_BYTES;
+        mbar_expect_tx(L::full_k(bars, st), L::KV_BYTES);
+        for (int c = 0; c < NC; ++c)
+          tma_load(kd + c * WK * ROW_BYTES, &tk, L::full_k(bars, st),
+                   c * CHUNK, kvh, k0, b);
+        mbar_expect_tx(L::full_v(bars, st), L::KV_BYTES);
+        for (int c = 0; c < NC; ++c)
+          tma_load(vd + c * WK * ROW_BYTES, &tv, L::full_v(bars, st),
+                   c * CHUNK, kvh, k0, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns rows row0 .. row0 + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * cw;
+    Rows r;
+    r.qa = row0 + 16 * warp + lane / 4;
+    r.qb = r.qa + 8;
+    r.kc = 2 * (lane % 4);
+    r.m_a = r.m_b = NEG_INF;
+    r.l_a = r.l_b = 0.f;
+    const float c2 = __fmul_rn(scale, LOG2E);     // scores to log2 units
+    float o[NC][32];
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    float s[32], al_a, al_b;
+    uint32_t ph[16], pl[16];
+    const uint64_t dq = gmma_desc(q_s + cw * 64 * ROW_BYTES, 16, 1024);
+    // descriptors of stage st, derived per use so that the compiler does
+    // not keep every step's in registers
+    auto dk_of = [&](int st) {
+      uint64_t d = gmma_desc(k_s + st * L::KV_BYTES, 16, 1024);
+      asm volatile("" : "+l"(d));
+      return d;
+    };
+    auto dv_of = [&](int st) {
+      uint64_t d = gmma_desc(v_s + st * L::KV_BYTES, WK * ROW_BYTES, 1024);
+      asm volatile("" : "+l"(d));
+      return d;
+    };
+    // Every tile of the block's range is computed by both warpgroups: a
+    // tile that a warpgroup's rows cannot see is fully masked for them, an
+    // exact no-op, and no wgmma sits under a data-dependent branch.
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      if constexpr (H <= 128) {
+        // Pipelined: the products S(i+1) = Q K(i+1)^T and O += P(i) V(i)
+        // are issued together, and the softmax of tile i+1 runs while they
+        // (and the other warpgroup's) do. The two warpgroups take turns to
+        // issue (named barriers 1 and 2), so that one's softmax runs beside
+        // the other's products.
+        const int my_turn = 1 + cw, other_turn = 2 - cw;
+        if (cw == 1) named_arrive(1);             // warpgroup 0 goes first
+        mbar_wait(L::full_k(bars, 0), 0);
+        named_sync(my_turn);
+        issue_qk<H>(s, dq, dk_of(0));
+        named_arrive(other_turn);
+        wg_wait<0>();
+        keep(s);
+        softmax_tile(s, r, kt_lo * WK, row0, t_len, causal, window, c2, al_a,
+                     al_b);
+        stage_p(s, ph, pl, o, al_a, al_b);
+        for (int i = 0; i + 1 < n_tiles; ++i) {
+          const int st = i % L::STAGES, nx = (i + 1) % L::STAGES;
+          mbar_wait(L::full_k(bars, nx),
+                    ((i + 1) / L::STAGES) & 1);
+          mbar_wait(L::full_v(bars, st), (i / L::STAGES) & 1);
+          named_sync(my_turn);
+          issue_qk<H>(s, dq, dk_of(nx));
+          issue_pv(o, ph, pl, dv_of(st));
+          named_arrive(other_turn);
+          wg_wait<1>();                           // S(i+1) is in
+          keep(s);
+          softmax_tile(s, r, (kt_lo + i + 1) * WK, row0, t_len, causal,
+                       window, c2, al_a, al_b);
+          wg_wait<0>();                           // O += P(i) V(i) is in
+#pragma unroll
+          for (int j = 0; j < NC; ++j) keep(o[j]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(L::empty(bars, st));
+          stage_p(s, ph, pl, o, al_a, al_b);
+        }
+        const int st = (n_tiles - 1) % L::STAGES;
+        mbar_wait(L::full_v(bars, st),
+                  ((n_tiles - 1) / L::STAGES) & 1);
+        named_sync(my_turn);
+        issue_pv(o, ph, pl, dv_of(st));
+        named_arrive(other_turn);
+        wg_wait<0>();
+#pragma unroll
+        for (int j = 0; j < NC; ++j) keep(o[j]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(L::empty(bars, st));
+        // warpgroup 0 takes the turn that warpgroup 1 passed after its
+        // last issue, so that no barrier is left half arrived
+        if (cw == 0) named_sync(1);
+      } else {
+        // H = 256: O alone takes 128 registers a thread, too many to keep
+        // a second tile's S and P in flight, so one tile at a time
+        for (int i = 0; i < n_tiles; ++i) {
+          const int st = i % L::STAGES;
+          const uint32_t par = (i / L::STAGES) & 1;
+          mbar_wait(L::full_k(bars, st), par);
+          mbar_wait(L::full_v(bars, st), par);
+          issue_qk<H>(s, dq, dk_of(st));
+          wg_wait<0>();
+          keep(s);
+          softmax_tile(s, r, (kt_lo + i) * WK, row0, t_len, causal, window,
+                       c2, al_a, al_b);
+          stage_p(s, ph, pl, o, al_a, al_b);
+          issue_pv(o, ph, pl, dv_of(st));
+          wg_wait<0>();
+#pragma unroll
+          for (int j = 0; j < NC; ++j) keep(o[j]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(L::empty(bars, st));
+        }
+      }
+    }
+    const int qa = r.qa, qb = r.qb, kc = r.kc;
+    const float l_a = r.l_a, l_b = r.l_b;
+
+    // out = O / l, 0 where the row saw no key
+    const size_t row_stride = (size_t)nq * H;
+    __nv_bfloat16* oa = out + ((size_t)b * s_len + qa) * row_stride +
+                        (size_t)head * H;
+    __nv_bfloat16* ob = oa + 8 * row_stride;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = j * CHUNK + 8 * n + kc;
+        if (qa < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(oa + col) = __floats2bfloat162_rn(
+              l_a == 0.f ? 0.f : o[j][4 * n] / l_a,
+              l_a == 0.f ? 0.f : o[j][4 * n + 1] / l_a);
+        if (qb < s_len)
+          *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(
+              l_b == 0.f ? 0.f : o[j][4 * n + 2] / l_b,
+              l_b == 0.f ? 0.f : o[j][4 * n + 3] / l_b);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 4-D map over a contiguous bf16 [n, len, heads, H] (innermost first): a
+// box is one head's [rows x 64] slab, 128-byte swizzled; rows past len read
+// as zeros. Returns 0, or -3 when the driver refuses the map.
+template <int H>
+int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int n,
+             int len, int heads, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)H, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)H * 2, (cuuint64_t)heads * H * 2,
+                                 (cuuint64_t)len * heads * H * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CHUNK, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+template <int H>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int b, int s, int t, int nq, int nkv, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -2;
+  CUtensorMap tq, tk, tv;
+  if (make_map<H>(enc, &tq, q, b, s, nq, WQ) ||
+      make_map<H>(enc, &tk, k, b, t, nkv, WK) ||
+      make_map<H>(enc, &tv, v, b, t, nkv, WK))
+    return -3;
+  constexpr int smem = WgLayout<H>::BYTES;
+  auto kern = flash_wgmma_kernel<H>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((s + WQ - 1) / WQ, nq, b);
+  kern<<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), s, t, nq, nkv, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+#define FLASH_ARGS q, k, v, out, b, s, t, nq, nkv, causal, window, scale, st
+
+int dispatch_f32(int h, const void* q, const void* k, const void* v,
+                 void* out, int b, int s, int t, int nq, int nkv, int causal,
+                 int window, float scale, cudaStream_t st) {
   switch (h) {
-    case 16:
-      return launch<Elem, 16>(q, k, v, out, b, s, t, nq, nkv, causal, window,
-                              scale, st);
-    case 32:
-      return launch<Elem, 32>(q, k, v, out, b, s, t, nq, nkv, causal, window,
-                              scale, st);
-    case 64:
-      return launch<Elem, 64>(q, k, v, out, b, s, t, nq, nkv, causal, window,
-                              scale, st);
-    case 128:
-      return launch<Elem, 128>(q, k, v, out, b, s, t, nq, nkv, causal,
-                               window, scale, st);
-    case 256:
-      return launch<Elem, 256>(q, k, v, out, b, s, t, nq, nkv, causal,
-                               window, scale, st);
-    default:
-      return -1;
+    case 16: return launch<float, 16>(FLASH_ARGS);
+    case 32: return launch<float, 32>(FLASH_ARGS);
+    case 64: return launch<float, 64>(FLASH_ARGS);
+    case 128: return launch<float, 128>(FLASH_ARGS);
+    case 256: return launch<float, 256>(FLASH_ARGS);
+    default: return -1;
+  }
+}
+
+int dispatch_bf16(int h, const void* q, const void* k, const void* v,
+                  void* out, int b, int s, int t, int nq, int nkv, int causal,
+                  int window, float scale, cudaStream_t st) {
+  switch (h) {
+    case 16: return launch<__nv_bfloat16, 16>(FLASH_ARGS);
+    case 32: return launch<__nv_bfloat16, 32>(FLASH_ARGS);
+    case 64: return launch_wgmma<64>(FLASH_ARGS);
+    case 128: return launch_wgmma<128>(FLASH_ARGS);
+    case 256: return launch_wgmma<256>(FLASH_ARGS);
+    default: return -1;
   }
 }
 
 }  // namespace
 
+// Dynamic shared memory a launch of the (h, dtype) instance asks for, in
+// bytes; -1 for an instance that does not exist.
+extern "C" int bwap_flash_smem_bytes(int h, int dtype) {
+  if (dtype == 1 && (h == 64 || h == 128 || h == 256))
+    return h == 64 ? WgLayout<64>::BYTES
+                   : h == 128 ? WgLayout<128>::BYTES : WgLayout<256>::BYTES;
+  if ((dtype != 0 && dtype != 1) ||
+      (h != 16 && h != 32 && h != 64 && h != 128 && h != 256))
+    return -1;
+  return simt_smem_bytes(h);
+}
+
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. q [b, s, nq,
 // h], k/v [b, t, nkv, h], out [b, s, nq, h], all contiguous and 16-byte
 // aligned. Launches on `stream` and returns cudaGetLastError() (0 =
-// success); -1 for a shape or type the kernel does not take.
+// success); -1 for a shape or type the kernel does not take, -2 when the
+// driver has no cuTensorMapEncodeTiled, -3 when it refuses a tensor map.
+// The instance: bf16 at h = 64, 128, 256 runs on tensor cores, the rest on
+// CUDA cores.
 extern "C" int bwap_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, int b, int s,
                                     int t, int nq, int nkv, int h, int causal,
@@ -344,10 +1001,8 @@ extern "C" int bwap_flash_attention(const void* q, const void* k,
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_h<float>(h, q, k, v, out, b, s, t, nq, nkv, causal,
-                             window, scale, st);
+    return dispatch_f32(h, FLASH_ARGS);
   if (dtype == 1)
-    return dispatch_h<__nv_bfloat16>(h, q, k, v, out, b, s, t, nq, nkv,
-                                     causal, window, scale, st);
+    return dispatch_bf16(h, FLASH_ARGS);
   return -1;
 }

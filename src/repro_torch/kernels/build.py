@@ -28,15 +28,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 LOGS: dict[str, str] = {}          # nvcc output (ptxas register/smem report)
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``, ...), from
+    the PATH or the toolkit PyTorch found; raises when it is missing."""
     from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None and CUDA_HOME:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        cand = Path(CUDA_HOME) / "bin" / name
         found = str(cand) if cand.exists() else None
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build repro_torch's kernels")
+        raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to "
+                           f"build repro_torch's kernels")
     return found
 
 
@@ -56,7 +58,7 @@ def build_all() -> float:
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     procs = []
     for src, so in todo:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -77,11 +79,16 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives (or will)."""
+    return _so_path(CSRC / f"{name}.cu")
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     lib = _LIBS.get(name)
     if lib is None:
-        so = _so_path(CSRC / f"{name}.cu")
+        so = library_path(name)
         if not so.exists():
             build_all()
         lib = ctypes.CDLL(str(so))

@@ -8,9 +8,14 @@ are and passes g = nq / nkv to the kernel, which reads KV head
 repeats them). The block sizes and interpret flag of the TPU kernel have no
 counterpart. The wrapper checks its inputs, allocates the output with
 ``torch.empty``, launches on the current CUDA stream, raises if the launch
-reports an error, and adds one to ``LAUNCHES["flash_attention"]``. There
-is no fallback: a CPU tensor or a shape the kernel does not take raises
-``ValueError``.
+reports an error, and adds one to the launch count of the instance that
+ran (``instance``): ``LAUNCHES["flash_attention_wgmma"]`` for the
+tensor-core instance (bf16 at a head dim in ``WGMMA_HEAD_DIMS``: wgmma,
+TMA, warp specialisation), ``LAUNCHES["flash_attention"]`` for the CUDA-core
+instance (fp32, and bf16 at h = 16, 32). The instance depends on the dtype
+and the head dim only. There is no fallback: a CPU tensor or a shape the
+kernel does not take raises ``ValueError``, and a failed launch raises
+``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -23,16 +28,29 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)   # bf16 head dims of the tensor-core instance
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535             # nq and B are grid dimensions y and z
 
-# launches of the kernel; chip_smoke.py zeroes and reads it
-LAUNCHES = {"flash_attention": 0}
+# launches per instance; chip_smoke.py zeroes and reads them
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
+# the C entry's own error codes (else a cudaError_t)
+_ERRORS = {-1: "shape or dtype not taken",
+           -2: "the driver has no cuTensorMapEncodeTiled",
+           -3: "the driver refused a TMA tensor map"}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def instance(dtype, h: int) -> str:
+    """The ``LAUNCHES`` key of the kernel instance that serves ``dtype`` at
+    head dim ``h``."""
+    if dtype == torch.bfloat16 and h in WGMMA_HEAD_DIMS:
+        return "flash_attention_wgmma"
+    return "flash_attention"
 
 
 def _entry():
@@ -42,6 +60,15 @@ def _entry():
         fn.argtypes = [vp] * 4 + [ci] * 8 + [ctypes.c_float, ci, vp]
         fn.restype = ci
     return fn
+
+
+def smem_bytes(dtype, h: int) -> int:
+    """Dynamic shared memory one launch of the (dtype, h) instance asks
+    for (builds the library if needed)."""
+    fn = build.library("flash_attention").bwap_flash_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(h, _DTYPES[dtype])
 
 
 def _check(q, k, v):
@@ -89,6 +116,7 @@ def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
         float(np.float32(1.0 / np.sqrt(h))), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash-attention launch failed: error {err}")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"flash-attention launch failed: error {err} "
+                           f"({_ERRORS.get(err, 'cudaError_t')})")
+    LAUNCHES[instance(q.dtype, h)] += 1
     return out

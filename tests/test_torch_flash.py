@@ -1,9 +1,10 @@
 """repro_torch flash attention: the plain PyTorch version and the op on CPU
 tensors against the reference (its jnp oracle ``flash_attention_ref`` and
 its Pallas kernel in interpret mode), ``full_attention``'s flash branch
-against the reference's, the dispatch rules, and — on a machine with a
-card — the CUDA kernel against the plain version, with its bitwise
-suffix and batch invariance.
+against the reference's, the dispatch rules, a torch emulation of the
+tensor-core instance's rounding of P (the hi/lo bf16 pair) against both
+bf16 gates, and — on a machine with a card — both CUDA instances against
+the plain version, with their bitwise suffix and batch invariance.
 
 Shapes are ``tests/test_kernels.py``'s flash sweep (MHA, GQA 4:1, MQA with
 S not a multiple of the tile, small S, windows 1/7/64/200, non-causal),
@@ -204,13 +205,100 @@ def test_full_attention_branches_on_cpu(monkeypatch):
         t_attn.full_attention(tcfg, layer, x, pos, 0, impl="cuda")
 
 
+# -- the tensor-core instance's rounding of P, emulated on the CPU --------------
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _emulate_wgmma_instance(q, k, v, *, split, window=0, causal=True,
+                            tile=64):
+    """The bf16 tensor-core instance's tiling and rounding in torch fp32:
+    64-key tiles at absolute positions, masked keys at -inf (p = 0),
+    online (m, l) in fp32 in log2 units with l summing the fp32 p, and P
+    rounded to bf16 before P V: as the pair hi = bf16(p), lo = bf16(p -
+    hi) (``split``), or as hi alone. The exponent arithmetic may differ
+    from the kernel's in the last fp32 bits; what is emulated is where
+    bf16 rounding enters. q [B,S,nq,h], k/v [B,T,nkv,h] bf16 -> bf16; 0
+    where a row sees no key."""
+    b, s, nq, h = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    c2 = float(np.float32(np.float32(1.0 / np.sqrt(h)) * LOG2E))
+    q5 = q.float().reshape(b, s, nkv, nq // nkv, h)
+    scores = torch.einsum("bsngh,btnh->bngst", q5, k.float())
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((*scores.shape[:-1], 1), -2.0e38)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*scores.shape[:-1], h))
+    for k0 in range(0, t, tile):
+        kpos = torch.arange(k0, min(k0 + tile, t))[None, :]
+        ok = torch.ones((s, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= qpos - kpos < window
+        x = torch.where(ok, scores[..., k0:k0 + tile] * c2, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        vt = v[:, k0:k0 + tile].float().permute(0, 2, 1, 3)[:, :, None]
+        hi = p.bfloat16().float()
+        acc = acc * alpha + hi @ vt
+        if split:
+            acc = acc + (p - hi).bfloat16().float() @ vt
+    out = torch.where(l == 0, 0.0, acc / torch.where(l == 0, 1.0, l))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, nq, h).bfloat16()
+
+
+def _bf16_gate_violations(out, want):
+    """(elements beyond the 3e-2 gate, elements beyond two bf16 ulps)."""
+    out, want = out.float(), want.float()
+    diff = (out - want).abs()
+    rel, ab = BF16_ULPS
+    tol = TOL["bfloat16"]
+    return (int((diff > tol + tol * want.abs()).sum()),
+            int((diff > ab + rel * want.abs()).sum()))
+
+
+# (b, s, t, nq, nkv, h, window): qwen2 and gemma head dims, GQA and MQA
+P_SPLIT_SHAPES = [(1, 256, 256, 4, 2, 64, 0), (1, 192, 200, 2, 1, 256, 7)]
+
+
+@pytest.mark.parametrize("shape", P_SPLIT_SHAPES)
+def test_hi_lo_p_keeps_both_bf16_gates(shape):
+    """P as a hi/lo bf16 pair stays within 3e-2 and within two bf16 ulps
+    of the plain version everywhere."""
+    *dims, window = shape
+    q, k, v = (_torch(x, "bfloat16") for x in _inputs(*dims, seed=11))
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    out = _emulate_wgmma_instance(q, k, v, split=True, window=window)
+    assert _bf16_gate_violations(out, want) == (0, 0)
+
+
+@pytest.mark.parametrize("shape", P_SPLIT_SHAPES)
+def test_single_bf16_p_breaks_the_two_ulp_gate(shape):
+    """P rounded once to bf16 (FlashAttention-2/3's choice) passes 3e-2
+    but breaks the two-ulp gate: why the kernel takes the hi/lo pair."""
+    *dims, window = shape
+    q, k, v = (_torch(x, "bfloat16") for x in _inputs(*dims, seed=11))
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    out = _emulate_wgmma_instance(q, k, v, split=False, window=window)
+    loose, ulps = _bf16_gate_violations(out, want)
+    assert loose == 0 and ulps > 100, (loose, ulps)
+
+
 # -- the CUDA kernel against the plain version (card only) ----------------------
 
 def _kernel_vs_plain(q, k, v, dtype, **kw):
-    n0 = kernel.LAUNCHES["flash_attention"]
+    """One launch of the instance that serves this dtype and head dim,
+    against the plain version at the reference's tolerance and, in bf16,
+    within two bf16 ulps of the plain value."""
+    name = kernel.instance(q.dtype, q.shape[-1])
+    before = dict(kernel.LAUNCHES)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert kernel.LAUNCHES["flash_attention"] == n0 + 1
+    assert kernel.LAUNCHES == {**before, name: before[name] + 1}
     want = ops.flash_attention(q, k, v, impl="reference", **kw)
     _close(out, want.float().cpu().numpy(), dtype)
     if dtype == "bfloat16":
@@ -242,17 +330,45 @@ def test_cuda_kernel_matches_plain(cuda, case):
     _kernel_vs_plain(q, k, v, dtype, **kw)
 
 
+# bf16 at every head dim (h >= 64: the tensor-core instance), T not a
+# multiple of the 64-key tile, S < T and S > T, windows 1/7/33/200,
+# non-causal, B > 1
+WGMMA_CASES = [dict(shape=(2, 131, 131, 4, 2, h)) for h in (16, 32, 64, 128,
+                                                         256)] + [
+    dict(shape=(1, 100, 250, 6, 2, 64)),
+    dict(shape=(1, 250, 100, 4, 1, 128)),
+    dict(shape=(3, 190, 190, 8, 1, 256), causal=False),
+    dict(shape=(2, 129, 257, 4, 4, 128), causal=False),
+] + [dict(shape=(2, 300, 300, 4, 2, h), window=w)
+     for h, w in ((64, 1), (128, 7), (256, 33), (64, 200), (256, 200))] + [
+    dict(shape=(1, 260, 260, 4, 2, 128), window=33, causal=False),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_cuda_bf16_instances_match_plain(cuda, case):
+    kw = dict(window=case.get("window", 0), causal=case.get("causal", True))
+    q, k, v = (_torch(x, "bfloat16", cuda)
+               for x in _inputs(*case["shape"], seed=9))
+    _kernel_vs_plain(q, k, v, "bfloat16", **kw)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h,nq,nkv,window", [(64, 14, 2, 0), (256, 8, 1, 0),
-                                             (32, 4, 2, 7)])
+                                             (32, 4, 2, 7), (128, 6, 3, 33)])
 def test_cuda_kernel_suffix_and_batch_invariance(cuda, dtype, h, nq, nkv,
                                                  window):
     """Bit for bit: the first S' rows of a run at S equal a run at S' < S
-    (S = T both times), and row b of a B = 4 run equals that row alone."""
+    (S = T both times), and row b of a B = 4 run equals that row alone.
+    S' crosses the 64-row tile of the CUDA-core instance and the 128-row
+    tile of the tensor-core instance; every launch is the instance's."""
+    name = kernel.instance(getattr(torch, dtype), h)
+    n0 = kernel.LAUNCHES[name]
     q, k, v = (_torch(x, dtype, cuda)
                for x in _inputs(4, 300, 300, nq, nkv, h, seed=8))
     full = ops.flash_attention(q, k, v, window=window)
-    for s2 in (1, 63, 64, 65, 200):
+    cuts = (1, 63, 64, 65, 127, 128, 129, 200)
+    for s2 in cuts:
         part = ops.flash_attention(q[:, :s2].contiguous(),
                                    k[:, :s2].contiguous(),
                                    v[:, :s2].contiguous(), window=window)
@@ -262,6 +378,7 @@ def test_cuda_kernel_suffix_and_batch_invariance(cuda, dtype, h, nq, nkv,
                                   k[b:b + 1].contiguous(),
                                   v[b:b + 1].contiguous(), window=window)
         assert torch.equal(one, full[b:b + 1]), b
+    assert kernel.LAUNCHES[name] == n0 + 1 + len(cuts) + 4
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
