@@ -9,22 +9,28 @@ Phases (each failed check raises; the script then exits non-zero):
    limit, the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together); ptxas registers,
    spills and dynamic shared memory per kernel instance; the bf16 flash
-   instances must hold HGMMA (tensor-core) instructions in their SASS;
+   instances and the bf16 paged instances at h = 64, 128 must hold HGMMA
+   (tensor-core) instructions in their SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
-   kernel at the serving shapes (qwen2-0.5b heads, bf16) and the smoke
-   shapes (fp32), plus three bitwise properties; the flash kernel over the
+   kernel per instance at the serving shapes (qwen2-0.5b heads and h = 128
+   in bf16 on the tensor-core instance; gemma-2b heads in bf16, qwen2-0.5b
+   heads and the smoke shapes in fp32 on the CUDA-core instance), each with
+   three bitwise properties; the flash kernel over the
    reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal),
    its bf16 instances at every head dim (ragged T, S < T, S > T, windows,
    non-causal, B > 1) and the prefill shapes (qwen2-0.5b and gemma-2b
    heads, bf16, S = T = 4096, and S != T), each case on the instance its
    dtype and head dim select, plus bitwise suffix and batch invariance;
-3. timing with CUDA events (L2 flushed before every launch) of kernel,
-   plain version and a ``scaled_dot_product_attention`` yardstick, beside
-   the least time the card could take (bytes at the HBM rate, or flops at
-   the card's dense peak for the input type, whichever is larger);
+3. timing with CUDA events (L2 flushed before every launch, the host's
+   enqueue hidden behind a device spin) of kernel, plain version and a
+   ``scaled_dot_product_attention`` yardstick, beside the least time the
+   card could take (bytes at the HBM rate, or flops at the card's dense
+   peak for the input type, whichever is larger); the paged rows at
+   qwen2-0.5b and at gemma-2b heads;
 4. full-width qwen2-0.5b serving (24 layers, seeded random weights) through
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
-   counters zeroed just before and read just after; one decode step is also
+   counters zeroed just before and read just after, every paged launch on
+   the instance its dtype and head dim select; one decode step is also
    run through the plain version and the logits compared;
 5. speculative decode at full width on a repetition-friendly trace, counters
    zeroed again, verify steps through the prefill kernel;
@@ -38,7 +44,9 @@ Phases (each failed check raises; the script then exits non-zero):
    profiler window over the kernel forward (informational);
 8. recompute-prefill serving: phase 4's trace with
    ``incremental_prefill=False``, every recompute chunk a 24-layer forward
-   through the flash kernel.
+   through the flash kernel;
+9. full-width gemma-2b serving (18 layers, head dim 256): phase 4 on
+   gemma-2b, every paged launch on the CUDA-core instance.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the result JSON.
@@ -75,9 +83,15 @@ PS = 16                          # serving page size
 MAIN = dict(nq=14, nkv=2, h=64)  # qwen2-0.5b attention heads
 SMOKE = dict(nq=4, nkv=2, h=16)  # qwen2 smoke config heads
 GEMMA = dict(nq=8, nkv=1, h=256)  # gemma-2b attention heads
+GEMMA3 = dict(nq=32, nkv=16, h=128)  # gemma3-27b attention heads
+# phase 2's paged sweep: each instance at serving shapes (tensor cores:
+# bf16 at h 64, 128; CUDA cores: bf16 at h 256, fp32)
+PAGED_SWEEP = ((MAIN, "bfloat16"), (GEMMA3, "bfloat16"), (GEMMA, "bfloat16"),
+               (MAIN, "float32"), (SMOKE, "float32"))
 PREFILL_S = 4096                 # train_4k's sequence length
 LONG_S = 32768                   # prefill_32k's sequence length
 FLUSH_BYTES = 64 << 20           # > the H100's 50 MB L2
+SPIN_CYCLES = 1_000_000          # ~0.5 ms at the H100's clock
 
 torch = None
 kernel = ops = None              # paged attention
@@ -117,15 +131,21 @@ def phase_build() -> None:
     for name, out in build.LOGS.items():
         for fn, regs, spill in _ptxas_report(build, out):
             smem = ""
-            m = re.match(r"flash(_wgmma)?_kernel<(?:(float|__nv_bfloat16), )?"
-                         r"(\d+)>", fn)
+            m = re.match(r"(flash|paged)_(?:walk_|wgmma_)?kernel<"
+                         r"(?:(float|__nv_bfloat16), )?(\d+)>", fn)
             if m:
                 dtype = torch.float32 if m.group(2) == "float" else \
                     torch.bfloat16
-                smem = (f"; {fkernel.smem_bytes(dtype, int(m.group(3)))} "
-                        f"bytes dynamic shared memory")
+                h = int(m.group(3))
+                smem = (f"; {fkernel.smem_bytes(dtype, h)} bytes dynamic "
+                        f"shared memory" if m.group(1) == "flash" else
+                        f"; {kernel.smem_bytes(dtype, h, PS)} bytes dynamic "
+                        f"shared memory at page {PS}")
             log(f"  ptxas[{name}] {fn}: {regs}; {spill}{smem}")
-    _check_tensor_cores(build)
+    _check_tensor_cores(build, "flash_attention", "flash_wgmma_kernel",
+                        len(fkernel.WGMMA_HEAD_DIMS))
+    _check_tensor_cores(build, "paged_attention", "paged_wgmma_kernel",
+                        len(kernel.WGMMA_HEAD_DIMS))
 
 
 def _ptxas_report(build, out) -> list[tuple[str, str, str]]:
@@ -167,10 +187,11 @@ def _short_names(build, mangled: list[str]) -> list[str]:
     return short
 
 
-def _check_tensor_cores(build) -> None:
-    """The bf16 flash instances (h = 64, 128, 256) run on tensor cores:
-    each has HGMMA instructions in its SASS (``cuobjdump -sass``)."""
-    so = build.library_path("flash_attention")
+def _check_tensor_cores(build, lib, tc_kernel, n_tc) -> None:
+    """The ``n_tc`` tensor-core instances of library ``lib`` (the kernels
+    named ``tc_kernel``) have HGMMA instructions in their SASS
+    (``cuobjdump -sass``)."""
+    so = build.library_path(lib)
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -182,13 +203,12 @@ def _check_tensor_cores(build) -> None:
             counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-    wgmma = {k: v for k, v in counts.items() if "flash_wgmma_kernel" in k}
+    wgmma = {k: v for k, v in counts.items() if tc_kernel in k}
     names = _short_names(build, list(counts))
     log(f"SASS of {so.name}: HGMMA instructions per kernel "
         + ", ".join(f"{n} {v}" for n, v in zip(names, counts.values())))
-    check(len(wgmma) == len(fkernel.WGMMA_HEAD_DIMS)
-          and all(v > 0 for v in wgmma.values()),
-          f"the bf16 flash instances lack HGMMA: {wgmma}")
+    check(len(wgmma) == n_tc and all(v > 0 for v in wgmma.values()),
+          f"the tensor-core instances of {lib} lack HGMMA: {wgmma}")
 
 
 # -- inputs --------------------------------------------------------------------
@@ -237,16 +257,24 @@ def _max_err(out, want, dtype) -> float:
     return float(diff.max())
 
 
+def _vs_plain(errs, name, dtype, h, call) -> None:
+    """``call(None)`` launches the paged entry point ``name`` once, on the
+    instance its dtype and head dim select; ``call("reference")`` runs the
+    plain version. The error is kept per entry point and per instance."""
+    inst = kernel.instance(getattr(torch, dtype), h)
+    n0 = kernel.LAUNCHES[inst]
+    out = call(None)
+    check(kernel.LAUNCHES[inst] == n0 + 1,
+          f"{name} ({dtype}, h={h}) did not launch the {inst} instance")
+    err = _max_err(out, call("reference"), dtype)
+    for key in (name, inst):
+        errs[key] = max(errs[key], err)
+
+
 def phase_correctness() -> dict[str, float]:
     rng = np.random.default_rng(1)
-    errs = {"paged_attention": 0.0, "paged_prefill_attention_batch": 0.0,
-            "paged_prefill_attention": 0.0}
-
-    def upd(name, e):
-        errs[name] = max(errs[name], e)
-
-    for heads, dtype in ((MAIN, "bfloat16"), (MAIN, "float32"),
-                         (SMOKE, "float32")):
+    errs = dict.fromkeys(kernel.LAUNCHES, 0.0)
+    for heads, dtype in PAGED_SWEEP:
         nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
         pool, b, mp = 1280, 8, 60
         kp, vp = _pools(rng, pool, nkv, h, dtype)
@@ -254,27 +282,23 @@ def phase_correctness() -> dict[str, float]:
         lens = np.asarray([1, 15, 16, 17, 256, 257, 799, 800], np.int32)
         tbl = _ints(_tables(rng, -(-lens // PS), mp, pool))
         q = _data(rng, (b, nq, h), dtype)
-        out = ops.paged_attention(q, kp, vp, tbl, _ints(lens))
-        want = ops.paged_attention(q, kp, vp, tbl, _ints(lens),
-                                   impl="reference")
-        upd("paged_attention", _max_err(out, want, dtype))
+        _vs_plain(errs, "paged_attention", dtype, h,
+                  lambda impl: ops.paged_attention(q, kp, vp, tbl,
+                                                   _ints(lens), impl=impl))
         # prefill / verify chunks at ragged starts, context up to 800
         for t in (256, 7, 1):
             qs = np.asarray([0, 15, 16, 17, 240, 287, 500, 800 - t],
                             np.int32)
             tb = _ints(_tables(rng, -(-(qs + t) // PS), mp, pool))
             q = _data(rng, (b, t, nq, h), dtype)
-            out = ops.paged_prefill_attention_batch(q, kp, vp, tb, _ints(qs))
-            want = ops.paged_prefill_attention_batch(q, kp, vp, tb,
-                                                     _ints(qs),
-                                                     impl="reference")
-            upd("paged_prefill_attention_batch", _max_err(out, want, dtype))
+            _vs_plain(errs, "paged_prefill_attention_batch", dtype, h,
+                      lambda impl: ops.paged_prefill_attention_batch(
+                          q, kp, vp, tb, _ints(qs), impl=impl))
         q = _data(rng, (37, nq, h), dtype)
         tb1 = _ints(_tables(rng, [5], 5, pool)[0])
-        out = ops.paged_prefill_attention(q, kp, vp, tb1, 40)
-        want = ops.paged_prefill_attention(q, kp, vp, tb1, 40,
-                                           impl="reference")
-        upd("paged_prefill_attention", _max_err(out, want, dtype))
+        _vs_plain(errs, "paged_prefill_attention", dtype, h,
+                  lambda impl: ops.paged_prefill_attention(q, kp, vp, tb1,
+                                                           40, impl=impl))
         _bitwise(rng, kp, vp, pool, heads, dtype)
     torch.cuda.synchronize()
     log("kernel vs plain version: max |err| " + ", ".join(
@@ -311,7 +335,8 @@ def _bitwise(rng, kp, vp, pool, heads, dtype) -> None:
     padded = ops.paged_prefill_attention_batch(pad_q, kp, vp, _ints(pad_t),
                                                _ints(pad_qs))
     check(torch.equal(padded[:b], base), "batch padding changed bits")
-    log(f"bitwise properties hold on the kernel ({dtype}, h={h})")
+    log(f"bitwise properties hold on the kernel ({dtype}, nq {nq}, h {h}, "
+        f"{kernel.instance(getattr(torch, dtype), h)})")
 
 
 def _flash_inputs(rng, b, s, t, heads, dtype):
@@ -394,8 +419,12 @@ def _flash_bitwise(rng, heads) -> None:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _timed(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call; the L2 is flushed (not timed) before each call."""
+def _timed(fn, iters: int = 20, warmup: int = 3, hide: bool = True) -> float:
+    """Mean ms per call; the L2 is flushed (not timed) before each call.
+    With ``hide`` a device spin of ~0.5 ms runs before the start event, so
+    that the host has enqueued the call before the card reaches it: the
+    time is the device's, not the host's enqueue (a launch from Python
+    takes tens of microseconds, longer than a fast kernel runs)."""
     scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -403,6 +432,8 @@ def _timed(fn, iters: int = 20, warmup: int = 3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         scratch.zero_()
+        if hide:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -450,7 +481,7 @@ def _sdpa_inputs(q4, kp, vp, tables, q_start, t):
             mask[:, None])
 
 
-def _paged_row(name, run, plain, q4, kp, vp, tables, q_start, t,
+def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
                dtype) -> dict:
     """Time one paged entry point (q4 [B,T,nq,h] is its query) beside its
     bound and the SDPA yardstick over K/V gathered beforehand."""
@@ -463,17 +494,23 @@ def _paged_row(name, run, plain, q4, kp, vp, tables, q_start, t,
     got = run().float().reshape(b, t, nq, h)
     lib_err = float((got - lib().transpose(1, 2).float()).abs().max())
     ms, plain_ms, lib_ms = _timed(run), _timed(plain, 5), _timed(lib)
+    ms_host, lib_host = _timed(run, hide=False), _timed(lib, hide=False)
     bound_ms, bound_by, core_ms = _bound(q_start, t, tables, heads, dtype)
-    log(f"time {name} (B={b}, T={t}, ctx<=800, bf16, qwen2-0.5b heads):"
-        f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"yardstick (SDPA over pre-gathered K/V, never called by the "
-        f"port) {lib_ms:.4f} ms [|kernel-SDPA| {lib_err:.3g}], bound "
-        f"{bound_ms:.5f} ms ({bound_by}; {dtype} peak "
-        f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, HBM "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s) -- {smi_line()}")
-    log(f"  {name}: the same flops on fp32 CUDA cores (what this kernel "
-        f"uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
-        f"{core_ms:.5f} ms; not the bound")
+    inst = kernel.instance(q4.dtype, h)
+    log(f"time {name} (B={b}, T={t}, ctx<=800, {dtype}, {tag} heads "
+        f"{nq}/{heads['nkv']}/{h}, {inst}): kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.4f} ms, library yardstick (SDPA over pre-gathered K/V, "
+        f"never called by the port) {lib_ms:.5f} ms [|kernel-SDPA| "
+        f"{lib_err:.3g}]; with the host's enqueue not hidden kernel "
+        f"{ms_host:.5f} ms, SDPA {lib_host:.5f} ms; bound {bound_ms:.5f} ms "
+        f"({bound_by}; {dtype} peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
+        f"HBM {HBM_BYTES_PER_S / 1e12} TB/s), kernel/bound "
+        f"{ms / bound_ms:.1f}x, kernel/SDPA {ms / lib_ms:.2f}x -- "
+        f"{smi_line()}")
+    if inst == "paged_walk":
+        log(f"  {name}: the same flops on fp32 CUDA cores (what this "
+            f"instance uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
+            f"{core_ms:.5f} ms; not the bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -531,18 +568,20 @@ def _flash_row(rng, heads, s, tag) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_timing() -> dict[str, dict]:
-    rng = np.random.default_rng(2)
-    heads, dtype, pool, b = MAIN, "bfloat16", 1280, 8
+def _paged_rows(rng, heads, tag) -> dict[str, dict]:
+    """Time the three paged entry points at serving shapes (bf16, page 16,
+    pool 1280, batch 8, context <= 800): decode, batched prefill at
+    T = 256, and the single-sequence entry point at the same shape."""
+    dtype, pool, b = "bfloat16", 1280, 8
     nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
     kp, vp = _pools(rng, pool, nkv, h, dtype)
     rows = {}
-    # decode (T = 1) and batched prefill (T = 256) at the serving shapes
     lens = rng.integers(128, 801, b).astype(np.int32)
     tables = _tables(rng, -(-lens // PS), 50, pool, repeat=False)
     q, tb, ln = _data(rng, (b, nq, h), dtype), _ints(tables), _ints(lens)
     rows["paged_attention"] = _paged_row(
-        "paged_attention", lambda: ops.paged_attention(q, kp, vp, tb, ln),
+        "paged_attention", tag,
+        lambda: ops.paged_attention(q, kp, vp, tb, ln),
         lambda: ops.paged_attention(q, kp, vp, tb, ln, impl="reference"),
         q[:, None], kp, vp, tables, lens - 1, 1, dtype)
     t = 256
@@ -551,20 +590,29 @@ def phase_timing() -> dict[str, dict]:
     q4, tb, qs = _data(rng, (b, t, nq, h), dtype), _ints(tables), \
         _ints(q_start)
     rows["paged_prefill_attention_batch"] = _paged_row(
-        "paged_prefill_attention_batch",
+        "paged_prefill_attention_batch", tag,
         lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs),
         lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs,
                                                   impl="reference"),
         q4, kp, vp, tables, q_start, t, dtype)
-    # the single-sequence entry point (B = 1) at the same prefill shape
-    q1, tb1, qs1 = q4[0].contiguous(), _ints(tables[0]), int(q_start[0])
+    # q_start as a device tensor: from a Python int the entry point would
+    # copy it to the card on every call, a wait on the host
+    q1, tb1, qs1 = q4[0].contiguous(), _ints(tables[0]), _ints(q_start[:1])
     rows["paged_prefill_attention"] = _paged_row(
-        "paged_prefill_attention",
+        "paged_prefill_attention", tag,
         lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1),
         lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1,
                                             impl="reference"),
         q1[None], kp, vp, tables[:1], q_start[:1], t, dtype)
-    del kp, vp
+    return rows
+
+
+def phase_timing() -> dict[str, dict]:
+    """The paged rows at qwen2-0.5b heads (the JSON record's) and at
+    gemma-2b heads, then the flash rows."""
+    rng = np.random.default_rng(2)
+    rows = _paged_rows(rng, MAIN, "qwen2-0.5b")
+    _paged_rows(rng, GEMMA, "gemma-2b")
     frng = np.random.default_rng(6)
     rows["flash_attention_bh"] = _flash_row(frng, MAIN, PREFILL_S,
                                             "qwen2-0.5b")
@@ -667,7 +715,22 @@ def _decode_plain_check(eng):
         f"{float(plain.abs().max()):.3g}), argmax agrees on {agree}/"
         f"{len(seqs)} rows")
     check(err <= LOGIT_TOL, f"decode logits differ by {err} > {LOGIT_TOL}")
+    check(agree == len(seqs), f"decode argmax differs on "
+          f"{len(seqs) - agree} of {len(seqs)} rows")
     return err
+
+
+def _check_instances(cfg, r) -> None:
+    """Every paged launch of a serving run went to the instance that the
+    config's compute dtype and head dim select, and none to the other."""
+    inst = kernel.instance(getattr(torch, cfg.compute_dtype), cfg.head_dim_)
+    other = ({"paged_walk", "paged_walk_wgmma"} - {inst}).pop()
+    n = sum(r["launches"][k] for k in ("paged_attention",
+                                         "paged_prefill_attention_batch",
+                                         "paged_prefill_attention"))
+    check(n > 0 and r["launches"][inst] == n and r["launches"][other] == 0,
+          f"{cfg.name}: paged launches {r['launches']}, want all {n} on "
+          f"{inst}")
 
 
 def _report(tag, r) -> None:
@@ -695,7 +758,7 @@ def phase_serve(device, cfg) -> dict:
     lens = rng.integers(128, 769, 8)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
     r = serve(cfg, params, device, prompts, check_decode=True)
-    _report("full-width greedy serving", r)
+    _report(f"full-width {cfg.name} greedy serving", r)
     nl = cfg.num_layers
     check(r["finished"] == 8 and r["produced"] == [32] * 8,
           f"finished {r['finished']}, produced {r['produced']}")
@@ -709,6 +772,7 @@ def phase_serve(device, cfg) -> dict:
           "the incremental path ran a full-sequence forward")
     check(r["reclaimed"], "pool not fully reclaimed")
     check(r["logit_err"] is not None, "decode check never ran")
+    _check_instances(cfg, r)
     return dict(cfg=cfg, params=params, greedy=r, prompts=prompts)
 
 
@@ -736,6 +800,7 @@ def phase_spec(device, cfg, params) -> dict:
     check(spec["launches"]["paged_attention"]
           == (spec["decode_steps"] - spec["verify_steps"]) * nl,
           "a plain decode step did not go through the decode kernel")
+    _check_instances(cfg, spec)
     same = greedy["tokens"] == spec["tokens"]
     differ = sum(greedy["tokens"][k] != spec["tokens"].get(k)
                  for k in greedy["tokens"])
@@ -865,27 +930,8 @@ def phase_prefill(device, arch, batch, params=None) -> int:
     check(dloss <= LOSS_TOL, f"{arch}: loss differs by {dloss} > {LOSS_TOL}")
     _profile(f"{arch} prefill forward, B={batch}, S={PREFILL_S}",
              lambda: lm.prefill(params, {"tokens": toks}), 2, "forward")
-    if cfg.head_dim_ not in kernel.HEAD_DIMS:
-        _engine_refuses(device, cfg, params)
     return (n_fast["prefill"]["flash_attention_wgmma"]
             + n_fast["eval"]["flash_attention_wgmma"])
-
-
-def _engine_refuses(device, cfg, params) -> None:
-    """A serving engine for a head dim the paged kernel lacks fails when it
-    is built, with the kernel's message."""
-    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
-    from repro_torch.serve.engine import ServeEngine
-    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 8, 819.0, True)],
-                        page_size=PS, device=device)
-    try:
-        ServeEngine(cfg, params, pool, device=device)
-    except ValueError as e:
-        check("head dim" in str(e), f"unexpected error: {e}")
-        log(f"{cfg.name} ServeEngine refused at construction: {e}")
-        return
-    raise SmokeFailure(f"{cfg.name}: ServeEngine accepted head dim "
-                       f"{cfg.head_dim_}")
 
 
 def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
@@ -909,6 +955,7 @@ def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
     check(r["launches"]["paged_attention"] == r["decode_steps"] * nl,
           "a decode step did not go through the decode kernel")
     check(r["reclaimed"], "pool not fully reclaimed")
+    _check_instances(cfg, r)
     same = sum(greedy["tokens"][k] == r["tokens"].get(k)
                for k in greedy["tokens"])
     log(f"recompute prefill: {r['prefill_chunks']} chunks, "
@@ -955,6 +1002,7 @@ def main() -> int:
     flash_launches += phase_prefill(device, "gemma-2b", 1)
     phase_recompute(device, s["cfg"], s["params"], s["prompts"],
                     s["greedy"])
+    phase_serve(device, registry.get_config("gemma-2b"))
     greedy = s["greedy"]
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     paged_tpu = "src/repro/kernels/paged_attention/kernel.py"
@@ -976,7 +1024,9 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches,
                          max_abs_err=errs[name], **times[name]))
-    # the flash row's launches and times are the bf16 tensor-core instance's
+    # launches and times of every row are the bf16 tensor-core instance's
+    for row in rows[:-1]:
+        row["instance"] = kernel.instance(torch.bfloat16, MAIN["h"])
     rows[-1]["instance"] = "flash_attention_wgmma"
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -93,10 +93,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "wgmma_attention.cuh"
 
-constexpr float NEG_INF = -2.0e38f;
-constexpr unsigned FULL = 0xffffffffu;
+namespace {
 
 // ---------------------------------------------------------------------------
 // The CUDA-core instance: fp32 at every head dim, bf16 at H = 16, 32.
@@ -360,79 +359,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16 at H = 64, 128, 256 (see the top of file).
+// The tensor-core instance: bf16 at H = 64, 128, 256 (see the top of file);
+// the machinery it shares with the paged kernel is in wgmma_attention.cuh.
 // ---------------------------------------------------------------------------
-
-constexpr int WQ = 128;                // query rows per block
-constexpr int WK = 64;                 // keys per tile
-constexpr int WG_THREADS = 384;        // producer warpgroup + two consumers
-constexpr int CHUNK = 64;              // bf16 of one 128-byte swizzled row
-constexpr int ROW_BYTES = 128;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Dynamic shared memory of the H instance, from a 1024-byte aligned base:
-// Q as H/64 chunks of [WQ][64], then per stage K and V as H/64 chunks of
-// [WK][64] (each chunk one TMA box, 128-byte swizzled), then the mbarriers:
-// q_full, full_k[STAGES], full_v[STAGES], empty[STAGES].
-template <int H>
-struct WgLayout {
-  static constexpr int NC = H / CHUNK;
-  // K/V ring depth: as deep as shared memory allows (Q + 2 stages of K and
-  // V is 192 KB at H = 256)
-  static constexpr int STAGES = H == 256 ? 2 : H == 128 ? 4 : 6;
-  static constexpr int Q_BYTES = WQ * H * 2;
-  static constexpr int KV_BYTES = WK * H * 2;     // one K or V tile
-  static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
-  // mbarrier addresses of stage st, from the barriers' base
-  static __device__ uint32_t full_k(uint32_t bars, int st) {
-    return bars + 8 * (1 + st);
-  }
-  static __device__ uint32_t full_v(uint32_t bars, int st) {
-    return bars + 8 * (1 + STAGES + st);
-  }
-  static __device__ uint32_t empty(uint32_t bars, int st) {
-    return bars + 8 * (1 + 2 * STAGES + st);
-  }
-};
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-// arrive, and expect `bytes` more from the copies that signal this barrier
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// spin until the phase of parity `parity` has completed; a wait that
-// outlasts ~2^34 cycles (seconds) traps, so a lost arrival ends the launch
-// with an error instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
 
 // one box of a 4-D tensor map into shared memory, signalling `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -444,143 +373,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
-}
-
-// wgmma shared-memory matrix descriptor for a 128-byte swizzled operand:
-// start address, leading and stride byte offsets (stored in 16-byte units)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// until at most N committed wgmma groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of accumulator registers across
-// an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC32_LIST                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
-  "%28, %29, %30, %31}"
-#define ACC32_OPERANDS(d)                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-      "+f"(d[30]), "+f"(d[31])
-
-// d (+)= A B for A [64 x 16] and B [16 x 64], both bf16 in shared memory,
-// K-major; d = A B when `accumulate` is 0
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC32_OPERANDS(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B for A [64 x 16] bf16 in registers (four bf16 pairs a thread, the
-// accumulator layout of S) and B [16 x 64] bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC32_OPERANDS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// 2^x (the MUFU approximation; -inf -> 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// named barriers over the two consumer warpgroups (256 threads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// Per-thread state of a consumer: the thread holds rows a and b (8 apart)
-// of its warpgroup's 64; in each 8-key group of a tile, keys kc and kc + 1.
-struct Rows {
-  int qa, qb, kc;
-  float m_a, m_b, l_a, l_b;     // running max (log2 units) and sum
-};
-
-// S = Q K^T for one 64-key tile, 16 dims a step (issued, committed)
-template <int H>
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t dq,
-                                         uint64_t dk) {
-#pragma unroll
-  for (int e = 0; e < 32; ++e) s[e] = 0.f;
-  keep(s);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < H / 16; ++kk) {
-    // chunk kk / 4 of the row, 32 bytes a step within its 128 bytes
-    const uint32_t off = (kk % 4) * 2;            // 16-byte units
-    wgmma_ss(s, dq + (kk / 4) * (WQ * ROW_BYTES / 16) + off,
-             dk + (kk / 4) * (WK * ROW_BYTES / 16) + off, kk > 0);
-  }
-  wg_commit();
-}
-
-// O += P_hi V + P_lo V for one tile, 16 keys a step (issued, committed)
-template <int NC>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
-                                         const uint32_t (&ph)[16],
-                                         const uint32_t (&pl)[16],
-                                         uint64_t dv) {
-#pragma unroll
-  for (int j = 0; j < NC; ++j) keep(o[j]);
-  wg_fence();
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      const uint64_t d = dv + (j * WK * ROW_BYTES + kk * 16 * ROW_BYTES) / 16;
-      wgmma_rs(o[j], ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
-               ph[4 * kk + 3], d);
-      wgmma_rs(o[j], pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
-               pl[4 * kk + 3], d);
-    }
-  wg_commit();
 }
 
 // The online softmax of one tile of scores s (keys k0 ..): masked keys
@@ -640,34 +432,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
   sum_b += __shfl_xor_sync(FULL, sum_b, 2);
   r.l_a = __fmaf_rn(r.l_a, al_a, sum_a);
   r.l_b = __fmaf_rn(r.l_b, al_b, sum_b);
-}
-
-// p (fp32) -> the hi/lo bf16 pair, the A operand of P V: pair r holds
-// p[2r], p[2r+1] (row a for even r, b for odd), register r % 4 of key step
-// r / 4. Then O = O * alpha, ready for the tile's P V.
-template <int NC>
-__device__ __forceinline__ void stage_p(const float (&s)[32],
-                                        uint32_t (&ph)[16],
-                                        uint32_t (&pl)[16],
-                                        float (&o)[NC][32], float al_a,
-                                        float al_b) {
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * r], s[2 * r + 1]);
-    const float2 hf = __bfloat1622float2(hi);
-    ph[r] = bf16x2_bits(hi);
-    pl[r] = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(s[2 * r], hf.x),
-                                              __fsub_rn(s[2 * r + 1], hf.y)));
-  }
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      o[j][4 * n] = __fmul_rn(o[j][4 * n], al_a);
-      o[j][4 * n + 1] = __fmul_rn(o[j][4 * n + 1], al_a);
-      o[j][4 * n + 2] = __fmul_rn(o[j][4 * n + 2], al_b);
-      o[j][4 * n + 3] = __fmul_rn(o[j][4 * n + 3], al_b);
-    }
 }
 
 template <int H>
@@ -754,20 +518,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < NC; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
-    float s[32], al_a, al_b;
-    uint32_t ph[16], pl[16];
     const uint64_t dq = gmma_desc(q_s + cw * 64 * ROW_BYTES, 16, 1024);
-    // descriptors of stage st, derived per use so that the compiler does
-    // not keep every step's in registers
-    auto dk_of = [&](int st) {
-      uint64_t d = gmma_desc(k_s + st * L::KV_BYTES, 16, 1024);
-      asm volatile("" : "+l"(d));
-      return d;
-    };
-    auto dv_of = [&](int st) {
-      uint64_t d = gmma_desc(v_s + st * L::KV_BYTES, WK * ROW_BYTES, 1024);
-      asm volatile("" : "+l"(d));
-      return d;
+    // the online softmax of tile i (keys from (kt_lo + i) * WK)
+    auto softmax = [&](float (&s)[32], int i, float& al_a, float& al_b) {
+      softmax_tile(s, r, (kt_lo + i) * WK, row0, t_len, causal, window, c2,
+                   al_a, al_b);
     };
     // Every tile of the block's range is computed by both warpgroups: a
     // tile that a warpgroup's rows cannot see is fully masked for them, an
@@ -775,59 +530,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(q_full, 0);
     if (n_tiles > 0) {
       if constexpr (H <= 128) {
-        // Pipelined: the products S(i+1) = Q K(i+1)^T and O += P(i) V(i)
-        // are issued together, and the softmax of tile i+1 runs while they
-        // (and the other warpgroup's) do. The two warpgroups take turns to
-        // issue (named barriers 1 and 2), so that one's softmax runs beside
-        // the other's products.
-        const int my_turn = 1 + cw, other_turn = 2 - cw;
-        if (cw == 1) named_arrive(1);             // warpgroup 0 goes first
-        mbar_wait(L::full_k(bars, 0), 0);
-        named_sync(my_turn);
-        issue_qk<H>(s, dq, dk_of(0));
-        named_arrive(other_turn);
-        wg_wait<0>();
-        keep(s);
-        softmax_tile(s, r, kt_lo * WK, row0, t_len, causal, window, c2, al_a,
-                     al_b);
-        stage_p(s, ph, pl, o, al_a, al_b);
-        for (int i = 0; i + 1 < n_tiles; ++i) {
-          const int st = i % L::STAGES, nx = (i + 1) % L::STAGES;
-          mbar_wait(L::full_k(bars, nx),
-                    ((i + 1) / L::STAGES) & 1);
-          mbar_wait(L::full_v(bars, st), (i / L::STAGES) & 1);
-          named_sync(my_turn);
-          issue_qk<H>(s, dq, dk_of(nx));
-          issue_pv(o, ph, pl, dv_of(st));
-          named_arrive(other_turn);
-          wg_wait<1>();                           // S(i+1) is in
-          keep(s);
-          softmax_tile(s, r, (kt_lo + i + 1) * WK, row0, t_len, causal,
-                       window, c2, al_a, al_b);
-          wg_wait<0>();                           // O += P(i) V(i) is in
-#pragma unroll
-          for (int j = 0; j < NC; ++j) keep(o[j]);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(L::empty(bars, st));
-          stage_p(s, ph, pl, o, al_a, al_b);
-        }
-        const int st = (n_tiles - 1) % L::STAGES;
-        mbar_wait(L::full_v(bars, st),
-                  ((n_tiles - 1) / L::STAGES) & 1);
-        named_sync(my_turn);
-        issue_pv(o, ph, pl, dv_of(st));
-        named_arrive(other_turn);
-        wg_wait<0>();
-#pragma unroll
-        for (int j = 0; j < NC; ++j) keep(o[j]);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(L::empty(bars, st));
-        // warpgroup 0 takes the turn that warpgroup 1 passed after its
-        // last issue, so that no barrier is left half arrived
-        if (cw == 0) named_sync(1);
+        consume_pipelined<H, false>(o, dq, k_s, v_s, bars, n_tiles, cw, lane,
+                                    softmax);
       } else {
         // H = 256: O alone takes 128 registers a thread, too many to keep
         // a second tile's S and P in flight, so one tile at a time
+        float s[32], al_a, al_b;
+        uint32_t ph[16], pl[16];
+        // descriptors of stage st, derived per use so that the compiler
+        // does not keep every step's in registers
+        auto dk_of = [&](int st) {
+          uint64_t d = gmma_desc(k_s + st * L::KV_BYTES, 16, 1024);
+          asm volatile("" : "+l"(d));
+          return d;
+        };
+        auto dv_of = [&](int st) {
+          uint64_t d = gmma_desc(v_s + st * L::KV_BYTES, WK * ROW_BYTES,
+                                 1024);
+          asm volatile("" : "+l"(d));
+          return d;
+        };
         for (int i = 0; i < n_tiles; ++i) {
           const int st = i % L::STAGES;
           const uint32_t par = (i / L::STAGES) & 1;
@@ -836,8 +558,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           issue_qk<H>(s, dq, dk_of(st));
           wg_wait<0>();
           keep(s);
-          softmax_tile(s, r, (kt_lo + i) * WK, row0, t_len, causal, window,
-                       c2, al_a, al_b);
+          softmax(s, i, al_a, al_b);
           stage_p(s, ph, pl, o, al_a, al_b);
           issue_pv(o, ph, pl, dv_of(st));
           wg_wait<0>();

@@ -7,7 +7,7 @@
 //     (body _paged_kernel, pl.pallas_call at :317)
 // and serves the single-sequence paged_prefill_attention (:276) as B = 1.
 //
-// One kernel, the batched prefill-mode page walk. Query (b, t) sits at
+// One page walk, in batched prefill mode. Query (b, t) sits at
 // absolute position q_start[b] + t and sees every key at a position <= its
 // own through row b of the page table. Decode is the T = 1 instance with
 // q_start = lens - 1 (qoff = -1): `kpos <= lens - 1` is the decode mask
@@ -18,48 +18,81 @@
 // heads of one KV head form rows laid out [nkv, T*g] (row r = t*g + head),
 // exactly the Pallas kernel's accumulator rows.
 //
-// Design (simple first). Grid (B, nkv, ceil(T*g / ROWS)); a block of
-// WARPS warps owns ROWS rows of one KV head and walks the row's pages in
-// table order in a loop. Each page's K and V slice for the KV head
-// (ps x h, 2 KB each in bf16 at ps = 16, h = 64) is loaded into shared
-// memory as fp32 and shared by all ROWS rows. A warp handles ROWS_PER_WARP
-// rows; per row it keeps (m, l, acc[h]) in fp32 registers, lane j scores
-// slots j and j + 32, and lane i owns acc[i], acc[i + 32], ...
+// Two instances, chosen by element type and head dim only (never by T, B,
+// mp or the data, so a row's bits never depend on them):
 //
-// Bit-invariance. A row's arithmetic does not depend on T, B, mp, ROWS or
-// the tile it lands in: the dot product over h runs in fixed order d = 0..h-1
-// (one fmaf chain per slot), the row max and the sum of p are the same xor
-// butterfly for every row, and the p.v sum runs over slots in order. Pages
-// are never split. The block stops at the first page whose absolute start
-// lies past the last position of its rows; such a page is fully masked for
-// every row and an exact no-op (alpha = 1, every p = 0), so stopping there
-// changes no bits. NEG_INF is the finite -2e38 of the plain version, for
-// both the init and the mask (exp(-inf - -inf) would be NaN). A row whose
+// 1. bf16 at H = 64, 128: the tensor-core instance (paged_wgmma_kernel).
+//    Grid (B, nkv, ceil(T*g / 128)); a block of three warpgroups owns 128
+//    rows of one KV head and walks 64-key tiles at absolute key positions
+//    (tile i holds keys 64i .. 64i + 63, pages i*64/ps ..), from tile 0 to
+//    the one that holds its last row's position.
+//    - Warpgroup 0 is the producer: its 128 threads gather each tile's K
+//      and V rows through the row's page table with cp.async, 16 bytes a
+//      copy, into a ring of 6 (H = 64) or 4 (H = 128) stages laid out as
+//      TMA's 128-byte swizzle would lay them, so the wgmma descriptors of
+//      the flash kernel read them as they are. A key past the table (page
+//      index >= mp) reads as zeros. Each thread's copies signal the stage's
+//      mbarrier when they land (cp.async.mbarrier.arrive.noinc); the Q rows
+//      of the block are gathered the same way once (zeros past T*g). TMA
+//      would need a page size that is a multiple of 8 rows for its swizzle;
+//      cp.async takes any page size.
+//    - Warpgroups 1 and 2 consume 64 rows each, with the flash kernel's
+//      pipelined walk (wgmma_attention.cuh): S = Q K^T and O += P V on
+//      wgmma, the online softmax in fp32 in the accumulator layout, P as
+//      the hi/lo bf16 pair (a single bf16 P breaks the gate of two bf16
+//      ulps of the plain version). A key is visible to a row when its
+//      position is <= the row's and inside the table.
+//    Decode (T = 1) fills 7 of a block's 128 rows at qwen2-0.5b's g = 7 and
+//    launches B * nkv blocks: it reads its bytes at a fraction of the card's
+//    rate until its walk is split across SMs.
+// 2. fp32 at every head dim and bf16 at H = 16, 32, 256: the CUDA-core
+//    instance (paged_walk_kernel), the port's first design. Grid (B, nkv,
+//    ceil(T*g / ROWS)); a block of WARPS warps owns ROWS rows of one KV
+//    head and walks the row's pages in table order. Each page's K and V
+//    slice for the KV head is loaded into shared memory as fp32 and shared
+//    by all ROWS rows. A warp handles ROWS_PER_WARP rows; per row it keeps
+//    (m, l, acc[h]) in fp32 registers, lane j scores slots j and j + 32,
+//    and lane i owns acc[i], acc[i + 32], ... fp32 stays here for its 2e-5
+//    gate (TF32 tensor cores keep about three decimal digits); gemma-2b's
+//    H = 256 is here until it has a tensor-core instance of its own.
+//
+// Bit-invariance. A row's arithmetic does not depend on T, B, mp or the
+// tile it lands in. In the tensor-core instance, tiles sit at absolute key
+// positions and the softmax is written out so that masked and unmasked
+// paths round alike (see wgmma_attention.cuh). In the CUDA-core instance,
+// the dot product over h runs in fixed order d = 0..h-1 (one fmaf chain per
+// slot), the row max and the sum of p are the same xor butterfly for every
+// row, and the p.v sum runs over slots in order; pages are never split. A
+// block stops at the first page (tile) whose absolute start lies past the
+// last position of its rows; such a page is fully masked for every row and
+// an exact no-op (alpha = 1, every p, hi and lo = 0), so stopping there, or
+// walking trailing table padding, changes no bits. NEG_INF is the finite
+// -2e38 of the plain version (exp(-inf - -inf) would be NaN). A row whose
 // walk saw no key (l = 0) gives 0.
 //
 // Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s dense bf16). Decode is
 // memory-bound: it must read the K and V bytes of the pages each row
 // actually covers, ~1 us at B = 8, 800 tokens, qwen2-0.5b heads, per layer.
 // Prefill at T = 256 does 4*T*g*context*h flops per (b, kvh); at the bf16
-// peak that takes about as long as its bytes (~3 us), but this kernel runs
-// them on fp32 CUDA cores (67 TFLOP/s, ~35 us). This simple design leaves
-// for later: wgmma for the QK^T and PV products, TMA / cp.async
-// double-buffering of the next page while the current one computes, and
-// splitting a long page walk across SMs (decode launches only B*nkv blocks)
-// with a fixed-order merge.
+// peak that takes about as long as its bytes (~3 us), which only the tensor
+// cores can approach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_attention.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -2.0e38f;
+// ---------------------------------------------------------------------------
+// The CUDA-core instance: fp32 at every head dim, bf16 at H = 16, 32, 256.
+// ---------------------------------------------------------------------------
+
 constexpr int WARPS = 4;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS = WARPS * ROWS_PER_WARP;   // query rows per block
 constexpr int MAX_PS = 64;                    // two slots per lane
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -200,13 +233,17 @@ paged_walk_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k_pool,
   }
 }
 
+// dynamic shared memory of a CUDA-core launch: K, V pages and Q rows, fp32
+constexpr size_t walk_smem_bytes(int h, int ps) {
+  return sizeof(float) * ((size_t)ps * (h + 1) + (size_t)ps * h + ROWS * h);
+}
+
 template <typename Elem, int H>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* qstart, void* out, int b, int t,
            int nq, int nkv, int ps, int mp, int qoff, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-                      ((size_t)ps * (H + 1) + (size_t)ps * H + ROWS * H);
+  const size_t smem = walk_smem_bytes(H, ps);
   auto kern = paged_walk_kernel<Elem, H>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -223,34 +260,336 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
-template <typename Elem>
-int dispatch_h(int h, const void* q, const void* k_pool, const void* v_pool,
-               const void* table, const void* qstart, void* out, int b,
-               int t, int nq, int nkv, int ps, int mp, int qoff, float scale,
-               cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// The tensor-core instance: bf16 at H = 64, 128 (see the top of file).
+// ---------------------------------------------------------------------------
+
+constexpr int PRODUCER_THREADS = 128;
+// setmaxnreg budgets: 128 * 40 + 256 * 232 = 64512 registers, the launch's
+// 384 * 168
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// 16 bytes from global to shared memory, asynchronously; with bytes = 0 it
+// reads nothing and writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread has issued so far has
+// landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// shared-memory address of 16-byte unit u (of H / 8) of row `row` in a
+// [ROWS][H] bf16 tile stored as H / 64 chunks of [ROWS][64]: the 128-byte
+// swizzle of TMA's SWIZZLE_128B (unit u % 8 of a row at u % 8 ^ row % 8),
+// which the wgmma descriptors read
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(uint32_t base, int row, int u) {
+  return base + (u / 8) * (ROWS * ROW_BYTES) + row * ROW_BYTES +
+         ((u % 8) ^ (row % 8)) * 16;
+}
+
+// The online softmax of one tile of scores s (keys k0 ..): a key is
+// visible to a row at or before the row's position and inside the table
+// (k_end keys); masked keys (tested only where the tile can hold one for a
+// row of this warpgroup, whose least position is q_first) go to -inf;
+// (m, l) move to the tile; s becomes p = 2^(s c2 - m) in fp32; returns the
+// factors alpha that O must take. flash_attention.cu's softmax_tile with
+// this kernel's mask.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
+                                             int q_first, int k_end,
+                                             float c2, float& al_a,
+                                             float& al_b) {
+  const bool edge = k0 + WK - 1 > q_first || k0 + WK > k_end;
+  float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e];
+      if (edge) {
+        const int kpos = k0 + 8 * n + r.kc + (e & 1);
+        const int qpos = e < 2 ? r.qa : r.qb;
+        const bool ok = kpos <= qpos && kpos < k_end;
+        x = ok ? x : __int_as_float(0xff800000);
+      }
+      s[4 * n + e] = x;
+      if (e < 2)
+        mx_a = fmaxf(mx_a, x);
+      else
+        mx_b = fmaxf(mx_b, x);
+    }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+  const float mn_a = fmaxf(r.m_a, __fmul_rn(mx_a, c2));
+  const float mn_b = fmaxf(r.m_b, __fmul_rn(mx_b, c2));
+  al_a = ex2(r.m_a - mn_a);
+  al_b = ex2(r.m_b - mn_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(__fmaf_rn(s[4 * n + e], c2, e < 2 ? -mn_a : -mn_b));
+      s[4 * n + e] = p;
+      if (e < 2)
+        sum_a += p;
+      else
+        sum_b += p;
+    }
+  sum_a += __shfl_xor_sync(FULL, sum_a, 1);
+  sum_a += __shfl_xor_sync(FULL, sum_a, 2);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 1);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 2);
+  r.l_a = __fmaf_rn(r.l_a, al_a, sum_a);
+  r.l_b = __fmaf_rn(r.l_b, al_b, sum_b);
+}
+
+template <int H>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pool,
+                   const __nv_bfloat16* __restrict__ v_pool,
+                   const int32_t* __restrict__ table,
+                   const int32_t* __restrict__ qstart,
+                   __nv_bfloat16* __restrict__ out, int t_len, int nq,
+                   int nkv, int ps, int mp, int qoff, float scale) {
+  using L = WgLayout<H>;
+  constexpr int NC = L::NC;
+  constexpr int UPR = H / 8;                        // 16-byte units a row
+  constexpr int RSTEP = PRODUCER_THREADS / UPR;     // rows between copies
+  extern __shared__ uint8_t pw_smem[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(pw_smem)) + 1023u) &
+      ~1023u;
+  const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF, q_full = bars;
+
+  const int b = blockIdx.x, kvh = blockIdx.y;
+  const int g = nq / nkv;
+  const int n_rows = t_len * g;
+  const int r0 = blockIdx.z * WQ;
+  const int q_start = qstart[b] + qoff;
+  // the last query position among this block's rows, and the keys the
+  // table covers; tiles at absolute positions up to the one that holds
+  // q_last (a tile past it is fully masked for every row: a no-op)
+  const int q_last = q_start + (min(r0 + WQ, n_rows) - 1) / g;
+  const int k_end = mp * ps;
+  const int n_tiles =
+      q_last < 0 ? 0 : min(q_last / WK + 1, (k_end + WK - 1) / WK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, PRODUCER_THREADS);
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(L::full_k(bars, st), PRODUCER_THREADS);
+      mbar_init(L::full_v(bars, st), PRODUCER_THREADS);
+      mbar_init(L::empty(bars, st), 8);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform to the compiler (a shuffle from
+  // lane 0), so that each role gets its own register budget
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: thread tid copies unit u of rows tid / UPR, + RSTEP, ...
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    const int tid = threadIdx.x, u = tid % UPR;
+    for (int row = tid / UPR; row < WQ; row += RSTEP) {
+      const int r = r0 + row;
+      const bool ok = r < n_rows;
+      const __nv_bfloat16* src = q;
+      if (ok)
+        src = q + (((size_t)b * t_len + r / g) * nq + kvh * g + r % g) * H +
+              u * 8;
+      cp_async16(swizzled<WQ>(q_s, row, u), src, ok ? 16 : 0);
+    }
+    cp_async_arrive(q_full);
+    const int32_t* trow = table + (size_t)b * mp;
+    const size_t slot_stride = (size_t)nkv * H;
+    constexpr int NR = WK / RSTEP;                  // rows a tile, a thread
+    // the pool rows (page * ps + slot) of keys k0 + tid / UPR + j * RSTEP,
+    // through the table; -1 past it
+    auto pool_rows = [&](int k0, int (&pr)[NR]) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const int kpos = k0 + tid / UPR + j * RSTEP, pi = kpos / ps;
+        pr[j] = pi < mp ? trow[pi] * ps + (kpos - pi * ps) : -1;
+      }
+    };
+    auto gather = [&](const __nv_bfloat16* pool, uint32_t dst,
+                      const int (&pr)[NR]) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const __nv_bfloat16* src =
+            pr[j] < 0 ? pool
+                      : pool + (size_t)pr[j] * slot_stride + (size_t)kvh * H +
+                            u * 8;
+        cp_async16(swizzled<WK>(dst, tid / UPR + j * RSTEP, u), src,
+                   pr[j] < 0 ? 0 : 16);
+      }
+    };
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % L::STAGES;
+      int pr[NR];
+      pool_rows(i * WK, pr);          // table loads in flight over the wait
+      mbar_wait(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
+      gather(k_pool, k_s + st * L::KV_BYTES, pr);
+      cp_async_arrive(L::full_k(bars, st));
+      gather(v_pool, v_s + st * L::KV_BYTES, pr);
+      cp_async_arrive(L::full_v(bars, st));
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    // consumers: warpgroup cw owns rows row0 .. row0 + 63 of the block
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS)
+                 : "memory");
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = r0 + 64 * cw;
+    const int ra = row0 + 16 * warp + lane / 4, rb = ra + 8;
+    Rows r;
+    r.qa = q_start + ra / g;
+    r.qb = q_start + rb / g;
+    r.kc = 2 * (lane % 4);
+    r.m_a = r.m_b = NEG_INF;
+    r.l_a = r.l_b = 0.f;
+    const float c2 = __fmul_rn(scale, LOG2E);     // scores to log2 units
+    float o[NC][32];
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    const uint64_t dq = gmma_desc(q_s + cw * 64 * ROW_BYTES, 16, 1024);
+    // the online softmax of tile i; q_first is the least position among
+    // this warpgroup's rows
+    const int q_first = q_start + row0 / g;
+    auto softmax = [&](float (&s)[32], int i, float& al_a, float& al_b) {
+      softmax_tile(s, r, i * WK, q_first, k_end, c2, al_a, al_b);
+    };
+    mbar_wait(q_full, 0);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    // both warpgroups compute every tile of the block's range: a tile that
+    // a warpgroup's rows cannot see is fully masked for them, a no-op
+    if (n_tiles > 0)
+      consume_pipelined<H, true>(o, dq, k_s, v_s, bars, n_tiles, cw, lane,
+                                 softmax);
+
+    // out = O / l at rows ra and rb, 0 where a row saw no key
+    const int kc = r.kc;
+    const float l_a = r.l_a, l_b = r.l_b;
+    const auto row_out = [&](int row) {
+      return out + (((size_t)b * t_len + row / g) * nq + kvh * g + row % g) *
+                       H;
+    };
+    __nv_bfloat16* oa = row_out(ra);
+    __nv_bfloat16* ob = row_out(rb);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = j * CHUNK + 8 * n + kc;
+        if (ra < n_rows)
+          *reinterpret_cast<__nv_bfloat162*>(oa + col) = __floats2bfloat162_rn(
+              l_a == 0.f ? 0.f : o[j][4 * n] / l_a,
+              l_a == 0.f ? 0.f : o[j][4 * n + 1] / l_a);
+        if (rb < n_rows)
+          *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(
+              l_b == 0.f ? 0.f : o[j][4 * n + 2] / l_b,
+              l_b == 0.f ? 0.f : o[j][4 * n + 3] / l_b);
+      }
+  }
+}
+
+template <int H>
+int launch_wgmma(const void* q, const void* k_pool, const void* v_pool,
+                 const void* table, const void* qstart, void* out, int b,
+                 int t, int nq, int nkv, int ps, int mp, int qoff,
+                 float scale, cudaStream_t stream) {
+  // cp.async copies 16-byte units: every row starts on one
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
+       reinterpret_cast<uintptr_t>(v_pool)) % 16)
+    return -1;
+  constexpr int smem = WgLayout<H>::BYTES;
+  auto kern = paged_wgmma_kernel<H>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (t * (nq / nkv) + WQ - 1) / WQ;
+  dim3 grid(b, nkv, tiles);
+  kern<<<grid, WG_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(qstart),
+      static_cast<__nv_bfloat16*>(out), t, nq, nkv, ps, mp, qoff, scale);
+  return (int)cudaGetLastError();
+}
+
+#define PAGED_ARGS                                                         \
+  q, k_pool, v_pool, table, qstart, out, b, t, nq, nkv, ps, mp, qoff, scale, \
+      s
+
+int dispatch_f32(int h, const void* q, const void* k_pool, const void* v_pool,
+                 const void* table, const void* qstart, void* out, int b,
+                 int t, int nq, int nkv, int ps, int mp, int qoff, float scale,
+                 cudaStream_t s) {
   switch (h) {
-    case 16:
-      return launch<Elem, 16>(q, k_pool, v_pool, table, qstart, out, b, t,
-                              nq, nkv, ps, mp, qoff, scale, s);
-    case 32:
-      return launch<Elem, 32>(q, k_pool, v_pool, table, qstart, out, b, t,
-                              nq, nkv, ps, mp, qoff, scale, s);
-    case 64:
-      return launch<Elem, 64>(q, k_pool, v_pool, table, qstart, out, b, t,
-                              nq, nkv, ps, mp, qoff, scale, s);
-    case 128:
-      return launch<Elem, 128>(q, k_pool, v_pool, table, qstart, out, b, t,
-                               nq, nkv, ps, mp, qoff, scale, s);
-    default:
-      return -1;
+    case 16: return launch<float, 16>(PAGED_ARGS);
+    case 32: return launch<float, 32>(PAGED_ARGS);
+    case 64: return launch<float, 64>(PAGED_ARGS);
+    case 128: return launch<float, 128>(PAGED_ARGS);
+    case 256: return launch<float, 256>(PAGED_ARGS);
+    default: return -1;
+  }
+}
+
+int dispatch_bf16(int h, const void* q, const void* k_pool,
+                  const void* v_pool, const void* table, const void* qstart,
+                  void* out, int b, int t, int nq, int nkv, int ps, int mp,
+                  int qoff, float scale, cudaStream_t s) {
+  switch (h) {
+    case 16: return launch<__nv_bfloat16, 16>(PAGED_ARGS);
+    case 32: return launch<__nv_bfloat16, 32>(PAGED_ARGS);
+    case 64: return launch_wgmma<64>(PAGED_ARGS);
+    case 128: return launch_wgmma<128>(PAGED_ARGS);
+    case 256: return launch<__nv_bfloat16, 256>(PAGED_ARGS);
+    default: return -1;
   }
 }
 
 }  // namespace
 
+// Dynamic shared memory a launch of the (h, dtype) instance asks for at page
+// size ps, in bytes; -1 for an instance that does not exist.
+extern "C" int bwap_paged_smem_bytes(int h, int ps, int dtype) {
+  if (ps <= 0 || ps > MAX_PS || (dtype != 0 && dtype != 1) ||
+      (h != 16 && h != 32 && h != 64 && h != 128 && h != 256))
+    return -1;
+  if (dtype == 1 && (h == 64 || h == 128))
+    return h == 64 ? WgLayout<64>::BYTES : WgLayout<128>::BYTES;
+  return (int)walk_smem_bytes(h, ps);
+}
+
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. Launches on
-// `stream` and returns cudaGetLastError() (0 = success); -1 for a shape or
-// type the kernel does not take. Query (b, t) sits at qstart[b] + qoff + t.
+// `stream` and returns cudaGetLastError() (0 = success); -1 for a shape, type
+// or alignment the kernel does not take. Query (b, t) sits at qstart[b] +
+// qoff + t. The instance: bf16 at h = 64, 128 runs on tensor cores, the rest
+// on CUDA cores.
 extern "C" int bwap_paged_attention(const void* q, const void* k_pool,
                                     const void* v_pool, const void* table,
                                     const void* qstart, void* out, int b,
@@ -261,11 +600,7 @@ extern "C" int bwap_paged_attention(const void* q, const void* k_pool,
       ps > MAX_PS)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_h<float>(h, q, k_pool, v_pool, table, qstart, out, b, t,
-                             nq, nkv, ps, mp, qoff, scale, s);
-  if (dtype == 1)
-    return dispatch_h<__nv_bfloat16>(h, q, k_pool, v_pool, table, qstart, out,
-                                     b, t, nq, nkv, ps, mp, qoff, scale, s);
+  if (dtype == 0) return dispatch_f32(h, PAGED_ARGS);
+  if (dtype == 1) return dispatch_bf16(h, PAGED_ARGS);
   return -1;
 }

@@ -1,16 +1,20 @@
 """Wrappers of the hand-written CUDA paged-attention kernel
 (``repro_torch/csrc/paged_attention.cu``), bound with ctypes.
 
-One kernel, the batched prefill-mode page walk, replaces both Pallas
-kernels on the serving path (``repro/kernels/paged_attention/kernel.py``:
+One page walk, in batched prefill mode, replaces both Pallas kernels on the
+serving path (``repro/kernels/paged_attention/kernel.py``:
 ``paged_prefill_attention_batch`` and ``paged_attention``); decode is its
-T = 1 instance with ``q_start = lens - 1``. Each public wrapper checks its
-inputs, allocates the output with ``torch.empty``, launches on the current
-CUDA stream, raises if the launch reports an error, and adds one to its own
-entry of ``LAUNCHES``. There is no fallback: a CPU tensor or a shape the
-kernel does not take raises. Page ids in the table are not range-checked
-(that would cost a device sync per launch): callers pass ids in [0, P),
-as the pool's allocator hands out.
+T = 1 launch with ``q_start = lens - 1``. The walk has two instances, chosen
+by dtype and head dim only (``instance``): ``paged_walk_wgmma`` for bf16 at
+a head dim in ``WGMMA_HEAD_DIMS`` (cp.async page gathers, wgmma on the
+tensor cores), ``paged_walk`` for fp32 and for bf16 at h = 16, 32, 256
+(CUDA cores). Each public wrapper checks its inputs, allocates the output
+with ``torch.empty``, launches on the current CUDA stream, raises if the
+launch reports an error, and adds one to its own entry of ``LAUNCHES`` and
+one to the entry of the instance that ran. There is no fallback: a CPU
+tensor or a shape the kernel does not take raises. Page ids in the table
+are not range-checked (that would cost a device sync per launch): callers
+pass ids in [0, P), as the pool's allocator hands out.
 """
 
 from __future__ import annotations
@@ -22,18 +26,29 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)   # bf16 head dims of the tensor-core instance
 MAX_PAGE_SIZE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches per public wrapper; chip_smoke.py zeroes and reads them
+# launches per public wrapper and per instance; chip_smoke.py zeroes and
+# reads them
 LAUNCHES = {"paged_attention": 0, "paged_prefill_attention_batch": 0,
-            "paged_prefill_attention": 0}
+            "paged_prefill_attention": 0, "paged_walk": 0,
+            "paged_walk_wgmma": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def instance(dtype, h: int) -> str:
+    """The ``LAUNCHES`` key of the kernel instance that serves ``dtype`` at
+    head dim ``h``."""
+    if dtype == torch.bfloat16 and h in WGMMA_HEAD_DIMS:
+        return "paged_walk_wgmma"
+    return "paged_walk"
 
 
 def check_head_dim(h: int) -> None:
@@ -53,6 +68,15 @@ def _entry():
     return fn
 
 
+def smem_bytes(dtype, h: int, ps: int) -> int:
+    """Dynamic shared memory one launch of the (dtype, h) instance asks for
+    at page size ``ps`` (builds the library if needed)."""
+    fn = build.library("paged_attention").bwap_paged_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(h, ps, _DTYPES[dtype])
+
+
 def _check(q4, k_pool, v_pool, page_table, qstart):
     b, t, nq, h = q4.shape
     if not q4.is_cuda:
@@ -65,6 +89,10 @@ def _check(q4, k_pool, v_pool, page_table, qstart):
             raise ValueError(f"{name} must be contiguous")
     if not q4.is_contiguous():
         raise ValueError("q must be contiguous")
+    if instance(q4.dtype, h) == "paged_walk_wgmma":
+        for name, x in (("q", q4), ("k_pool", k_pool), ("v_pool", v_pool)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     if q4.dtype not in _DTYPES or k_pool.dtype != q4.dtype \
             or v_pool.dtype != q4.dtype:
         raise ValueError(f"dtypes q {q4.dtype}, k {k_pool.dtype}, "
@@ -107,6 +135,7 @@ def _walk(name: str, q4, k_pool, v_pool, page_table, qstart, qoff: int):
     if err != 0:
         raise RuntimeError(f"paged-attention launch failed: error {err}")
     LAUNCHES[name] += 1
+    LAUNCHES[instance(q4.dtype, h)] += 1
     return out
 
 

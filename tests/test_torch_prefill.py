@@ -141,26 +141,41 @@ def test_gemma_config_mirrors_reference():
 
 
 def test_paged_kernel_head_dim_check():
-    """gemma-2b's head dim 256 has no paged-kernel instance; the check the
-    engine runs when it is built on a card says so."""
+    """gemma-2b's head dim 256 has a paged-kernel instance (the CUDA-core
+    walk), so the check the engine runs when it is built on a card passes;
+    a head dim with no instance raises."""
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
-    with pytest.raises(ValueError, match="head dim 256"):
-        paged_kernel.check_head_dim(t_registry.get_config("gemma-2b")
-                                    .head_dim_)
+    gemma_h = t_registry.get_config("gemma-2b").head_dim_
+    assert gemma_h == 256 and gemma_h in paged_kernel.HEAD_DIMS
     for h in paged_kernel.HEAD_DIMS:
         paged_kernel.check_head_dim(h)
+    for h in (48, 512):
+        with pytest.raises(ValueError, match=f"head dim {h}"):
+            paged_kernel.check_head_dim(h)
 
 
-def test_cuda_engine_refuses_head_dim_256_when_built():
-    """On a card the engine fails at construction, not in a step."""
+def test_cuda_engine_builds_at_head_dim_256():
+    """On a card the engine builds at head dim 256 and serves through the
+    paged kernel's CUDA-core instance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.paged_attention import kernel as paged_kernel
     from repro_torch.placement.pool import BwapPagePool, MemoryDomain
     from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(t_registry.get_smoke_config("gemma-2b"),
                               head_dim=256)
     params = TLM(cfg).init(torch.Generator().manual_seed(0), device="cuda")
-    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 8, 819.0, True)],
+    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 64, 819.0, True)],
                         page_size=16, device="cuda")
-    with pytest.raises(ValueError, match="head dim 256"):
-        ServeEngine(cfg, params, pool, device="cuda")
+    eng = ServeEngine(cfg, params, pool, max_batch=2, max_new=4,
+                      wall_clock=False, device="cuda")
+    for n in (5, 21):
+        eng.submit(list(range(1, n + 1)))
+    before = paged_kernel.LAUNCHES[paged_kernel.instance(
+        getattr(torch, cfg.compute_dtype), 256)]
+    while eng.active or eng.waiting:
+        eng.step()
+    assert len(eng.finished) == 2
+    assert all(s.produced == 4 for s in eng.finished)
+    assert paged_kernel.LAUNCHES[paged_kernel.instance(
+        getattr(torch, cfg.compute_dtype), 256)] > before
