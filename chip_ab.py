@@ -10,18 +10,19 @@ that a drift of the card's clock or of its neighbours shows as a spread
 rather than as a difference. Every turn times, through the public ops with
 the same seeded inputs:
 
-- the paged kernel at qwen2-0.5b heads (14/2/64, bf16, page 16, pool 1280
-  pages, batch 8, context <= 800): decode, batched prefill at T = 256, and
-  the single-sequence entry point at T = 256;
+- the paged kernel at qwen2-0.5b heads (14/2/64) and at gemma-2b heads
+  (8/1/256), bf16, page 16, pool 1280 pages, batch 8, context <= 800:
+  decode, batched prefill at T = 256, and the single-sequence entry point
+  at T = 256;
 - the flash kernel (bf16, causal, B = 1): qwen2-0.5b heads at S = 4096 and
-  S = 32768, gemma-2b heads (8/1/256) at S = 4096;
+  S = 32768, gemma-2b heads at S = 4096;
 
 with ``chip_smoke.py``'s timing (``_timed``: CUDA events, the L2 flushed
 before every call, the host's enqueue hidden behind a device spin, the
-mean of the calls); then the p50 engine step of ``chip_smoke.py`` phase 4
-(full-width qwen2-0.5b greedy serving, its trace and seeds, through
-``chip_smoke.serve``). It prints one line per turn and, last, the card's name
-and power limit. Nothing here imports JAX.
+mean of the calls); then the p50 engine step of ``chip_smoke.py`` phases 4
+and 9 (full-width qwen2-0.5b and gemma-2b greedy serving, their trace and
+seeds, through ``chip_smoke.serve``). It prints one line per turn and,
+last, the card's name and power limit. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -62,21 +63,23 @@ def run(root: Path) -> dict[str, float]:
             t[i, :n] = rng.choice(POOL, n, replace=False)
         return t
 
-    nq, nkv, h = QWEN
-    kp, vp = data((POOL, PS, nkv, h)), data((POOL, PS, nkv, h))
-    lens = rng.integers(128, 801, B)
-    q, tb, ln = data((B, nq, h)), ints(tables(-(-lens // PS))), ints(lens)
-    out = {"paged decode B8": timed(
-        lambda: ops.paged_attention(q, kp, vp, tb, ln), 30)}
-    qs = rng.integers(0, 800 - T + 1, B)
-    q4, tb, qst = data((B, T, nq, h)), ints(tables(-(-(qs + T) // PS))), \
-        ints(qs)
-    out["paged prefill B8 T256"] = timed(
-        lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qst),
-        30)
-    q1, tb1, qs1 = q4[0].contiguous(), tb[0].contiguous(), qst[:1]
-    out["paged prefill B1 T256"] = timed(
-        lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1), 30)
+    out = {}
+    for nq, nkv, h in (QWEN, GEMMA):
+        kp, vp = data((POOL, PS, nkv, h)), data((POOL, PS, nkv, h))
+        lens = rng.integers(128, 801, B)
+        q, tb, ln = data((B, nq, h)), ints(tables(-(-lens // PS))), \
+            ints(lens)
+        out[f"paged decode h{h} B8"] = timed(
+            lambda: ops.paged_attention(q, kp, vp, tb, ln), 30)
+        qs = rng.integers(0, 800 - T + 1, B)
+        q4, tb, qst = data((B, T, nq, h)), \
+            ints(tables(-(-(qs + T) // PS))), ints(qs)
+        out[f"paged prefill h{h} B8 T256"] = timed(
+            lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qst),
+            30)
+        q1, tb1, qs1 = q4[0].contiguous(), tb[0].contiguous(), qst[:1]
+        out[f"paged prefill h{h} B1 T256"] = timed(
+            lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1), 30)
     for (nq, nkv, h), s, iters in ((QWEN, 4096, 30), (QWEN, 32768, 7),
                                    (GEMMA, 4096, 30)):
         fq, fk, fv = (data((1, s, n, h)) for n in (nq, nkv, nkv))
@@ -88,14 +91,16 @@ def run(root: Path) -> dict[str, float]:
     from repro_torch.kernels.paged_attention import kernel
     from repro_torch.models.lm import LM
     chip_smoke.kernel, chip_smoke.fkernel = kernel, fkernel
-    cfg = registry.get_config("qwen2-0.5b")
-    params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0),
-                          device="cuda")
-    prng = np.random.default_rng(0)
-    prompts = [prng.integers(1, cfg.vocab_size, n).tolist()
-               for n in prng.integers(128, 769, 8)]
-    r = chip_smoke.serve(cfg, params, torch.device("cuda"), prompts)
-    out["serving p50 step"] = float(np.median(r["step_s"])) * 1e3
+    for arch in ("qwen2-0.5b", "gemma-2b"):
+        cfg = registry.get_config(arch)
+        params = LM(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+        prng = np.random.default_rng(0)
+        prompts = [prng.integers(1, cfg.vocab_size, n).tolist()
+                   for n in prng.integers(128, 769, 8)]
+        r = chip_smoke.serve(cfg, params, torch.device("cuda"), prompts)
+        out[f"{arch} serving p50 step"] = float(np.median(r["step_s"])) * 1e3
+        del params
     return out
 
 

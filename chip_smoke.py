@@ -8,14 +8,16 @@ Phases (each failed check raises; the script then exits non-zero):
 1. environment and build: torch/CUDA versions, the card's name and power
    limit, the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together); ptxas registers,
-   spills and dynamic shared memory per kernel instance; the bf16 flash
-   instances and the bf16 paged instances at h = 64, 128 must hold HGMMA
-   (tensor-core) instructions in their SASS;
+   spills and dynamic shared memory per kernel instance, and ptxas's
+   performance warnings (serialised wgmma in a tensor-core instance fails
+   the phase); the bf16 flash instances and the bf16 paged instances at
+   h = 64, 128, 256 must hold HGMMA (tensor-core) instructions in their
+   SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
-   kernel per instance at the serving shapes (qwen2-0.5b heads and h = 128
-   in bf16 on the tensor-core instance; gemma-2b heads in bf16, qwen2-0.5b
-   heads and the smoke shapes in fp32 on the CUDA-core instance), each with
-   three bitwise properties; the flash kernel over the
+   kernel per instance at the serving shapes (qwen2-0.5b heads, h = 128 and
+   gemma-2b heads in bf16 on the tensor-core instance; qwen2-0.5b heads and
+   the smoke shapes in fp32 on the CUDA-core instance), each with three
+   bitwise properties; the flash kernel over the
    reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal),
    its bf16 instances at every head dim (ragged T, S < T, S > T, windows,
    non-causal, B > 1) and the prefill shapes (qwen2-0.5b and gemma-2b
@@ -46,11 +48,14 @@ Phases (each failed check raises; the script then exits non-zero):
    ``incremental_prefill=False``, every recompute chunk a 24-layer forward
    through the flash kernel;
 9. full-width gemma-2b serving (18 layers, head dim 256): phase 4 on
-   gemma-2b, every paged launch on the CUDA-core instance.
+   gemma-2b, every paged launch on the tensor-core instance (48-key tiles
+   at h = 256), then phase 6's profile on gemma-2b.
 
-The second-to-last lines are the kernels' JSON record and the card's
-``nvidia-smi`` name and power limit; the last line is the result JSON.
-Nothing here imports JAX: the machine with the card has none.
+The second-to-last lines are the kernels' JSON record (a row per entry
+point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
+instance) and the card's ``nvidia-smi`` name and power limit; the last
+line is the result JSON. Nothing here imports JAX: the machine with the
+card has none.
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ SMOKE = dict(nq=4, nkv=2, h=16)  # qwen2 smoke config heads
 GEMMA = dict(nq=8, nkv=1, h=256)  # gemma-2b attention heads
 GEMMA3 = dict(nq=32, nkv=16, h=128)  # gemma3-27b attention heads
 # phase 2's paged sweep: each instance at serving shapes (tensor cores:
-# bf16 at h 64, 128; CUDA cores: bf16 at h 256, fp32)
+# bf16 at h 64, 128, 256; CUDA cores: fp32)
 PAGED_SWEEP = ((MAIN, "bfloat16"), (GEMMA3, "bfloat16"), (GEMMA, "bfloat16"),
                (MAIN, "float32"), (SMOKE, "float32"))
 PREFILL_S = 4096                 # train_4k's sequence length
@@ -128,6 +133,9 @@ def phase_build() -> None:
     secs = build.build_all()
     log(f"build: {secs:.1f} s (nvcc, sm_90a) of "
         f"{sorted(p.name for p in build.CSRC.glob('*.cu'))}")
+    if not build.LOGS:
+        log("  built before this run: no ptxas report (a fresh checkout "
+            "builds and reports)")
     for name, out in build.LOGS.items():
         for fn, regs, spill in _ptxas_report(build, out):
             smem = ""
@@ -142,6 +150,14 @@ def phase_build() -> None:
                         f"; {kernel.smem_bytes(dtype, h, PS)} bytes dynamic "
                         f"shared memory at page {PS}")
             log(f"  ptxas[{name}] {fn}: {regs}; {spill}{smem}")
+        # ptxas's performance warnings; serialised wgmma (C7510-C7520)
+        # in a tensor-core instance fails the phase
+        for line in out.splitlines():
+            if "(C75" in line:
+                log(f"  ptxas[{name}] {line.split('info', 1)[-1].strip()}")
+                check("serialized" not in line or "wgmma_kernel" not in line,
+                      f"ptxas serialised a tensor-core instance's wgmma: "
+                      f"{line.strip()}")
     _check_tensor_cores(build, "flash_attention", "flash_wgmma_kernel",
                         len(fkernel.WGMMA_HEAD_DIMS))
     _check_tensor_cores(build, "paged_attention", "paged_wgmma_kernel",
@@ -260,18 +276,21 @@ def _max_err(out, want, dtype) -> float:
 def _vs_plain(errs, name, dtype, h, call) -> None:
     """``call(None)`` launches the paged entry point ``name`` once, on the
     instance its dtype and head dim select; ``call("reference")`` runs the
-    plain version. The error is kept per entry point and per instance."""
+    plain version. The error is kept per entry point, per instance, and per
+    (entry point, dtype, head dim)."""
     inst = kernel.instance(getattr(torch, dtype), h)
     n0 = kernel.LAUNCHES[inst]
     out = call(None)
     check(kernel.LAUNCHES[inst] == n0 + 1,
           f"{name} ({dtype}, h={h}) did not launch the {inst} instance")
     err = _max_err(out, call("reference"), dtype)
-    for key in (name, inst):
-        errs[key] = max(errs[key], err)
+    for key in (name, inst, (name, dtype, h)):
+        errs[key] = max(errs.get(key, 0.0), err)
 
 
-def phase_correctness() -> dict[str, float]:
+def phase_correctness() -> dict:
+    """The paged sweep; returns max |err| by entry point, by instance, and
+    by (entry point, dtype, head dim)."""
     rng = np.random.default_rng(1)
     errs = dict.fromkeys(kernel.LAUNCHES, 0.0)
     for heads, dtype in PAGED_SWEEP:
@@ -302,7 +321,7 @@ def phase_correctness() -> dict[str, float]:
         _bitwise(rng, kp, vp, pool, heads, dtype)
     torch.cuda.synchronize()
     log("kernel vs plain version: max |err| " + ", ".join(
-        f"{k} {v:.3g}" for k, v in errs.items())
+        f"{k} {errs[k]:.3g}" for k in kernel.LAUNCHES)
         + f" (tolerance {TOL['float32']} fp32 / {TOL['bfloat16']} bf16, "
         f"and bf16 within {BF16_ULPS[0]} |want| + {BF16_ULPS[1]})")
     return errs
@@ -346,7 +365,7 @@ def _flash_inputs(rng, b, s, t, heads, dtype):
             _data(rng, (b, t, nkv, h), dtype))
 
 
-def phase_flash_correctness() -> float:
+def phase_flash_correctness() -> dict:
     """The flash kernel against its plain version: tests/test_kernels.py's
     sweep (:28-70) in fp32 and bf16, windows 1/7/64/200 (1 and 7 leave a
     row's first 64-key tile fully masked), non-causal, then the bf16
@@ -355,7 +374,8 @@ def phase_flash_correctness() -> float:
     non-causal and B > 1, then the prefill shapes in bf16 (qwen2-0.5b and
     gemma-2b heads at S = T = 4096, and S = 1000 < T = 4096), then bitwise
     suffix and batch invariance. Each case must launch the instance that
-    its dtype and head dim select."""
+    its dtype and head dim select. Returns max |err| by instance and by
+    (dtype, head dim)."""
     rng = np.random.default_rng(4)
     mha, gqa = dict(nq=4, nkv=4, h=64), dict(nq=8, nkv=2, h=64)
     mqa, small = dict(nq=4, nkv=1, h=32), dict(nq=2, nkv=2, h=128)
@@ -386,15 +406,17 @@ def phase_flash_correctness() -> float:
         check(fkernel.LAUNCHES[name] == n0 + 1,
               f"{dtype} h={heads['h']} did not launch the {name} instance")
         want = fops.flash_attention(q, k, v, impl="reference", **kw)
-        errs[name] = max(errs[name], _max_err(out, want, dtype))
+        err = _max_err(out, want, dtype)
+        for key in (name, (dtype, heads["h"])):
+            errs[key] = max(errs.get(key, 0.0), err)
     torch.cuda.synchronize()
     log(f"flash kernel vs plain version over {len(cases)} cases: max |err| "
-        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + ", ".join(f"{k} {errs[k]:.3g}" for k in fkernel.LAUNCHES)
         + f" (tolerance {TOL['float32']} fp32 / {TOL['bfloat16']} "
         f"bf16, and bf16 within {BF16_ULPS[0]} |want| + {BF16_ULPS[1]})")
     for heads in (MAIN, GEMMA):
         _flash_bitwise(rng, heads)
-    return max(errs.values())
+    return errs
 
 
 def _flash_bitwise(rng, heads) -> None:
@@ -607,17 +629,20 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
     return rows
 
 
-def phase_timing() -> dict[str, dict]:
-    """The paged rows at qwen2-0.5b heads (the JSON record's) and at
-    gemma-2b heads, then the flash rows."""
+def phase_timing() -> dict[tuple[str, str], dict]:
+    """The paged rows at qwen2-0.5b and at gemma-2b heads, then the flash
+    rows; keyed (entry point, heads) for the JSON record."""
     rng = np.random.default_rng(2)
-    rows = _paged_rows(rng, MAIN, "qwen2-0.5b")
-    _paged_rows(rng, GEMMA, "gemma-2b")
+    rows = {}
+    for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
+        for name, row in _paged_rows(rng, heads, tag).items():
+            rows[name, tag] = row
     frng = np.random.default_rng(6)
-    rows["flash_attention_bh"] = _flash_row(frng, MAIN, PREFILL_S,
-                                            "qwen2-0.5b")
+    rows["flash_attention_bh", "qwen2-0.5b"] = _flash_row(
+        frng, MAIN, PREFILL_S, "qwen2-0.5b")
     _flash_row(frng, MAIN, LONG_S, "qwen2-0.5b, prefill_32k length")
-    _flash_row(frng, GEMMA, PREFILL_S, "gemma-2b")
+    rows["flash_attention_bh", "gemma-2b"] = _flash_row(
+        frng, GEMMA, PREFILL_S, "gemma-2b")
     return rows
 
 
@@ -852,7 +877,7 @@ def phase_profile(device, cfg, params) -> None:
     while eng.waiting or any(s.produced == 0 for s in eng.active):
         eng.step()                               # prefill, first token
     eng.step()
-    _profile("3 decode steps at batch 8", eng.step, 3, "step")
+    _profile(f"{cfg.name}, 3 decode steps at batch 8", eng.step, 3, "step")
 
 
 # -- phases 7 and 8 ------------------------------------------------------------
@@ -992,42 +1017,55 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_correctness()
-    errs["flash_attention_bh"] = phase_flash_correctness()
+    ferrs = phase_flash_correctness()
     times = phase_timing()
     from repro_torch.configs import registry
     s = phase_serve(device, registry.get_config("qwen2-0.5b"))
     phase_spec(device, s["cfg"], s["params"])
     phase_profile(device, s["cfg"], s["params"])
-    flash_launches = phase_prefill(device, "qwen2-0.5b", 4, s["params"])
-    flash_launches += phase_prefill(device, "gemma-2b", 1)
+    flash_launches = {
+        "qwen2-0.5b": phase_prefill(device, "qwen2-0.5b", 4, s["params"]),
+        "gemma-2b": phase_prefill(device, "gemma-2b", 1)}
     phase_recompute(device, s["cfg"], s["params"], s["prompts"],
                     s["greedy"])
-    phase_serve(device, registry.get_config("gemma-2b"))
-    greedy = s["greedy"]
+    g = phase_serve(device, registry.get_config("gemma-2b"))
+    phase_profile(device, g["cfg"], g["params"])
+    served = {"qwen2-0.5b": s["greedy"]["launches"],
+              "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     paged_tpu = "src/repro/kernels/paged_attention/kernel.py"
-    # (name, source, TPU kernel's pallas_call, launches on its main path)
+    # (name, source, TPU kernel's pallas_call); a row per entry point and
+    # heads, its launches from that model's run (serving for the paged
+    # kernel, the phase-7 forwards for flash), its error from the bf16
+    # cases at that head dim
     table = [
-        ("paged_attention", paged_src, f"{paged_tpu}:317",
-         greedy["launches"]["paged_attention"]),
-        ("paged_prefill_attention_batch", paged_src, f"{paged_tpu}:233",
-         greedy["launches"]["paged_prefill_attention_batch"]),
-        ("paged_prefill_attention", paged_src, f"{paged_tpu}:276",
-         greedy["launches"]["paged_prefill_attention"]),
+        ("paged_attention", paged_src, f"{paged_tpu}:317"),
+        ("paged_prefill_attention_batch", paged_src, f"{paged_tpu}:233"),
+        ("paged_prefill_attention", paged_src, f"{paged_tpu}:276"),
         ("flash_attention_bh", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:114", flash_launches),
+         "src/repro/kernels/flash_attention/kernel.py:114"),
     ]
     rows = []
-    for name, source, replaces, launches in table:
-        if name != "paged_prefill_attention":   # no call site on a path
-            check(launches > 0, f"{name} never launched on its path")
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches,
-                         max_abs_err=errs[name], **times[name]))
-    # launches and times of every row are the bf16 tensor-core instance's
-    for row in rows[:-1]:
-        row["instance"] = kernel.instance(torch.bfloat16, MAIN["h"])
-    rows[-1]["instance"] = "flash_attention_wgmma"
+    for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
+        h = heads["h"]
+        for name, source, replaces in table:
+            if name == "flash_attention_bh":
+                launches = flash_launches[tag]
+                err = ferrs["bfloat16", h]
+                inst = fkernel.instance(torch.bfloat16, h)
+            else:
+                launches = served[tag][name]
+                err = errs[name, "bfloat16", h]
+                inst = kernel.instance(torch.bfloat16, h)
+            if name != "paged_prefill_attention":   # no call site on a path
+                check(launches > 0, f"{name} never launched on the "
+                      f"{tag} path")
+            rows.append(dict(name=name, route="cuda", source=source,
+                             replaces=replaces, launches=launches,
+                             max_abs_err=err, **times[name, tag],
+                             instance=inst,
+                             heads=f"{tag} {heads['nq']}/{heads['nkv']}/"
+                                   f"{h}"))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

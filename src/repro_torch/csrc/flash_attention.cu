@@ -24,12 +24,13 @@
 //
 // 1. bf16, H = 64, 128, 256: the tensor-core instance (flash_wgmma_kernel).
 //    A block of three warpgroups owns BQ = 128 query rows of one (b, head)
-//    and walks 64-key tiles.
+//    and walks WK-key tiles: WK = 64 at H = 64, 128 and 48 at H = 256
+//    (WgLayout<H>::WK, wgmma_attention.cuh).
 //    - Warpgroup 0 is the producer: one thread issues TMA loads from 4-D
 //      tensor maps over [B, len, heads, H] (a box is one head's [rows x 64]
 //      slab, 128-byte swizzled; rows past S or T read as zeros), Q once and
-//      K and V through a ring of 6, 4 or 2 stages (H = 64, 128, 256), each
-//      with an mbarrier for K, one for V and one that the consumers
+//      K and V through a ring of 6, 4 or 3 stages (H = 64, 128, 256),
+//      each with an mbarrier for K, one for V and one that the consumers
 //      release. It gives its registers away (setmaxnreg 24).
 //    - Warpgroups 1 and 2 consume 64 query rows each (setmaxnreg 240; the
 //      role is taken from a warp-uniform warpgroup index, without which
@@ -41,20 +42,21 @@
 //      with P from registers and V from shared memory as the MN-major
 //      (transposed) B operand, so V is never transposed in memory. O is
 //      H/64 accumulators of m64n64 (128 fp32 registers a thread at H = 256).
-//    - At H = 64 and 128 the tiles are pipelined as in FlashAttention-3:
-//      S(i+1) = Q K(i+1)^T and O += P(i) V(i) are issued together and the
-//      softmax of tile i+1 runs while they do; the two warpgroups take turns
-//      to issue (named barriers), so one's softmax overlaps the other's
-//      products. At H = 256, O leaves too few registers for a second tile in
-//      flight, and a warpgroup takes one tile at a time.
+//    - The tiles are pipelined as in FlashAttention-3: S(i+1) = Q K(i+1)^T
+//      and O += P(i) V(i) are issued together and the softmax of tile i+1
+//      runs while they do; the two warpgroups take turns to issue (named
+//      barriers), so one's softmax overlaps the other's products. At
+//      H = 256 the 48-key tile (S by wgmma m64n48k16, 24 registers, and 24
+//      for the hi/lo P pair) is what leaves room beside O for the second
+//      tile in flight.
 //    - P goes in as a hi/lo pair, hi = bf16(p), lo = bf16(p - hi), two PV
 //      products into one fp32 accumulator. A single bf16 P breaks the gate of
 //      two bf16 ulps of the plain version; the pair keeps p to ~16 bits, as
 //      close as fp32 P (tests/test_torch_flash.py holds an emulation of this
 //      rounding against both gates). It costs 1.5x the nominal flops.
 //    - p = 2^(s * scale * log2(e) - m), one fma and one MUFU ex2 per score.
-//    Shared memory at H = 256: Q 64 KB + two stages of K and V, 32 KB each =
-//    192 KB, one block per SM.
+//    Shared memory at H = 256: Q 64 KB + three stages of K and V, 24 KB each
+//    = 208 KB, one block per SM.
 // 2. fp32 (any H) and bf16 at H = 16, 32: the CUDA-core instance
 //    (flash_kernel, the port's first design). fp32 stays on CUDA cores as its
 //    gate is 2e-5 and TF32 tensor cores keep about three decimal digits;
@@ -79,7 +81,7 @@
 // Bitwise invariance (the engine's recompute oracle equals one-shot prefill
 // bit for bit). A row's arithmetic does not depend on S, T (once they
 // exceed the row), B, or the block it lands in: query tiles start at
-// multiples of BQ and key tiles at multiples of 64 in absolute position,
+// multiples of BQ and key tiles at multiples of WK in absolute position,
 // each score is one product over d = 0..H-1 in an order fixed by the
 // instance, the row max and the row sum of p are one xor butterfly over the
 // lanes that hold the row (equal bits on each), every multiply and fma of the
@@ -379,15 +381,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 // (tested only where the tile can hold one for a row of this warpgroup,
 // whose first row is row0) go to -inf; (m, l) move to the tile; s becomes
 // p = 2^(s c2 - m) in fp32; returns the factors alpha that O must take.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
-                                             int row0, int t_len, int causal,
-                                             int window, float c2,
+template <int WK>
+__device__ __forceinline__ void softmax_tile(float (&s)[WK / 2], Rows& r,
+                                             int k0, int row0, int t_len,
+                                             int causal, int window, float c2,
                                              float& al_a, float& al_b) {
   const bool edge = k0 + WK > t_len || (causal && k0 + WK - 1 > row0) ||
                     (window > 0 && row0 + 63 - k0 >= window);
   float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < WK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * n + e];
@@ -416,7 +419,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
   r.m_b = mn_b;
   float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < WK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = ex2(__fmaf_rn(s[4 * n + e], c2, e < 2 ? -mn_a : -mn_b));
@@ -442,7 +445,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ out, int s_len, int t_len,
                    int nq, int nkv, int causal, int window, float scale) {
   using L = WgLayout<H>;
-  constexpr int NC = L::NC;
+  constexpr int NC = L::NC, WK = L::WK;
   extern __shared__ uint8_t wg_smem[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem)) + 1023u) &
@@ -463,6 +466,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_tiles = kt_hi - kt_lo + 1;          // may be <= 0
 
   if (threadIdx.x == 0) {
+    if constexpr (!L::TRAP) wait_abandoned() = 0;
     mbar_init(q_full, 1);
     for (int st = 0; st < L::STAGES; ++st) {
       mbar_init(L::full_k(bars, st), 1);
@@ -487,7 +491,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % L::STAGES;
         const int k0 = (kt_lo + i) * WK;
-        mbar_wait(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
+        mbar_wait<L::TRAP>(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
         const uint32_t kd = k_s + st * L::KV_BYTES;
         const uint32_t vd = v_s + st * L::KV_BYTES;
         mbar_expect_tx(L::full_k(bars, st), L::KV_BYTES);
@@ -520,55 +524,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
     const uint64_t dq = gmma_desc(q_s + cw * 64 * ROW_BYTES, 16, 1024);
     // the online softmax of tile i (keys from (kt_lo + i) * WK)
-    auto softmax = [&](float (&s)[32], int i, float& al_a, float& al_b) {
-      softmax_tile(s, r, (kt_lo + i) * WK, row0, t_len, causal, window, c2,
-                   al_a, al_b);
+    auto softmax = [&](float (&s)[WK / 2], int i, float& al_a,
+                       float& al_b) {
+      softmax_tile<WK>(s, r, (kt_lo + i) * WK, row0, t_len, causal, window,
+                       c2, al_a, al_b);
     };
     // Every tile of the block's range is computed by both warpgroups: a
     // tile that a warpgroup's rows cannot see is fully masked for them, an
     // exact no-op, and no wgmma sits under a data-dependent branch.
-    mbar_wait(q_full, 0);
-    if (n_tiles > 0) {
-      if constexpr (H <= 128) {
-        consume_pipelined<H, false>(o, dq, k_s, v_s, bars, n_tiles, cw, lane,
-                                    softmax);
-      } else {
-        // H = 256: O alone takes 128 registers a thread, too many to keep
-        // a second tile's S and P in flight, so one tile at a time
-        float s[32], al_a, al_b;
-        uint32_t ph[16], pl[16];
-        // descriptors of stage st, derived per use so that the compiler
-        // does not keep every step's in registers
-        auto dk_of = [&](int st) {
-          uint64_t d = gmma_desc(k_s + st * L::KV_BYTES, 16, 1024);
-          asm volatile("" : "+l"(d));
-          return d;
-        };
-        auto dv_of = [&](int st) {
-          uint64_t d = gmma_desc(v_s + st * L::KV_BYTES, WK * ROW_BYTES,
-                                 1024);
-          asm volatile("" : "+l"(d));
-          return d;
-        };
-        for (int i = 0; i < n_tiles; ++i) {
-          const int st = i % L::STAGES;
-          const uint32_t par = (i / L::STAGES) & 1;
-          mbar_wait(L::full_k(bars, st), par);
-          mbar_wait(L::full_v(bars, st), par);
-          issue_qk<H>(s, dq, dk_of(st));
-          wg_wait<0>();
-          keep(s);
-          softmax(s, i, al_a, al_b);
-          stage_p(s, ph, pl, o, al_a, al_b);
-          issue_pv(o, ph, pl, dv_of(st));
-          wg_wait<0>();
-#pragma unroll
-          for (int j = 0; j < NC; ++j) keep(o[j]);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(L::empty(bars, st));
-        }
-      }
-    }
+    mbar_wait<L::TRAP>(q_full, 0);
+    if (n_tiles > 0)
+      consume_pipelined<H, false>(o, dq, k_s, v_s, bars, n_tiles, cw, lane,
+                                  softmax);
     const int qa = r.qa, qb = r.qb, kc = r.kc;
     const float l_a = r.l_a, l_b = r.l_b;
 
@@ -648,8 +615,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (enc == nullptr) return -2;
   CUtensorMap tq, tk, tv;
   if (make_map<H>(enc, &tq, q, b, s, nq, WQ) ||
-      make_map<H>(enc, &tk, k, b, t, nkv, WK) ||
-      make_map<H>(enc, &tv, v, b, t, nkv, WK))
+      make_map<H>(enc, &tk, k, b, t, nkv, WgLayout<H>::WK) ||
+      make_map<H>(enc, &tv, v, b, t, nkv, WgLayout<H>::WK))
     return -3;
   constexpr int smem = WgLayout<H>::BYTES;
   auto kern = flash_wgmma_kernel<H>;

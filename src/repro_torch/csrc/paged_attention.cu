@@ -21,40 +21,41 @@
 // Two instances, chosen by element type and head dim only (never by T, B,
 // mp or the data, so a row's bits never depend on them):
 //
-// 1. bf16 at H = 64, 128: the tensor-core instance (paged_wgmma_kernel).
+// 1. bf16 at H = 64, 128, 256: the tensor-core instance (paged_wgmma_kernel).
 //    Grid (B, nkv, ceil(T*g / 128)); a block of three warpgroups owns 128
-//    rows of one KV head and walks 64-key tiles at absolute key positions
-//    (tile i holds keys 64i .. 64i + 63, pages i*64/ps ..), from tile 0 to
-//    the one that holds its last row's position.
+//    rows of one KV head and walks WK-key tiles at absolute key positions
+//    (tile i holds keys WK*i .. WK*i + WK - 1, pages i*WK/ps ..), from tile 0
+//    to the one that holds its last row's position. WK is the instance's
+//    tile width (WgLayout<H>::WK): 64 keys at H = 64, 128 and 48 at H = 256,
+//    where O alone takes 128 registers a consumer thread.
 //    - Warpgroup 0 is the producer: its 128 threads gather each tile's K
 //      and V rows through the row's page table with cp.async, 16 bytes a
-//      copy, into a ring of 6 (H = 64) or 4 (H = 128) stages laid out as
-//      TMA's 128-byte swizzle would lay them, so the wgmma descriptors of
-//      the flash kernel read them as they are. A key past the table (page
-//      index >= mp) reads as zeros. Each thread's copies signal the stage's
-//      mbarrier when they land (cp.async.mbarrier.arrive.noinc); the Q rows
-//      of the block are gathered the same way once (zeros past T*g). TMA
-//      would need a page size that is a multiple of 8 rows for its swizzle;
-//      cp.async takes any page size.
+//      copy, into a ring of 6 (H = 64), 4 (H = 128) or 3 (H = 256) stages
+//      laid out as TMA's 128-byte swizzle would lay them, so the wgmma descriptors
+//      of the flash kernel read them as they are. A key past the table
+//      (page index >= mp) reads as zeros. Each thread's copies signal the
+//      stage's mbarrier when they land (cp.async.mbarrier.arrive.noinc);
+//      the Q rows of the block are gathered the same way once (zeros past
+//      T*g). TMA would need a page size that is a multiple of 8 rows for
+//      its swizzle; cp.async takes any page size.
 //    - Warpgroups 1 and 2 consume 64 rows each, with the flash kernel's
 //      pipelined walk (wgmma_attention.cuh): S = Q K^T and O += P V on
 //      wgmma, the online softmax in fp32 in the accumulator layout, P as
 //      the hi/lo bf16 pair (a single bf16 P breaks the gate of two bf16
 //      ulps of the plain version). A key is visible to a row when its
 //      position is <= the row's and inside the table.
-//    Decode (T = 1) fills 7 of a block's 128 rows at qwen2-0.5b's g = 7 and
-//    launches B * nkv blocks: it reads its bytes at a fraction of the card's
-//    rate until its walk is split across SMs.
-// 2. fp32 at every head dim and bf16 at H = 16, 32, 256: the CUDA-core
-//    instance (paged_walk_kernel), the port's first design. Grid (B, nkv,
+//    Decode (T = 1) fills g of a block's 128 rows (7 at qwen2-0.5b, 8 at
+//    gemma-2b) and launches B * nkv blocks: it reads its bytes at a
+//    fraction of the card's rate until its walk is split across SMs.
+// 2. fp32 at every head dim and bf16 at H = 16, 32: the CUDA-core instance
+//    (paged_walk_kernel), the port's first design. Grid (B, nkv,
 //    ceil(T*g / ROWS)); a block of WARPS warps owns ROWS rows of one KV
 //    head and walks the row's pages in table order. Each page's K and V
 //    slice for the KV head is loaded into shared memory as fp32 and shared
 //    by all ROWS rows. A warp handles ROWS_PER_WARP rows; per row it keeps
 //    (m, l, acc[h]) in fp32 registers, lane j scores slots j and j + 32,
 //    and lane i owns acc[i], acc[i + 32], ... fp32 stays here for its 2e-5
-//    gate (TF32 tensor cores keep about three decimal digits); gemma-2b's
-//    H = 256 is here until it has a tensor-core instance of its own.
+//    gate (TF32 tensor cores keep about three decimal digits).
 //
 // Bit-invariance. A row's arithmetic does not depend on T, B, mp or the
 // tile it lands in. In the tensor-core instance, tiles sit at absolute key
@@ -86,7 +87,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The CUDA-core instance: fp32 at every head dim, bf16 at H = 16, 32, 256.
+// The CUDA-core instance: fp32 at every head dim, bf16 at H = 16, 32.
 // ---------------------------------------------------------------------------
 
 constexpr int WARPS = 4;
@@ -261,14 +262,18 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance: bf16 at H = 64, 128 (see the top of file).
+// The tensor-core instance: bf16 at H = 64, 128, 256 (see the top of file).
 // ---------------------------------------------------------------------------
 
 constexpr int PRODUCER_THREADS = 128;
 // setmaxnreg budgets: 128 * 40 + 256 * 232 = 64512 registers, the launch's
-// 384 * 168
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
+// 384 * 168 (128 * 64 + 256 * 216 at H = 256, where the producer's 12 rows
+// a tile of 32 units each spilled at 40 and ran slower, and the consumers
+// need fewer than 216).
+template <int H>
+constexpr int PRODUCER_REGS = H == 256 ? 64 : 40;
+template <int H>
+constexpr int CONSUMER_REGS = H == 256 ? 216 : 232;
 
 // 16 bytes from global to shared memory, asynchronously; with bytes = 0 it
 // reads nothing and writes zeros
@@ -304,14 +309,15 @@ __device__ __forceinline__ uint32_t swizzled(uint32_t base, int row, int u) {
 // (m, l) move to the tile; s becomes p = 2^(s c2 - m) in fp32; returns the
 // factors alpha that O must take. flash_attention.cu's softmax_tile with
 // this kernel's mask.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
-                                             int q_first, int k_end,
+template <int WK>
+__device__ __forceinline__ void softmax_tile(float (&s)[WK / 2], Rows& r,
+                                             int k0, int q_first, int k_end,
                                              float c2, float& al_a,
                                              float& al_b) {
   const bool edge = k0 + WK - 1 > q_first || k0 + WK > k_end;
   float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < WK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * n + e];
@@ -339,7 +345,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r, int k0,
   r.m_b = mn_b;
   float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < WK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = ex2(__fmaf_rn(s[4 * n + e], c2, e < 2 ? -mn_a : -mn_b));
@@ -367,7 +373,7 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ out, int t_len, int nq,
                    int nkv, int ps, int mp, int qoff, float scale) {
   using L = WgLayout<H>;
-  constexpr int NC = L::NC;
+  constexpr int NC = L::NC, WK = L::WK;
   constexpr int UPR = H / 8;                        // 16-byte units a row
   constexpr int RSTEP = PRODUCER_THREADS / UPR;     // rows between copies
   extern __shared__ uint8_t pw_smem[];
@@ -391,6 +397,7 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       q_last < 0 ? 0 : min(q_last / WK + 1, (k_end + WK - 1) / WK);
 
   if (threadIdx.x == 0) {
+    if constexpr (!L::TRAP) wait_abandoned() = 0;
     mbar_init(q_full, PRODUCER_THREADS);
     for (int st = 0; st < L::STAGES; ++st) {
       mbar_init(L::full_k(bars, st), PRODUCER_THREADS);
@@ -406,7 +413,7 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
   if (wg == 0) {
     // producer: thread tid copies unit u of rows tid / UPR, + RSTEP, ...
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS<H>)
                  : "memory");
     const int tid = threadIdx.x, u = tid % UPR;
     for (int row = tid / UPR; row < WQ; row += RSTEP) {
@@ -447,7 +454,7 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       const int st = i % L::STAGES;
       int pr[NR];
       pool_rows(i * WK, pr);          // table loads in flight over the wait
-      mbar_wait(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
+      mbar_wait<L::TRAP>(L::empty(bars, st), ((i / L::STAGES) & 1) ^ 1);
       gather(k_pool, k_s + st * L::KV_BYTES, pr);
       cp_async_arrive(L::full_k(bars, st));
       gather(v_pool, v_s + st * L::KV_BYTES, pr);
@@ -456,7 +463,7 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     asm volatile("cp.async.wait_all;" ::: "memory");
   } else {
     // consumers: warpgroup cw owns rows row0 .. row0 + 63 of the block
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS<H>)
                  : "memory");
     const int cw = wg - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -478,10 +485,11 @@ paged_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     // the online softmax of tile i; q_first is the least position among
     // this warpgroup's rows
     const int q_first = q_start + row0 / g;
-    auto softmax = [&](float (&s)[32], int i, float& al_a, float& al_b) {
-      softmax_tile(s, r, i * WK, q_first, k_end, c2, al_a, al_b);
+    auto softmax = [&](float (&s)[WK / 2], int i, float& al_a,
+                       float& al_b) {
+      softmax_tile<WK>(s, r, i * WK, q_first, k_end, c2, al_a, al_b);
     };
-    mbar_wait(q_full, 0);
+    mbar_wait<L::TRAP>(q_full, 0);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     // both warpgroups compute every tile of the block's range: a tile that
     // a warpgroup's rows cannot see is fully masked for them, a no-op
@@ -567,7 +575,7 @@ int dispatch_bf16(int h, const void* q, const void* k_pool,
     case 32: return launch<__nv_bfloat16, 32>(PAGED_ARGS);
     case 64: return launch_wgmma<64>(PAGED_ARGS);
     case 128: return launch_wgmma<128>(PAGED_ARGS);
-    case 256: return launch<__nv_bfloat16, 256>(PAGED_ARGS);
+    case 256: return launch_wgmma<256>(PAGED_ARGS);
     default: return -1;
   }
 }
@@ -580,16 +588,17 @@ extern "C" int bwap_paged_smem_bytes(int h, int ps, int dtype) {
   if (ps <= 0 || ps > MAX_PS || (dtype != 0 && dtype != 1) ||
       (h != 16 && h != 32 && h != 64 && h != 128 && h != 256))
     return -1;
-  if (dtype == 1 && (h == 64 || h == 128))
-    return h == 64 ? WgLayout<64>::BYTES : WgLayout<128>::BYTES;
+  if (dtype == 1 && (h == 64 || h == 128 || h == 256))
+    return h == 64 ? WgLayout<64>::BYTES
+                   : h == 128 ? WgLayout<128>::BYTES : WgLayout<256>::BYTES;
   return (int)walk_smem_bytes(h, ps);
 }
 
 // Plain C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. Launches on
 // `stream` and returns cudaGetLastError() (0 = success); -1 for a shape, type
 // or alignment the kernel does not take. Query (b, t) sits at qstart[b] +
-// qoff + t. The instance: bf16 at h = 64, 128 runs on tensor cores, the rest
-// on CUDA cores.
+// qoff + t. The instance: bf16 at h = 64, 128, 256 runs on tensor cores, the
+// rest on CUDA cores.
 extern "C" int bwap_paged_attention(const void* q, const void* k_pool,
                                     const void* v_pool, const void* table,
                                     const void* qstart, void* out, int b,

@@ -3,9 +3,10 @@
 // (sm_90a): the K/V ring's shared-memory layout and mbarriers, wgmma
 // descriptors and issue, the online softmax in the wgmma accumulator layout,
 // P as a hi/lo bf16 pair, and the consumer warpgroups' pipelined walk over
-// the ring. Each kernel brings its own producer (TMA for flash, cp.async
-// page gathers for paged) and its own online softmax (softmax_tile) with
-// its mask written inline: with the mask passed in as a functor, ptxas
+// the ring, at every head dim of the tensor-core instances (64, 128, 256).
+// Each kernel brings its own producer (TMA for flash, cp.async page gathers
+// for paged) and its own online softmax (softmax_tile) with its mask
+// written inline: with the mask passed in as a functor, ptxas
 // scheduled the flash kernel's softmax otherwise, and the kernel ran
 // measurably slower at S = 32768 on the H100. kernels/build.py hashes this
 // header into both libraries' names.
@@ -21,7 +22,6 @@ constexpr float NEG_INF = -2.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int WQ = 128;                // query rows per block
-constexpr int WK = 64;                 // keys per tile
 constexpr int WG_THREADS = 384;        // producer warpgroup + two consumers
 constexpr int CHUNK = 64;              // bf16 of one 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
@@ -31,12 +31,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Q as H/64 chunks of [WQ][64], then per stage K and V as H/64 chunks of
 // [WK][64] (each chunk one TMA box, 128-byte swizzled), then the mbarriers:
 // q_full, full_k[STAGES], full_v[STAGES], empty[STAGES].
+//
+// The tile width WK is the instance's: 64 keys at H = 64, 128 and 48 at
+// H = 256, as FlashAttention-3 narrows its key tile at head dim 256. At
+// H = 256 the O accumulator alone is 128 fp32 registers a consumer thread,
+// and a 64-key tile's S (32) and hi/lo P pair (32) beside it, with the next
+// S in flight, leave too few; a 48-key tile takes 24 for S (wgmma
+// m64n48k16) and 24 for the pair, so the walk is pipelined at every head
+// dim. Its K or V tile is 24 KB, and the ring holds 3 stages beside Q's
+// 64 KB (208 KB). On the H100, 48 keys ran the flash instance faster than
+// 32 (4 stages) or 64 (2 stages), and the paged one slightly faster than
+// 32.
 template <int H>
 struct WgLayout {
   static constexpr int NC = H / CHUNK;
-  // K/V ring depth: as deep as shared memory allows (Q + 2 stages of K and
-  // V is 192 KB at H = 256)
-  static constexpr int STAGES = H == 256 ? 2 : H == 128 ? 4 : 6;
+  static constexpr int WK = H == 256 ? 48 : 64;   // keys per tile
+  // K/V ring depth: as deep as shared memory allows
+  static constexpr int STAGES = H == 64 ? 6 : H == 128 ? 4 : 3;
+  // how a wait that never completes ends the launch (mbar_wait)
+  static constexpr bool TRAP = H <= 128;
   static constexpr int Q_BYTES = WQ * H * 2;
   static constexpr int KV_BYTES = WK * H * 2;     // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -71,9 +84,22 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
                : "memory");
 }
-// spin until the phase of parity `parity` has completed; a wait that
-// outlasts ~2^34 cycles (seconds) traps, so a lost arrival ends the launch
-// with an error instead of holding the card
+// set once a wait of this block has given up (mbar_wait<false>); a kernel
+// that waits so clears it before its first wait
+__device__ __forceinline__ int& wait_abandoned() {
+  __shared__ int flag;
+  return flag;
+}
+
+// spin until the phase of parity `parity` has completed. A wait that
+// outlasts ~2^34 cycles (seconds) ends the launch instead of holding the
+// card: with kTrap by a trap, an error the host sees at its next sync; else
+// by giving up, and every later wait of the block gives up at once, so the
+// launch ends with wrong output that any check against the plain version
+// catches. WgLayout<H>::TRAP picks: a trap anywhere in the H = 256
+// instances makes ptxas serialise their wgmma ("insufficient register
+// resources", C7512) and spill, so they give up instead.
+template <bool kTrap>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   const long long t0 = clock64();
@@ -87,7 +113,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+    if constexpr (kTrap) {
+      if (!done && clock64() - t0 > (1ll << 34)) __trap();
+    } else if (!done && (*static_cast<volatile int*>(&wait_abandoned()) ||
+                         clock64() - t0 > (1ll << 34))) {
+      wait_abandoned() = 1;
+      break;
+    }
   }
 }
 
@@ -131,19 +163,43 @@ __device__ __forceinline__ void keep(float (&r)[N]) {
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
       "+f"(d[30]), "+f"(d[31])
 
-// d (+)= A B for A [64 x 16] and B [16 x 64], both bf16 in shared memory,
-// K-major; d = A B when `accumulate` is 0
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+#define ACC24_LIST                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23}"
+#define ACC24_OPERANDS(d)                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+
+// d (+)= A B for A [64 x 16] and B [16 x N] (N = 64 or 48 keys), both bf16
+// in shared memory, K-major; d = A B when `accumulate` is 0
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC32_OPERANDS(d)
-      : "l"(da), "l"(db), "r"(accumulate));
+  static_assert(N == 64 || N == 48, "S tiles are 64 or 48 keys wide");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
+        ", %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : ACC32_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " ACC24_LIST
+        ", %24, %25, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : ACC24_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
 }
 
 // d += A B for A [64 x 16] bf16 in registers (four bf16 pairs a thread, the
@@ -183,35 +239,41 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 
 // Per-thread state of a consumer: the thread holds rows a and b (8 apart)
 // of its warpgroup's 64, whose query positions are qa and qb; in each 8-key
-// group of a tile, keys kc and kc + 1.
+// group of a tile, keys kc and kc + 1. A WK-key tile of S is WK / 2
+// registers a thread: s[4n + e] holds key 8n + kc + (e & 1) of row a
+// (e < 2) or b.
 struct Rows {
   int qa, qb, kc;
   float m_a, m_b, l_a, l_b;     // running max (log2 units) and sum
 };
 
-// S = Q K^T for one 64-key tile, 16 dims a step (issued, committed)
-template <int H>
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t dq,
+// S = Q K^T for one WK-key tile, 16 dims a step (issued, committed)
+template <int H, int WK>
+__device__ __forceinline__ void issue_qk(float (&s)[WK / 2], uint64_t dq,
                                          uint64_t dk) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  for (int e = 0; e < WK / 2; ++e) s[e] = 0.f;
   keep(s);
+  // at H = 256 the compiler hoisted the 16 steps' Q descriptors out of the
+  // tile loop, and the paged instance spilled; derived per tile they don't
+  if constexpr (H > 128) asm volatile("" : "+l"(dq));
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < H / 16; ++kk) {
     // chunk kk / 4 of the row, 32 bytes a step within its 128 bytes
     const uint32_t off = (kk % 4) * 2;            // 16-byte units
-    wgmma_ss(s, dq + (kk / 4) * (WQ * ROW_BYTES / 16) + off,
-             dk + (kk / 4) * (WK * ROW_BYTES / 16) + off, kk > 0);
+    wgmma_ss<WK>(s, dq + (kk / 4) * (WQ * ROW_BYTES / 16) + off,
+                 dk + (kk / 4) * (WK * ROW_BYTES / 16) + off, kk > 0);
   }
   wg_commit();
 }
 
-// O += P_hi V + P_lo V for one tile, 16 keys a step (issued, committed)
-template <int NC>
+// O += P_hi V + P_lo V for one WK-key tile, 16 keys a step (issued,
+// committed)
+template <int NC, int WK>
 __device__ __forceinline__ void issue_pv(float (&o)[NC][32],
-                                         const uint32_t (&ph)[16],
-                                         const uint32_t (&pl)[16],
+                                         const uint32_t (&ph)[WK / 4],
+                                         const uint32_t (&pl)[WK / 4],
                                          uint64_t dv) {
 #pragma unroll
   for (int j = 0; j < NC; ++j) keep(o[j]);
@@ -232,14 +294,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[NC][32],
 // p (fp32) -> the hi/lo bf16 pair, the A operand of P V: pair r holds
 // p[2r], p[2r+1] (row a for even r, b for odd), register r % 4 of key step
 // r / 4. Then O = O * alpha, ready for the tile's P V.
-template <int NC>
-__device__ __forceinline__ void stage_p(const float (&s)[32],
-                                        uint32_t (&ph)[16],
-                                        uint32_t (&pl)[16],
+template <int NC, int WK>
+__device__ __forceinline__ void stage_p(const float (&s)[WK / 2],
+                                        uint32_t (&ph)[WK / 4],
+                                        uint32_t (&pl)[WK / 4],
                                         float (&o)[NC][32], float al_a,
                                         float al_b) {
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
+  for (int r = 0; r < WK / 4; ++r) {
     const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * r], s[2 * r + 1]);
     const float2 hf = __bfloat1622float2(hi);
     ph[r] = bf16x2_bits(hi);
@@ -258,9 +320,10 @@ __device__ __forceinline__ void stage_p(const float (&s)[32],
 }
 
 // The walk of consumer warpgroup cw (of two) over tiles 0 .. n_tiles - 1 of
-// the K/V ring, for H <= 128, n_tiles >= 1. The products S(i+1) = Q K(i+1)^T
-// and O += P(i) V(i) are issued together, and the softmax of tile i+1 runs
-// while they (and the other warpgroup's) do, as in FlashAttention-3. The two
+// the K/V ring, n_tiles >= 1, at the instance's tile width WgLayout<H>::WK.
+// The products S(i+1) = Q K(i+1)^T and O += P(i) V(i) are issued together,
+// and the softmax of tile i+1 runs while they (and the other warpgroup's)
+// do, as in FlashAttention-3, at every head dim. The two
 // warpgroups take turns to issue (named barriers 1 and 2), so that one's
 // softmax runs beside the other's products. `softmax(s, i, al_a, al_b)` is
 // the online softmax of tile i under the kernel's mask. With
@@ -274,9 +337,9 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
                                                   int n_tiles, int cw,
                                                   int lane, Softmax softmax) {
   using L = WgLayout<H>;
-  constexpr int NC = L::NC;
-  float s[32], al_a, al_b;
-  uint32_t ph[16], pl[16];
+  constexpr int NC = L::NC, WK = L::WK;
+  float s[WK / 2], al_a, al_b;
+  uint32_t ph[WK / 4], pl[WK / 4];
   // descriptors of stage st, derived per use so that the compiler does not
   // keep every step's in registers
   auto dk_of = [&](int st) {
@@ -290,7 +353,7 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
     return d;
   };
   auto wait_full = [&](uint32_t bar, uint32_t parity) {
-    mbar_wait(bar, parity);
+    mbar_wait<L::TRAP>(bar, parity);
     if constexpr (kProxyFence)
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
@@ -298,19 +361,19 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
   if (cw == 1) named_arrive(1);             // warpgroup 0 goes first
   wait_full(L::full_k(bars, 0), 0);
   named_sync(my_turn);
-  issue_qk<H>(s, dq, dk_of(0));
+  issue_qk<H, WK>(s, dq, dk_of(0));
   named_arrive(other_turn);
   wg_wait<0>();
   keep(s);
   softmax(s, 0, al_a, al_b);
-  stage_p(s, ph, pl, o, al_a, al_b);
+  stage_p<NC, WK>(s, ph, pl, o, al_a, al_b);
   for (int i = 0; i + 1 < n_tiles; ++i) {
     const int st = i % L::STAGES, nx = (i + 1) % L::STAGES;
     wait_full(L::full_k(bars, nx), ((i + 1) / L::STAGES) & 1);
     wait_full(L::full_v(bars, st), (i / L::STAGES) & 1);
     named_sync(my_turn);
-    issue_qk<H>(s, dq, dk_of(nx));
-    issue_pv(o, ph, pl, dv_of(st));
+    issue_qk<H, WK>(s, dq, dk_of(nx));
+    issue_pv<NC, WK>(o, ph, pl, dv_of(st));
     named_arrive(other_turn);
     wg_wait<1>();                           // S(i+1) is in
     keep(s);
@@ -320,12 +383,12 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
     for (int j = 0; j < NC; ++j) keep(o[j]);
     __syncwarp();
     if (lane == 0) mbar_arrive(L::empty(bars, st));
-    stage_p(s, ph, pl, o, al_a, al_b);
+    stage_p<NC, WK>(s, ph, pl, o, al_a, al_b);
   }
   const int st = (n_tiles - 1) % L::STAGES;
   wait_full(L::full_v(bars, st), ((n_tiles - 1) / L::STAGES) & 1);
   named_sync(my_turn);
-  issue_pv(o, ph, pl, dv_of(st));
+  issue_pv<NC, WK>(o, ph, pl, dv_of(st));
   named_arrive(other_turn);
   wg_wait<0>();
 #pragma unroll

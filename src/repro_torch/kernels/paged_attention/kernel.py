@@ -7,11 +7,12 @@ serving path (``repro/kernels/paged_attention/kernel.py``:
 T = 1 launch with ``q_start = lens - 1``. The walk has two instances, chosen
 by dtype and head dim only (``instance``): ``paged_walk_wgmma`` for bf16 at
 a head dim in ``WGMMA_HEAD_DIMS`` (cp.async page gathers, wgmma on the
-tensor cores), ``paged_walk`` for fp32 and for bf16 at h = 16, 32, 256
-(CUDA cores). Each public wrapper checks its inputs, allocates the output
-with ``torch.empty``, launches on the current CUDA stream, raises if the
-launch reports an error, and adds one to its own entry of ``LAUNCHES`` and
-one to the entry of the instance that ran. There is no fallback: a CPU
+tensor cores, 64-key tiles at h = 64, 128 and 48-key tiles at h = 256),
+``paged_walk`` for fp32 and for bf16 at h = 16, 32 (CUDA cores). Each
+public wrapper checks its inputs, allocates the output with
+``torch.empty``, launches on the current CUDA stream, raises if the launch
+reports an error, and adds one to its own entry of ``LAUNCHES`` and one to
+the entry of the instance that ran. There is no fallback: a CPU
 tensor or a shape the kernel does not take raises. Page ids in the table
 are not range-checked (that would cost a device sync per launch): callers
 pass ids in [0, P), as the pool's allocator hands out.
@@ -27,7 +28,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)   # bf16 head dims of the tensor-core instance
+WGMMA_HEAD_DIMS = (64, 128, 256)   # bf16 head dims of the tensor-core instance
 MAX_PAGE_SIZE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

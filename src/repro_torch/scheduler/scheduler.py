@@ -595,11 +595,13 @@ class RequestScheduler:
         """All-holders re-homing moved physical pages under us: swap the
         old ids for the new ones in every live request's page list (a
         queued request can hold trie-matched pages from the admission
-        probe; a swapped request's list keeps its *shared* pages live)."""
+        probe; a swapped request's list keeps its *shared* pages live).
+        In place: the swap manager rewrites a swapped request's list when
+        its parked pages move (``swap.KVSwapManager._rehome``)."""
         for r in (self.queued + self.prefilling + self.running
                   + self.swapped):
             if r.pages:
-                r.pages = [moves.get(p, p) for p in r.pages]
+                r.pages[:] = [moves.get(p, p) for p in r.pages]
 
     def _rehome_live(self) -> None:
         """The view's allocation cycle moved under us (arbiter-driven

@@ -31,6 +31,20 @@ Transfer cost is the Eq.-1 max-parallel-transfer time of the slower side of
 the copy under the fabric's *effective* (calibrated) bandwidths; the engine
 folds it into the step latency, which is how swap-placement quality reaches
 goodput.
+
+**Where parked pages move, their sequence's list follows.** A parked page
+moves twice without its sequence in the call: cold demotion into the
+persistent tier (slot -> tier handle) and a loan reclaim's vacate (borrowed
+slot -> own slot). The manager keeps, for every parked id, the page list
+that ``swap_out`` returned for it, and rewrites the moved id in that list in
+place; the caller keeps the list it got back (the scheduler's ``r.pages``)
+and hands it to ``swap_in``/``release_parked``. This departs from the
+reference, which records a forwarding entry keyed by the vacated *slot*
+(``_moved[slot] = handle``) and chases it on swap-in: once ``swap_out``
+hands that slot to another sequence, the entry forwards the newcomer to the
+first sequence's bytes (``tests/test_persist.py``'s demote property finds
+it). Keyed by the owner's own list, a reused slot id cannot be mistaken for
+a moved one.
 """
 
 from __future__ import annotations
@@ -71,7 +85,9 @@ class KVSwapManager:
         self._out: set[int] = set()   # slot ids currently holding parked KV
         self._borrowed: set[int] = set()   # slots on loan from co-tenants
         self._lent: set[int] = set()       # own slots currently loaned out
-        self._moved: dict[int, int] = {}   # parked-page forwarding (vacate)
+        # parked id (slot or tier handle) -> the page list swap_out
+        # returned for it, rewritten in place when the bytes move
+        self._holder: dict[int, list[int]] = {}
         self._demoted: set[int] = set()    # tier handles (persist demotion)
         self._park_order: dict[int, int] = {}   # slot -> park stamp (cold)
         self._park_stamp = 0
@@ -107,27 +123,17 @@ class KVSwapManager:
     def parked_count(self, page_ids) -> int:
         """How many of a view's pages currently sit in reserved slots (the
         ones swap-in must re-allocate; pinned shared pages never parked)."""
-        return sum(1 for p in page_ids if self._resolve(p) in self._out)
+        return sum(1 for p in page_ids if p in self._out)
 
     def promotable_count(self, page_ids) -> int:
         """Pages swap-in must re-allocate: parked in reserved slots *plus*
         demoted into the persistent tier — admission sizes a swapped
         sequence's resume footprint with this, not ``parked_count``."""
-        n = 0
-        for p in page_ids:
-            q = self._resolve(p)
-            n += q in self._out or q in self._demoted
-        return n
+        return sum(1 for p in page_ids
+                   if p in self._out or p in self._demoted)
 
     def demoted_count(self) -> int:
         return len(self._demoted)
-
-    def _resolve(self, pid: int) -> int:
-        """Chase the forwarding chain of a parked page that a loan reclaim
-        relocated after its sequence recorded the id."""
-        while pid in self._moved:
-            pid = self._moved[pid]
-        return pid
 
     def _ensure_slots(self, n: int) -> float:
         """Make ``n`` slots available, borrowing from co-tenants,
@@ -151,9 +157,9 @@ class KVSwapManager:
         """Vacate up to ``n`` reserved slots by demoting the
         longest-parked (coldest) pages into the persistent tier. Eq.-1
         priced through the tier's bandwidth row; the freed slots rejoin
-        the reservation and the forwarding map chases slot -> handle, so
-        a later ``swap_in`` promotes transparently. Returns
-        ``(pages_demoted, seconds)``."""
+        the reservation and each owner's page list takes the handle in
+        place of the slot, so a later ``swap_in`` promotes transparently.
+        Returns ``(pages_demoted, seconds)``."""
         tier = self.persist
         if tier is None or not self._out or n <= 0:
             return 0, 0.0
@@ -167,7 +173,7 @@ class KVSwapManager:
             self._out.discard(p)
             self._park_order.pop(p, None)
             self.slots[self.view.domain_of(p)].append(int(p))
-            self._moved[p] = h
+            self._rehome(p, h)
             self._demoted.add(h)
         return len(cold), seconds
 
@@ -251,7 +257,7 @@ class KVSwapManager:
                 for s, t in zip(src, dst):
                     self._out.discard(s)
                     self._out.add(t)
-                    self._moved[s] = t
+                    self._rehome(s, t)
                     if s in self._park_order:
                         self._park_order[t] = self._park_order.pop(s)
                     returned.append(s)
@@ -273,9 +279,9 @@ class KVSwapManager:
         drop. Returns the page ids that were *not* parked (live shared
         pages the caller releases normally)."""
         live: list[int] = []
-        for p in page_ids:
-            q = self._forward(p)         # retire the chain: the slot may
-            if q in self._out:           # be re-lent and re-parked later
+        for q in page_ids:
+            self._holder.pop(q, None)
+            if q in self._out:
                 self._out.discard(q)
                 self._park_order.pop(q, None)
                 self.slots[self.view.domain_of(q)].append(int(q))
@@ -354,30 +360,33 @@ class KVSwapManager:
         dst_doms = [self.view.domain_of(p) for p in dst]
         self.view.park_pages(movable, dst)
         moved = dict(zip(movable, dst))
+        out = [moved.get(p, p) for p in page_ids]
         self._out.update(dst)
         for p in dst:                      # park order drives cold demotion
             self._park_stamp += 1
             self._park_order[p] = self._park_stamp
+            self._holder[p] = out
         seconds = self._transfer_seconds(src_doms, dst_doms) + loan_seconds
         self.view.telemetry.record_swap("out", n, seconds)
-        return [moved.get(p, p) for p in page_ids], seconds
+        return out, seconds
 
     def swap_in(self, page_ids: list[int],
                 table=None) -> tuple[list[int], float]:
         """Bring parked pages back through the view's live placement
         policy; vacated slots rejoin the reservation. Pages that demoted
-        to the persistent tier promote back through the same forwarding
-        map, bit-exactly. Pages of the view that never parked (pinned
+        to the persistent tier (their handles stand in the list) promote
+        back, bit-exactly. Pages of the view that never parked (pinned
         shared pages) pass through untouched. Caller guarantees the view
         has enough allocatable pages (the scheduler checks against the
         promotable count)."""
         assert table is None or table is self.view.table, \
             "swap rides the fabric view's own page table"
-        page_ids = [self._forward(p) for p in page_ids]
         parked = [p for p in page_ids if p in self._out]
         demoted = [p for p in page_ids if p in self._demoted]
         if not parked and not demoted:
             return list(page_ids), 0.0
+        for p in parked + demoted:
+            self._holder.pop(p, None)
         moved: dict[int, int] = {}
         seconds = 0.0
         if parked:
@@ -399,12 +408,13 @@ class KVSwapManager:
             seconds += secs
         return [moved.get(p, p) for p in page_ids], seconds
 
-    def _forward(self, pid: int) -> int:
-        """Resolve (and retire) the forwarding chain for one page id."""
-        out = pid
-        while out in self._moved:
-            out = self._moved.pop(out)
-        return out
+    def _rehome(self, old: int, new: int) -> None:
+        """Parked bytes moved from ``old`` to ``new``: the owner's page
+        list (the one swap_out returned) takes the new id in place."""
+        pages = self._holder.pop(old, None)
+        if pages is not None:
+            pages[pages.index(old)] = int(new)
+            self._holder[int(new)] = pages
 
     def _transfer_seconds(self, src_doms, dst_doms) -> float:
         """Eq.-1 cost of the copy under the fabric's effective bandwidths:

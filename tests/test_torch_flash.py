@@ -210,18 +210,23 @@ def test_full_attention_branches_on_cpu(monkeypatch):
 LOG2E = np.float32(1.4426950408889634)
 
 
-def _emulate_wgmma_instance(q, k, v, *, split, window=0, causal=True,
-                            tile=64):
+# keys per tile of the tensor-core instance, by head dim (WgLayout<H>::WK in
+# csrc/wgmma_attention.cuh)
+WGMMA_TILE = {64: 64, 128: 64, 256: 48}
+
+
+def _emulate_wgmma_instance(q, k, v, *, split, window=0, causal=True):
     """The bf16 tensor-core instance's tiling and rounding in torch fp32:
-    64-key tiles at absolute positions, masked keys at -inf (p = 0),
-    online (m, l) in fp32 in log2 units with l summing the fp32 p, and P
-    rounded to bf16 before P V: as the pair hi = bf16(p), lo = bf16(p -
-    hi) (``split``), or as hi alone. The exponent arithmetic may differ
-    from the kernel's in the last fp32 bits; what is emulated is where
-    bf16 rounding enters. q [B,S,nq,h], k/v [B,T,nkv,h] bf16 -> bf16; 0
+    tiles of the instance's width (``WGMMA_TILE``) at absolute positions,
+    masked keys at -inf (p = 0), online (m, l) in fp32 in log2 units with l
+    summing the fp32 p, and P rounded to bf16 before P V: as the pair
+    hi = bf16(p), lo = bf16(p - hi) (``split``), or as hi alone. The
+    exponent arithmetic may differ from the kernel's in the last fp32 bits;
+    what is emulated is where bf16 rounding enters. q [B,S,nq,h], k/v [B,T,nkv,h] bf16 -> bf16; 0
     where a row sees no key."""
     b, s, nq, h = q.shape
     t, nkv = k.shape[1], k.shape[2]
+    tile = WGMMA_TILE[h]
     c2 = float(np.float32(np.float32(1.0 / np.sqrt(h)) * LOG2E))
     q5 = q.float().reshape(b, s, nkv, nq // nkv, h)
     scores = torch.einsum("bsngh,btnh->bngst", q5, k.float())

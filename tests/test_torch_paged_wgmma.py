@@ -5,12 +5,13 @@ that emulation, the instance rule and launch counters, and — on a machine
 with a card — every instance of the CUDA kernel against the plain version.
 
 The emulation follows ``csrc/paged_attention.cu``'s ``paged_wgmma_kernel``:
-blocks of 128 rows of one KV head laid out ``[nkv, T*g]``, 64-key tiles at
-absolute key positions gathered through the page table (zeros past the
-table), each block walking tiles up to the one that holds its last row's
-position, masked keys at -inf (p = 0), the online softmax in fp32 in log2
-units, and P rounded to bf16 before P V as the pair hi = bf16(p),
-lo = bf16(p - hi). Its exponent arithmetic may differ from the kernel's in
+blocks of 128 rows of one KV head laid out ``[nkv, T*g]``, tiles of the
+instance's width (``WK``: 64 keys at h = 64, 128 and 48 at h = 256, as
+``WgLayout<H>::WK`` in ``csrc/wgmma_attention.cuh``) at absolute key
+positions gathered through the page table (zeros past the table), each
+block walking tiles up to the one that holds its last row's position,
+masked keys at -inf (p = 0), the online softmax in fp32 in log2 units, and
+P rounded to bf16 before P V as the pair hi = bf16(p), lo = bf16(p - hi). Its exponent arithmetic may differ from the kernel's in
 the last fp32 bits; what it shows is where bf16 rounding enters and that the
 tiling keeps the walk's bitwise properties. Dot products are elementwise
 products summed over one axis, as in the plain version, so a row's bits do
@@ -30,17 +31,21 @@ from repro_torch.kernels.paged_attention import kernel, ops, ref
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 BF16_ULPS = (2.0 ** -6, 1e-4)
-WQ, WK = 128, 64                   # rows per block, keys per tile
+WQ = 128                           # rows per block
+WK = {64: 64, 128: 64, 256: 48}    # keys per tile, by head dim
 LOG2E = np.float32(1.4426950408889634)
 NEG_INF = -2.0e38
 
 # (b, t, nq, nkv, h, ps, mp, pool): qwen2-0.5b heads at the serving page
 # size (T*g = 259 rows: three row blocks, the last ragged), h = 128 with
-# ragged T over two row blocks, and a page size that does not divide a tile
+# ragged T over two row blocks, a page size that does not divide a tile, and
+# gemma-2b heads (8/1/256: T*g = 168 rows over two row blocks, 48-key tiles,
+# pages of 20)
 SHAPES = [
     (3, 37, 14, 2, 64, 16, 24, 96),
     (2, 45, 8, 2, 128, 16, 12, 40),
     (2, 19, 4, 1, 128, 24, 8, 30),
+    (2, 21, 8, 1, 256, 20, 12, 40),
 ]
 
 
@@ -74,7 +79,7 @@ def _emulate(q, k_pool, v_pool, table, q_start, *, qoff=0, split=True):
     ``split`` rounds P as the hi/lo pair, else as hi alone. -> bf16."""
     b, t, nq, h = q.shape
     ps, nkv = k_pool.shape[1], k_pool.shape[2]
-    g, mp = nq // nkv, table.shape[1]
+    g, mp, wk = nq // nkv, table.shape[1], WK[h]
     k_end, n_rows = mp * ps, t * g
     c2 = float(np.float32(np.float32(1.0 / np.sqrt(h)) * LOG2E))
     out = torch.zeros((b, nkv, n_rows, h))
@@ -87,12 +92,12 @@ def _emulate(q, k_pool, v_pool, table, q_start, *, qoff=0, split=True):
                 qr, qpos = rows[r0:r0 + WQ], qpos_all[r0:r0 + WQ]
                 q_last = int(qpos[-1])
                 n_tiles = (0 if q_last < 0
-                           else min(q_last // WK + 1, -(-k_end // WK)))
+                           else min(q_last // wk + 1, -(-k_end // wk)))
                 m = torch.full((len(qr), 1), NEG_INF)
                 l = torch.zeros((len(qr), 1))
                 acc = torch.zeros((len(qr), h))
                 for i in range(n_tiles):
-                    kpos = torch.arange(i * WK, (i + 1) * WK)
+                    kpos = torch.arange(i * wk, (i + 1) * wk)
                     inside = kpos < k_end
                     page = table[bi, (kpos // ps).clamp(max=mp - 1)].long()
                     zero = torch.zeros(())
@@ -100,7 +105,7 @@ def _emulate(q, k_pool, v_pool, table, q_start, *, qoff=0, split=True):
                                     k_pool[page, kpos % ps, kvh].float(), zero)
                     v = torch.where(inside[:, None],
                                     v_pool[page, kpos % ps, kvh].float(), zero)
-                    s = (qr[:, None, :] * k[None]).sum(-1)        # [R, 64]
+                    s = (qr[:, None, :] * k[None]).sum(-1)        # [R, wk]
                     ok = (kpos[None] <= qpos[:, None]) & inside[None]
                     x = torch.where(ok, s * c2, -torch.inf)
                     m_new = torch.maximum(m, x.amax(-1, keepdim=True))
@@ -175,7 +180,7 @@ def test_emulation_matches_reference_oracle():
 
 # -- bitwise properties of the tiling, under the emulation -----------------------
 
-@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("shape", SHAPES[:2] + SHAPES[3:])
 def test_emulated_decode_equals_verify_row_0(shape):
     """Decode is the T = 1 launch at q_start = lens - 1: its rows sit where
     verify row 0's do, and the tiles verify walks past them are no-ops."""
@@ -212,7 +217,7 @@ def test_instance_is_chosen_by_dtype_and_head_dim():
                 else "paged_walk")
         assert kernel.instance(torch.bfloat16, h) == want
         assert kernel.instance(torch.float32, h) == "paged_walk"
-    assert kernel.WGMMA_HEAD_DIMS == (64, 128)
+    assert kernel.WGMMA_HEAD_DIMS == (64, 128, 256)
     assert set(kernel.WGMMA_HEAD_DIMS) < set(kernel.HEAD_DIMS)
 
 
@@ -239,6 +244,8 @@ CUDA_CASES = [  # (b, t, nq, nkv, h, ps, mp, pool, dtype)
     (3, 7, 8, 1, 256, 16, 20, 80, "bfloat16"),
     (3, 7, 8, 1, 256, 16, 20, 80, "float32"),
     (3, 7, 4, 2, 32, 16, 20, 80, "bfloat16"),
+    (8, 1, 8, 1, 256, 16, 50, 512, "bfloat16"),   # gemma-2b decode
+    (8, 5, 8, 1, 256, 16, 50, 512, "bfloat16"),   # gemma-2b verify
 ]
 
 

@@ -141,7 +141,7 @@ def test_gemma_config_mirrors_reference():
 
 
 def test_paged_kernel_head_dim_check():
-    """gemma-2b's head dim 256 has a paged-kernel instance (the CUDA-core
+    """gemma-2b's head dim 256 has a paged-kernel instance (the tensor-core
     walk), so the check the engine runs when it is built on a card passes;
     a head dim with no instance raises."""
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
@@ -156,7 +156,7 @@ def test_paged_kernel_head_dim_check():
 
 def test_cuda_engine_builds_at_head_dim_256():
     """On a card the engine builds at head dim 256 and serves through the
-    paged kernel's CUDA-core instance."""
+    paged kernel's tensor-core instance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.paged_attention import kernel as paged_kernel
