@@ -11,13 +11,18 @@ Phases (each failed check raises; the script then exits non-zero):
    spills and dynamic shared memory per kernel instance, and ptxas's
    performance warnings (serialised wgmma in a tensor-core instance fails
    the phase); the bf16 flash instances and the bf16 paged instances at
-   h = 64, 128, 256 must hold HGMMA (tensor-core) instructions in their
-   SASS;
+   h = 64, 128, 256 (four a head dim: the split and the serial route, each
+   with two walking consumer warpgroups or one) must hold HGMMA
+   (tensor-core) instructions in their SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
    kernel per instance at the serving shapes (qwen2-0.5b heads, h = 128 and
-   gemma-2b heads in bf16 on the tensor-core instance; qwen2-0.5b heads and
-   the smoke shapes in fp32 on the CUDA-core instance), each with three
-   bitwise properties; the flash kernel over the
+   gemma-2b heads in bf16 on the tensor-core instance, at contexts up to
+   800 and, on a pool of 2560 pages, up to 4096, where decode splits into
+   up to 22 key chunks; qwen2-0.5b heads and the smoke shapes in fp32 on
+   the CUDA-core instance), each with three bitwise properties (at both
+   lengths on the tensor-core instance, where the split and the serial
+   route must also give the same bits, and a T = 1 launch must equal row 0
+   of a T > 1 launch on either route); the flash kernel over the
    reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal),
    its bf16 instances at every head dim (ragged T, S < T, S > T, windows,
    non-causal, B > 1) and the prefill shapes (qwen2-0.5b and gemma-2b
@@ -28,7 +33,7 @@ Phases (each failed check raises; the script then exits non-zero):
    ``scaled_dot_product_attention`` yardstick, beside the least time the
    card could take (bytes at the HBM rate, or flops at the card's dense
    peak for the input type, whichever is larger); the paged rows at
-   qwen2-0.5b and at gemma-2b heads;
+   qwen2-0.5b and at gemma-2b heads, and decode at context 4096 at both;
 4. full-width qwen2-0.5b serving (24 layers, seeded random weights) through
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
    counters zeroed just before and read just after, every paged launch on
@@ -53,7 +58,8 @@ Phases (each failed check raises; the script then exits non-zero):
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
-instance) and the card's ``nvidia-smi`` name and power limit; the last
+instance and context, and the context-4096 decode rows) and the card's
+``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
 """
@@ -93,6 +99,7 @@ GEMMA3 = dict(nq=32, nkv=16, h=128)  # gemma3-27b attention heads
 # bf16 at h 64, 128, 256; CUDA cores: fp32)
 PAGED_SWEEP = ((MAIN, "bfloat16"), (GEMMA3, "bfloat16"), (GEMMA, "bfloat16"),
                (MAIN, "float32"), (SMOKE, "float32"))
+LONG_CTX, LONG_POOL = 4096, 2560  # the long-context paged cases and rows
 PREFILL_S = 4096                 # train_4k's sequence length
 LONG_S = 32768                   # prefill_32k's sequence length
 FLUSH_BYTES = 64 << 20           # > the H100's 50 MB L2
@@ -140,7 +147,7 @@ def phase_build() -> None:
         for fn, regs, spill in _ptxas_report(build, out):
             smem = ""
             m = re.match(r"(flash|paged)_(?:walk_|wgmma_)?kernel<"
-                         r"(?:(float|__nv_bfloat16), )?(\d+)>", fn)
+                         r"(?:(float|__nv_bfloat16), )?(\d+)(?:, \w+)*>", fn)
             if m:
                 dtype = torch.float32 if m.group(2) == "float" else \
                     torch.bfloat16
@@ -160,8 +167,17 @@ def phase_build() -> None:
                       f"{line.strip()}")
     _check_tensor_cores(build, "flash_attention", "flash_wgmma_kernel",
                         len(fkernel.WGMMA_HEAD_DIMS))
+    # a paged instance per head dim, route, and block shape (two consumer
+    # warpgroups, or one for launches of at most 64 rows)
     _check_tensor_cores(build, "paged_attention", "paged_wgmma_kernel",
-                        len(kernel.WGMMA_HEAD_DIMS))
+                        len(kernel.WGMMA_HEAD_DIMS) * len(kernel.ROUTES) * 2)
+    for h in kernel.WGMMA_HEAD_DIMS:
+        check(kernel.layout(h) == (kernel.TILE_KEYS[h], kernel.CHUNK_TILES[h]),
+              f"paged h={h}: built layout {kernel.layout(h)} != the "
+              f"wrapper's (keys a tile, tiles a chunk)")
+    log("paged tensor-core layout (keys a tile, tiles a key chunk): "
+        + ", ".join(f"h {h}: {kernel.TILE_KEYS[h]}, {kernel.CHUNK_TILES[h]}"
+                    for h in kernel.WGMMA_HEAD_DIMS))
 
 
 def _ptxas_report(build, out) -> list[tuple[str, str, str]]:
@@ -295,30 +311,45 @@ def phase_correctness() -> dict:
     errs = dict.fromkeys(kernel.LAUNCHES, 0.0)
     for heads, dtype in PAGED_SWEEP:
         nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
-        pool, b, mp = 1280, 8, 60
-        kp, vp = _pools(rng, pool, nkv, h, dtype)
-        # decode: lengths on and next to page edges, up to 800 tokens
-        lens = np.asarray([1, 15, 16, 17, 256, 257, 799, 800], np.int32)
-        tbl = _ints(_tables(rng, -(-lens // PS), mp, pool))
-        q = _data(rng, (b, nq, h), dtype)
-        _vs_plain(errs, "paged_attention", dtype, h,
-                  lambda impl: ops.paged_attention(q, kp, vp, tbl,
-                                                   _ints(lens), impl=impl))
-        # prefill / verify chunks at ragged starts, context up to 800
-        for t in (256, 7, 1):
-            qs = np.asarray([0, 15, 16, 17, 240, 287, 500, 800 - t],
-                            np.int32)
-            tb = _ints(_tables(rng, -(-(qs + t) // PS), mp, pool))
-            q = _data(rng, (b, t, nq, h), dtype)
-            _vs_plain(errs, "paged_prefill_attention_batch", dtype, h,
-                      lambda impl: ops.paged_prefill_attention_batch(
-                          q, kp, vp, tb, _ints(qs), impl=impl))
-        q = _data(rng, (37, nq, h), dtype)
-        tb1 = _ints(_tables(rng, [5], 5, pool)[0])
-        _vs_plain(errs, "paged_prefill_attention", dtype, h,
-                  lambda impl: ops.paged_prefill_attention(q, kp, vp, tb1,
-                                                           40, impl=impl))
-        _bitwise(rng, kp, vp, pool, heads, dtype)
+        b = 8
+        # contexts up to 800, and up to 4096 on the tensor-core instance
+        # (up to 22 key chunks: decode splits, T = 256 walks serially)
+        ctxs = (800, LONG_CTX) if kernel.instance(
+            getattr(torch, dtype), h) == "paged_walk_wgmma" else (800,)
+        for ctx in ctxs:
+            pool = 1280 if ctx == 800 else LONG_POOL
+            mp = ctx // PS + 10
+            kp, vp = _pools(rng, pool, nkv, h, dtype)
+            # decode: lengths on and next to page edges, up to ctx tokens
+            lens = np.asarray([1, 15, 16, 17, 256, 257, ctx - 1, ctx],
+                              np.int32)
+            if ctx > 800:
+                lens[4:6] = (1217, 2931)
+            tbl = _ints(_tables(rng, -(-lens // PS), mp, pool))
+            q = _data(rng, (b, nq, h), dtype)
+            _vs_plain(errs, "paged_attention", dtype, h,
+                      lambda impl: ops.paged_attention(q, kp, vp, tbl,
+                                                       _ints(lens),
+                                                       impl=impl))
+            # prefill / verify chunks at ragged starts, context up to ctx
+            for t in (256, 7, 1):
+                qs = np.asarray([0, 15, 16, 17, 240, 287, 500, 800 - t],
+                                np.int32)
+                if ctx > 800:
+                    qs[5:] = (1500, 3000, ctx - t)
+                tb = _ints(_tables(rng, -(-(qs + t) // PS), mp, pool))
+                q = _data(rng, (b, t, nq, h), dtype)
+                _vs_plain(errs, "paged_prefill_attention_batch", dtype, h,
+                          lambda impl: ops.paged_prefill_attention_batch(
+                              q, kp, vp, tb, _ints(qs), impl=impl))
+            if ctx == 800:
+                q = _data(rng, (37, nq, h), dtype)
+                tb1 = _ints(_tables(rng, [5], 5, pool)[0])
+                _vs_plain(errs, "paged_prefill_attention", dtype, h,
+                          lambda impl: ops.paged_prefill_attention(
+                              q, kp, vp, tb1, 40, impl=impl))
+            _bitwise(rng, kp, vp, pool, heads, dtype, ctx)
+            del kp, vp
     torch.cuda.synchronize()
     log("kernel vs plain version: max |err| " + ", ".join(
         f"{k} {errs[k]:.3g}" for k in kernel.LAUNCHES)
@@ -327,16 +358,23 @@ def phase_correctness() -> dict:
     return errs
 
 
-def _bitwise(rng, kp, vp, pool, heads, dtype) -> None:
-    """On the kernel: a fully masked trailing page changes nothing; decode
-    equals verify row 0; real rows do not change when the batch is padded
-    with extra rows."""
+def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800) -> None:
+    """On the kernel, with rows up to position ``ctx``: a fully masked
+    trailing page (and, at ``ctx`` > 800, a whole trailing key chunk)
+    changes nothing; decode equals verify row 0; real rows do not change
+    when the batch is padded with extra rows. On the tensor-core instance
+    the split and the serial route give the same bits, and decode (a T = 1
+    launch) equals row 0 of the T = 5 launch on each route."""
     nq, h = heads["nq"], heads["h"]
     b, t = 4, 5
-    qs = np.asarray([37, 16, 790, 0], np.int32)
+    qs = np.asarray([37, 16, ctx - 10, 0 if ctx == 800 else ctx // 2],
+                    np.int32)
     need = -(-(qs + t) // PS)
+    wgmma = kernel.instance(getattr(torch, dtype), h) == "paged_walk_wgmma"
+    extra = 3 if ctx == 800 or not wgmma else \
+        kernel.CHUNK_TILES[h] * kernel.TILE_KEYS[h] // PS + 3
     base_t = _tables(rng, need, need.max(), pool, repeat=False)
-    ext_t = np.concatenate([base_t, rng.integers(0, pool, (b, 3))
+    ext_t = np.concatenate([base_t, rng.integers(0, pool, (b, extra))
                             .astype(np.int32)], axis=1)
     q = _data(rng, (b, t, nq, h), dtype)
     base = ops.paged_prefill_attention_batch(q, kp, vp, _ints(base_t),
@@ -347,6 +385,24 @@ def _bitwise(rng, kp, vp, pool, heads, dtype) -> None:
     dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, _ints(base_t),
                               _ints(qs + 1))
     check(torch.equal(dec, base[:, 0]), "decode != verify row 0")
+    if wgmma:
+        for route in kernel.ROUTES:
+            ver = kernel.paged_prefill_attention_batch(
+                q, kp, vp, _ints(base_t), _ints(qs), route=route)
+            one = kernel.paged_attention(q[:, 0].contiguous(), kp, vp,
+                                         _ints(base_t), _ints(qs + 1),
+                                         route=route)
+            check(torch.equal(ver, base),
+                  f"the {route} route changed bits (T = {t}, ctx {ctx})")
+            check(torch.equal(one, ver[:, 0]),
+                  f"T = 1 on the {route} route != row 0 of T = {t}")
+        # a chunk of more than 64 rows: both consumer warpgroups walk
+        q40 = _data(rng, (2, 40, nq, h), dtype)
+        qs40 = _ints(np.minimum(qs[:2], need.max() * PS - 40))
+        both = [kernel.paged_prefill_attention_batch(
+            q40, kp, vp, _ints(base_t[:2]), qs40, route=route)
+            for route in kernel.ROUTES]
+        check(torch.equal(*both), f"the routes differ at T = 40, ctx {ctx}")
     pad_q = torch.cat([q, _data(rng, (3, t, nq, h), dtype)])
     pad_t = np.concatenate([base_t, _tables(rng, [1, 2, 3], base_t.shape[1],
                                             pool)])
@@ -355,7 +411,8 @@ def _bitwise(rng, kp, vp, pool, heads, dtype) -> None:
                                                _ints(pad_qs))
     check(torch.equal(padded[:b], base), "batch padding changed bits")
     log(f"bitwise properties hold on the kernel ({dtype}, nq {nq}, h {h}, "
-        f"{kernel.instance(getattr(torch, dtype), h)})")
+        f"rows up to {ctx}, {kernel.instance(getattr(torch, dtype), h)}"
+        + (", both routes equal" if wgmma else "") + ")")
 
 
 def _flash_inputs(rng, b, s, t, heads, dtype):
@@ -504,7 +561,7 @@ def _sdpa_inputs(q4, kp, vp, tables, q_start, t):
 
 
 def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
-               dtype) -> dict:
+               dtype, ctx="<=800") -> dict:
     """Time one paged entry point (q4 [B,T,nq,h] is its query) beside its
     bound and the SDPA yardstick over K/V gathered beforehand."""
     import torch.nn.functional as F
@@ -519,7 +576,7 @@ def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
     ms_host, lib_host = _timed(run, hide=False), _timed(lib, hide=False)
     bound_ms, bound_by, core_ms = _bound(q_start, t, tables, heads, dtype)
     inst = kernel.instance(q4.dtype, h)
-    log(f"time {name} (B={b}, T={t}, ctx<=800, {dtype}, {tag} heads "
+    log(f"time {name} (B={b}, T={t}, ctx {ctx}, {dtype}, {tag} heads "
         f"{nq}/{heads['nkv']}/{h}, {inst}): kernel {ms:.5f} ms, plain "
         f"{plain_ms:.4f} ms, library yardstick (SDPA over pre-gathered K/V, "
         f"never called by the port) {lib_ms:.5f} ms [|kernel-SDPA| "
@@ -534,7 +591,7 @@ def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
             f"instance uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
             f"{core_ms:.5f} ms; not the bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, context=ctx)
 
 
 def _flash_bound(b, s, t, heads, dtype, window=0,
@@ -593,7 +650,8 @@ def _flash_row(rng, heads, s, tag) -> dict:
 def _paged_rows(rng, heads, tag) -> dict[str, dict]:
     """Time the three paged entry points at serving shapes (bf16, page 16,
     pool 1280, batch 8, context <= 800): decode, batched prefill at
-    T = 256, and the single-sequence entry point at the same shape."""
+    T = 256, and the single-sequence entry point at the same shape; then
+    decode at context 4096 (lengths 4033..4096, pool 2560)."""
     dtype, pool, b = "bfloat16", 1280, 8
     nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
     kp, vp = _pools(rng, pool, nkv, h, dtype)
@@ -626,6 +684,17 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
         lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1,
                                             impl="reference"),
         q1[None], kp, vp, tables[:1], q_start[:1], t, dtype)
+    del kp, vp
+    kp, vp = _pools(rng, LONG_POOL, nkv, h, dtype)
+    lens = rng.integers(LONG_CTX - 63, LONG_CTX + 1, b).astype(np.int32)
+    tables = _tables(rng, -(-lens // PS), LONG_CTX // PS, LONG_POOL,
+                     repeat=False)
+    q, tb, ln = _data(rng, (b, nq, h), dtype), _ints(tables), _ints(lens)
+    rows["paged_attention", LONG_CTX] = _paged_row(
+        "paged_attention", tag,
+        lambda: ops.paged_attention(q, kp, vp, tb, ln),
+        lambda: ops.paged_attention(q, kp, vp, tb, ln, impl="reference"),
+        q[:, None], kp, vp, tables, lens - 1, 1, dtype, LONG_CTX)
     return rows
 
 
@@ -636,13 +705,15 @@ def phase_timing() -> dict[tuple[str, str], dict]:
     rows = {}
     for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
         for name, row in _paged_rows(rng, heads, tag).items():
-            rows[name, tag] = row
+            rows[name, tag] = row   # name: entry point, or (it, context)
     frng = np.random.default_rng(6)
     rows["flash_attention_bh", "qwen2-0.5b"] = _flash_row(
         frng, MAIN, PREFILL_S, "qwen2-0.5b")
     _flash_row(frng, MAIN, LONG_S, "qwen2-0.5b, prefill_32k length")
     rows["flash_attention_bh", "gemma-2b"] = _flash_row(
         frng, GEMMA, PREFILL_S, "gemma-2b")
+    for key in ("qwen2-0.5b", "gemma-2b"):
+        rows["flash_attention_bh", key]["context"] = PREFILL_S
     return rows
 
 
@@ -1034,21 +1105,26 @@ def main() -> int:
               "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     paged_tpu = "src/repro/kernels/paged_attention/kernel.py"
-    # (name, source, TPU kernel's pallas_call); a row per entry point and
-    # heads, its launches from that model's run (serving for the paged
-    # kernel, the phase-7 forwards for flash), its error from the bf16
-    # cases at that head dim
+    # (name, timed row, source, TPU kernel's pallas_call); a row per entry
+    # point and heads (and decode at context 4096), its launches from that
+    # model's run (serving for the paged kernel, the phase-7 forwards for
+    # flash), its error from the bf16 cases at that head dim
     table = [
-        ("paged_attention", paged_src, f"{paged_tpu}:317"),
-        ("paged_prefill_attention_batch", paged_src, f"{paged_tpu}:233"),
-        ("paged_prefill_attention", paged_src, f"{paged_tpu}:276"),
-        ("flash_attention_bh", "src/repro_torch/csrc/flash_attention.cu",
+        ("paged_attention", "paged_attention", paged_src, f"{paged_tpu}:317"),
+        ("paged_attention", ("paged_attention", LONG_CTX), paged_src,
+         f"{paged_tpu}:317"),
+        ("paged_prefill_attention_batch", "paged_prefill_attention_batch",
+         paged_src, f"{paged_tpu}:233"),
+        ("paged_prefill_attention", "paged_prefill_attention", paged_src,
+         f"{paged_tpu}:276"),
+        ("flash_attention_bh", "flash_attention_bh",
+         "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:114"),
     ]
     rows = []
     for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
         h = heads["h"]
-        for name, source, replaces in table:
+        for name, timed, source, replaces in table:
             if name == "flash_attention_bh":
                 launches = flash_launches[tag]
                 err = ferrs["bfloat16", h]
@@ -1062,7 +1138,7 @@ def main() -> int:
                       f"{tag} path")
             rows.append(dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=launches,
-                             max_abs_err=err, **times[name, tag],
+                             max_abs_err=err, **times[timed, tag],
                              instance=inst,
                              heads=f"{tag} {heads['nq']}/{heads['nkv']}/"
                                    f"{h}"))

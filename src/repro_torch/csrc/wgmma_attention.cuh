@@ -50,6 +50,14 @@ struct WgLayout {
   static constexpr int STAGES = H == 64 ? 6 : H == 128 ? 4 : 3;
   // how a wait that never completes ends the launch (mbar_wait)
   static constexpr bool TRAP = H <= 128;
+  // tiles in a key chunk of the paged kernel (chunk j holds tiles
+  // j*CH .. j*CH + CH - 1 at absolute positions: 256 keys at H = 64, 512
+  // at H = 128, 384 at H = 256); the flash kernel has none. Fewer tiles
+  // split decode finer; more fold less often on the serial route, whose
+  // fold moves H / 2 floats a thread through the L2. On the H100, 4 kept
+  // H = 64 prefill within 9 % of the walk without chunks (8: 25 % at
+  // B = 1), and 8 kept H = 256 prefill within 13 % (4: 31 %).
+  static constexpr int CH = H == 64 ? 4 : 8;
   static constexpr int Q_BYTES = WQ * H * 2;
   static constexpr int KV_BYTES = WK * H * 2;     // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -319,6 +327,12 @@ __device__ __forceinline__ void stage_p(const float (&s)[WK / 2],
     }
 }
 
+// The default chunk_end of consume_pipelined: no hook.
+struct NoChunkEnd {
+  template <int NC>
+  __device__ __forceinline__ void operator()(float (&)[NC][32], int) const {}
+};
+
 // The walk of consumer warpgroup cw (of two) over tiles 0 .. n_tiles - 1 of
 // the K/V ring, n_tiles >= 1, at the instance's tile width WgLayout<H>::WK.
 // The products S(i+1) = Q K(i+1)^T and O += P(i) V(i) are issued together,
@@ -330,12 +344,17 @@ __device__ __forceinline__ void stage_p(const float (&s)[WK / 2],
 // kProxyFence each wait for a full stage is followed by a proxy fence: a
 // producer's cp.async writes shared memory through the generic proxy, which
 // wgmma reads through the async proxy (TMA writes need none).
-template <int H, bool kProxyFence, class Softmax>
-__device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
-                                                  uint64_t dq, uint32_t k_s,
-                                                  uint32_t v_s, uint32_t bars,
-                                                  int n_tiles, int cw,
-                                                  int lane, Softmax softmax) {
+// `chunk_end(o, i)` runs once O += P(i) V(i) is in and before the next
+// tile's rescale of O, with no wgmma in flight: the paged kernel may fold a
+// finished key chunk there (the flash kernel passes no hook). kSolo: only
+// this warpgroup walks (the block's other consumer warpgroup has no real
+// row), so there are no turns to take.
+template <int H, bool kProxyFence, bool kSolo = false, class Softmax,
+          class ChunkEnd = NoChunkEnd>
+__device__ __forceinline__ void consume_pipelined(
+    float (&o)[H / CHUNK][32], uint64_t dq, uint32_t k_s, uint32_t v_s,
+    uint32_t bars, int n_tiles, int cw, int lane, Softmax softmax,
+    ChunkEnd chunk_end = {}) {
   using L = WgLayout<H>;
   constexpr int NC = L::NC, WK = L::WK;
   float s[WK / 2], al_a, al_b;
@@ -358,11 +377,17 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
   const int my_turn = 1 + cw, other_turn = 2 - cw;
-  if (cw == 1) named_arrive(1);             // warpgroup 0 goes first
+  auto take_turn = [&] {
+    if constexpr (!kSolo) named_sync(my_turn);
+  };
+  auto pass_turn = [&] {
+    if constexpr (!kSolo) named_arrive(other_turn);
+  };
+  if (!kSolo && cw == 1) named_arrive(1);   // warpgroup 0 goes first
   wait_full(L::full_k(bars, 0), 0);
-  named_sync(my_turn);
+  take_turn();
   issue_qk<H, WK>(s, dq, dk_of(0));
-  named_arrive(other_turn);
+  pass_turn();
   wg_wait<0>();
   keep(s);
   softmax(s, 0, al_a, al_b);
@@ -371,10 +396,10 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
     const int st = i % L::STAGES, nx = (i + 1) % L::STAGES;
     wait_full(L::full_k(bars, nx), ((i + 1) / L::STAGES) & 1);
     wait_full(L::full_v(bars, st), (i / L::STAGES) & 1);
-    named_sync(my_turn);
+    take_turn();
     issue_qk<H, WK>(s, dq, dk_of(nx));
     issue_pv<NC, WK>(o, ph, pl, dv_of(st));
-    named_arrive(other_turn);
+    pass_turn();
     wg_wait<1>();                           // S(i+1) is in
     keep(s);
     softmax(s, i + 1, al_a, al_b);
@@ -383,21 +408,23 @@ __device__ __forceinline__ void consume_pipelined(float (&o)[H / CHUNK][32],
     for (int j = 0; j < NC; ++j) keep(o[j]);
     __syncwarp();
     if (lane == 0) mbar_arrive(L::empty(bars, st));
+    chunk_end(o, i);
     stage_p<NC, WK>(s, ph, pl, o, al_a, al_b);
   }
   const int st = (n_tiles - 1) % L::STAGES;
   wait_full(L::full_v(bars, st), ((n_tiles - 1) / L::STAGES) & 1);
-  named_sync(my_turn);
+  take_turn();
   issue_pv<NC, WK>(o, ph, pl, dv_of(st));
-  named_arrive(other_turn);
+  pass_turn();
   wg_wait<0>();
 #pragma unroll
   for (int j = 0; j < NC; ++j) keep(o[j]);
   __syncwarp();
   if (lane == 0) mbar_arrive(L::empty(bars, st));
+  chunk_end(o, n_tiles - 1);
   // warpgroup 0 takes the turn that warpgroup 1 passed after its last
   // issue, so that no barrier is left half arrived
-  if (cw == 0) named_sync(1);
+  if (!kSolo && cw == 0) named_sync(1);
 }
 
 }  // namespace
