@@ -22,7 +22,9 @@ Phases (each failed check raises; the script then exits non-zero):
    the CUDA-core instance), each with three bitwise properties (at both
    lengths on the tensor-core instance, where the split and the serial
    route must also give the same bits, and a T = 1 launch must equal row 0
-   of a T > 1 launch on either route); the flash kernel over the
+   of a T > 1 launch on either route), and qwen2-0.5b heads in bf16 at
+   page size 4 (phase 10's pool: 16 pages a 64-key tile); the flash kernel
+   over the
    reference test's sweep (MHA, GQA, MQA, small S, windows, non-causal),
    its bf16 instances at every head dim (ragged T, S < T, S > T, windows,
    non-causal, B > 1) and the prefill shapes (qwen2-0.5b and gemma-2b
@@ -38,7 +40,10 @@ Phases (each failed check raises; the script then exits non-zero):
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
    counters zeroed just before and read just after, every paged launch on
    the instance its dtype and head dim select; one decode step is also
-   run through the plain version and the logits compared;
+   run through the plain version and the logits compared (within 0.1, the
+   kernel's token an argmax of the plain version's logits: bf16 logits can
+   tie exactly, and a tie passes either token; the gate of phases 4, 7, 9
+   and 10);
 5. speculative decode at full width on a repetition-friendly trace, counters
    zeroed again, verify steps through the prefill kernel;
 6. a ``torch.profiler`` window over 3 full-width decode steps: the device's
@@ -54,11 +59,29 @@ Phases (each failed check raises; the script then exits non-zero):
    through the flash kernel;
 9. full-width gemma-2b serving (18 layers, head dim 256): phase 4 on
    gemma-2b, every paged launch on the tensor-core instance (48-key tiles
-   at h = 256), then phase 6's profile on gemma-2b.
+   at h = 256), then phase 6's profile on gemma-2b;
+10. ``coda`` serving at full width: qwen2-0.5b (phase 4's weights) on
+   ``benchmarks/torch_scheduler_bench.coda_compare``'s trace and pool
+   (page 4; Eq.-1 bandwidths x 48, the full-width page's bytes over the
+   smoke page's, so the schedule is the smoke run's), once under ``coda``
+   with an observatory (tracer, heat) and once under ``bwap_dwp``, counts
+   zeroed before each: every request finishes and every page comes back;
+   ``coda`` re-homes pages and splits decode steps, ``bwap_dwp`` neither;
+   every paged decode launch is one micro-batch of one layer; each
+   re-homed page's K/V equal its source's bit for bit; on the first
+   multi-launch step and the first after a re-homing, each micro-batch's
+   logits hold the plain version's (phase 4's gate) and its attention
+   rows equal one full-batch launch's bit for bit; the tracer holds each
+   request's spans and one ``rehome`` span a re-homing step. Printed: the
+   counters beside ``BENCH_coda.json``'s, token agreement of the two
+   policies, p50 step times and launches a step, and the observatory's
+   host cost (5 interleaved pairs with and without it: best of each,
+   median paired difference, and the spread of the runs without it).
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
-instance and context, and the context-4096 decode rows) and the card's
+instance and context, and the context-4096 decode rows; the qwen2-0.5b
+paged rows also carry phase 10's ``coda_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -254,9 +277,9 @@ def _ints(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to("cuda")
 
 
-def _pools(rng, pool, nkv, h, dtype):
-    return (_data(rng, (pool, PS, nkv, h), dtype),
-            _data(rng, (pool, PS, nkv, h), dtype))
+def _pools(rng, pool, nkv, h, dtype, ps=PS):
+    return (_data(rng, (pool, ps, nkv, h), dtype),
+            _data(rng, (pool, ps, nkv, h), dtype))
 
 
 def _tables(rng, need, mp, pool, repeat=True):
@@ -350,6 +373,7 @@ def phase_correctness() -> dict:
                               q, kp, vp, tb1, 40, impl=impl))
             _bitwise(rng, kp, vp, pool, heads, dtype, ctx)
             del kp, vp
+    _page4_cases(rng, errs)
     torch.cuda.synchronize()
     log("kernel vs plain version: max |err| " + ", ".join(
         f"{k} {errs[k]:.3g}" for k in kernel.LAUNCHES)
@@ -358,7 +382,32 @@ def phase_correctness() -> dict:
     return errs
 
 
-def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800) -> None:
+def _page4_cases(rng, errs) -> None:
+    """qwen2-0.5b heads in bf16 at page size 4 (phase 10's pool): 16 pages
+    in each 64-key tile of the tensor-core gather. Decode, prefill and
+    verify chunks at lengths on and next to page edges, up to 800 keys,
+    against the plain version; then the bitwise properties."""
+    ps, pool, ctx = 4, 1024, 800
+    nq, nkv, h = MAIN["nq"], MAIN["nkv"], MAIN["h"]
+    kp, vp = _pools(rng, pool, nkv, h, "bfloat16", ps)
+    mp = ctx // ps + 10
+    lens = np.asarray([1, 3, 4, 5, 47, 48, 81, ctx], np.int32)
+    tbl = _ints(_tables(rng, -(-lens // ps), mp, pool))
+    q = _data(rng, (8, nq, h), "bfloat16")
+    _vs_plain(errs, "paged_attention", "bfloat16", h,
+              lambda impl: ops.paged_attention(q, kp, vp, tbl, _ints(lens),
+                                               impl=impl))
+    for t in (32, 5, 1):
+        qs = np.asarray([0, 3, 4, 5, 44, 47, 100, ctx - t], np.int32)
+        tb = _ints(_tables(rng, -(-(qs + t) // ps), mp, pool))
+        q = _data(rng, (8, t, nq, h), "bfloat16")
+        _vs_plain(errs, "paged_prefill_attention_batch", "bfloat16", h,
+                  lambda impl: ops.paged_prefill_attention_batch(
+                      q, kp, vp, tb, _ints(qs), impl=impl))
+    _bitwise(rng, kp, vp, pool, MAIN, "bfloat16", ctx, ps=ps)
+
+
+def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800, ps=PS) -> None:
     """On the kernel, with rows up to position ``ctx``: a fully masked
     trailing page (and, at ``ctx`` > 800, a whole trailing key chunk)
     changes nothing; decode equals verify row 0; real rows do not change
@@ -369,10 +418,10 @@ def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800) -> None:
     b, t = 4, 5
     qs = np.asarray([37, 16, ctx - 10, 0 if ctx == 800 else ctx // 2],
                     np.int32)
-    need = -(-(qs + t) // PS)
+    need = -(-(qs + t) // ps)
     wgmma = kernel.instance(getattr(torch, dtype), h) == "paged_walk_wgmma"
     extra = 3 if ctx == 800 or not wgmma else \
-        kernel.CHUNK_TILES[h] * kernel.TILE_KEYS[h] // PS + 3
+        kernel.CHUNK_TILES[h] * kernel.TILE_KEYS[h] // ps + 3
     base_t = _tables(rng, need, need.max(), pool, repeat=False)
     ext_t = np.concatenate([base_t, rng.integers(0, pool, (b, extra))
                             .astype(np.int32)], axis=1)
@@ -398,7 +447,7 @@ def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800) -> None:
                   f"T = 1 on the {route} route != row 0 of T = {t}")
         # a chunk of more than 64 rows: both consumer warpgroups walk
         q40 = _data(rng, (2, 40, nq, h), dtype)
-        qs40 = _ints(np.minimum(qs[:2], need.max() * PS - 40))
+        qs40 = _ints(np.minimum(qs[:2], need.max() * ps - 40))
         both = [kernel.paged_prefill_attention_batch(
             q40, kp, vp, _ints(base_t[:2]), qs40, route=route)
             for route in kernel.ROUTES]
@@ -411,7 +460,8 @@ def _bitwise(rng, kp, vp, pool, heads, dtype, ctx=800) -> None:
                                                _ints(pad_qs))
     check(torch.equal(padded[:b], base), "batch padding changed bits")
     log(f"bitwise properties hold on the kernel ({dtype}, nq {nq}, h {h}, "
-        f"rows up to {ctx}, {kernel.instance(getattr(torch, dtype), h)}"
+        f"page {ps}, rows up to {ctx}, "
+        f"{kernel.instance(getattr(torch, dtype), h)}"
         + (", both routes equal" if wgmma else "") + ")")
 
 
@@ -804,16 +854,36 @@ def _decode_plain_check(eng):
     finally:
         d.impl = impl
     kernel.LAUNCHES.update(saved)
-    err = float((fast - plain).abs().max())
-    agree = int((fast.argmax(-1) == plain.argmax(-1)).sum())
+    err, ties = _logits_gate(fast, plain, "decode step")
     log(f"decode step, kernel vs plain version, full width: max |logit "
         f"diff| {err:.4g} (bf16 gate {LOGIT_TOL}; |logit| up to "
-        f"{float(plain.abs().max()):.3g}), argmax agrees on {agree}/"
-        f"{len(seqs)} rows")
-    check(err <= LOGIT_TOL, f"decode logits differ by {err} > {LOGIT_TOL}")
-    check(agree == len(seqs), f"decode argmax differs on "
-          f"{len(seqs) - agree} of {len(seqs)} rows")
+        f"{float(plain.abs().max()):.3g}), argmax equal on "
+        f"{len(seqs) - ties}/{len(seqs)} rows, the rest exact ties of the "
+        f"plain version")
     return err
+
+
+def _logits_gate(fast, plain, what) -> tuple[float, int]:
+    """The gate of every phase that holds logits through the kernels
+    against the plain version's on the same inputs (``[rows, vocab]``):
+    max |diff| <= ``LOGIT_TOL``, and on every row the kernel's token is an
+    argmax of the plain version. bf16 logits can tie exactly: where the
+    plain version's top two are equal either token passes, and any
+    non-zero plain margin fails. Returns (max |diff|, tied rows whose
+    argmaxes differ)."""
+    fast, plain = fast.float(), plain.float()
+    err = float((fast - plain).abs().max())
+    af, ap = fast.argmax(-1), plain.argmax(-1)
+    # where the argmaxes differ: (row, the plain version's margin between
+    # its token and the kernel's, the kernel's margin between the two)
+    flips = [(i, float(plain[i, ap[i]] - plain[i, af[i]]),
+              float(fast[i, af[i]] - fast[i, ap[i]]))
+             for i in torch.nonzero(af != ap).flatten().tolist()]
+    check(err <= LOGIT_TOL, f"{what}: logits differ by {err} > {LOGIT_TOL}")
+    check(all(m == 0.0 for _, m, _ in flips),
+          f"{what}: the kernel's argmax is not an argmax of the plain "
+          f"version on (row, plain margin, kernel margin) {flips}")
+    return err, len(flips)
 
 
 def _check_instances(cfg, r) -> None:
@@ -996,9 +1066,7 @@ def phase_prefill(device, arch, batch, params=None) -> int:
     lm.attn_impl = "reference"
     plain, n_plain = _forward(lm, params, toks, step)
     lm.attn_impl = None
-    err = float((fast["logits"] - plain["logits"]).abs().max())
-    agree = int((fast["logits"].argmax(-1) == plain["logits"].argmax(-1))
-                .sum())
+    err, ties = _logits_gate(fast["logits"], plain["logits"], arch)
     dloss = abs(fast["loss"] - plain["loss"])
     tok_s = batch * PREFILL_S / fast["wall"]
     log(f"full-width prefill {arch} ({nl} layers, d {cfg.d_model}, heads "
@@ -1008,8 +1076,8 @@ def phase_prefill(device, arch, batch, params=None) -> int:
         f"{fast['wall']:.4f} s ({tok_s:.0f} tokens/s) vs plain chunked path "
         f"{plain['wall']:.4f} s; last-token logits max |diff| {err:.4g} "
         f"(gate {LOGIT_TOL}; |logit| up to "
-        f"{float(plain['logits'].abs().max()):.3g}), argmax agrees on "
-        f"{agree}/{batch} rows; loss {fast['loss']:.6f} vs "
+        f"{float(plain['logits'].abs().max()):.3g}), argmax equal on "
+        f"{batch - ties}/{batch} rows, the rest exact ties; loss {fast['loss']:.6f} vs "
         f"{plain['loss']:.6f} (|diff| {dloss:.3g}, gate {LOSS_TOL}) -- "
         f"{smi_line()}")
     want = {"flash_attention": 0, "flash_attention_wgmma": nl}
@@ -1021,8 +1089,6 @@ def phase_prefill(device, arch, batch, params=None) -> int:
     check(all(np.isfinite([fast["loss"], plain["loss"]]))
           and bool(torch.isfinite(fast["logits"]).all()),
           f"{arch}: non-finite logits or loss")
-    check(err <= LOGIT_TOL, f"{arch}: logits differ by {err} > {LOGIT_TOL}")
-    check(agree == batch, f"{arch}: argmax differs on {batch - agree} rows")
     check(dloss <= LOSS_TOL, f"{arch}: loss differs by {dloss} > {LOSS_TOL}")
     _profile(f"{arch} prefill forward, B={batch}, S={PREFILL_S}",
              lambda: lm.prefill(params, {"tokens": toks}), 2, "forward")
@@ -1060,6 +1126,282 @@ def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
         f"observation, "
         f"not a gate: the two paths run different kernels; workload seed 0)")
     return r
+
+
+# -- phase 10 ------------------------------------------------------------------
+
+# coda_compare's Eq.-1 bandwidths times the ratio of a full-width
+# qwen2-0.5b page's bytes (24 layers x 4 slots x 2 KV heads x 64 x K, V x
+# 2 B = 49152) to the smoke page's (1 x 4 x 2 x 16 x 2 x 4 B = 1024): every
+# Eq.-1 time, and so the schedule, is the smoke run's up to rounding
+CODA_BW_SCALE = 48
+
+
+def _coda_engine(cfg, params, device, policy, obs: bool):
+    """``coda_compare``'s pool, scheduler and engine at full width, with an
+    observatory (tracer and heat, no drift) when ``obs``."""
+    from benchmarks.torch_scheduler_bench import coda_engine
+    pool, eng, o = coda_engine(
+        cfg, params, policy, bw_scale=CODA_BW_SCALE, device=device,
+        observatory=dict(tracer=True, heat=True, drift=False) if obs
+        else None)
+    check(pool.page_bytes == CODA_BW_SCALE * 1024,
+          f"page bytes {pool.page_bytes}, want {CODA_BW_SCALE * 1024}")
+    return pool, eng, o
+
+
+class _MultiLaunchCheck:
+    """On the first multi-launch step, and the first after a re-homing:
+    before each micro-batch's launch, its decode step through the kernel
+    and through the plain version on the same pool state (logits within
+    ``LOGIT_TOL`` and the tie rule of ``_logits_gate``);
+    during it, every layer's attention inputs and output; after the step's
+    last launch, one full-batch launch per layer over the same tables,
+    whose rows must equal each micro-batch launch's bit for bit. Launches
+    made here are taken back out of the counts."""
+
+    def __init__(self, eng):
+        self.eng, self.groups, self.done = eng, None, []
+        self.want_after_rehome = False
+        self._schedule = eng.scheduler.schedule
+        self._launch = eng._decode_launch
+        eng.scheduler.schedule = self.schedule
+        eng._decode_launch = self.launch
+        self.logit_err, self.records, self.launches = 0.0, [], 0
+        self.ties = 0
+
+    def armed(self) -> bool:
+        return not self.done or (self.want_after_rehome
+                                 and len(self.done) < 2)
+
+    def schedule(self):
+        plan = self._schedule()
+        g = plan.launch_groups
+        self.groups = g if g is not None and len(g) > 1 and self.armed() \
+            else None
+        self.launches, self.records = 0, []
+        return plan
+
+    def launch(self, seqs):
+        if self.groups is None:
+            return self._launch(seqs)
+        d = self.eng.decoder
+        mp = max(len(s.pages) for s in seqs)
+        tables = np.zeros((len(seqs), mp), np.int32)
+        for i, s in enumerate(seqs):
+            tables[i, :len(s.pages)] = s.pages
+        lens = np.asarray([s.length for s in seqs], np.int64)
+        toks = np.asarray([[s.tokens[-1]] for s in seqs], np.int64)
+        args = (d._t(toks), d._t(tables, torch.int32),
+                d._t(lens, torch.int32), d._t(lens))
+        saved = dict(kernel.LAUNCHES)
+        fast = d.decode_step(*args).float()
+        impl, d.impl = d.impl, "reference"
+        try:
+            plain = d.decode_step(*args).float()
+        finally:
+            d.impl = impl
+        kernel.LAUNCHES.update(saved)
+        err, ties = _logits_gate(
+            fast, plain, f"coda micro-batch (step {len(self.done) + 1} "
+            f"checked, {len(seqs)} rows)")
+        self.logit_err = max(self.logit_err, err)
+        self.ties += ties
+        # the real launch, each layer's attention recorded
+        rec, orig = [], ops.paged_attention
+
+        def recording(q, kp, vp, tbl, seen, **kw):
+            out = orig(q, kp, vp, tbl, seen, **kw)
+            rec.append((q.clone(), kp, vp, tbl.clone(), seen.clone(),
+                        out.clone()))
+            return out
+        ops.paged_attention = recording
+        try:
+            self._launch(seqs)
+        finally:
+            ops.paged_attention = orig
+        self.records.append(rec)
+        self.launches += 1
+        if self.launches == len(self.groups):
+            self._full_batch()
+
+    def _full_batch(self) -> None:
+        saved = dict(kernel.LAUNCHES)
+        for layer in zip(*self.records):
+            q = torch.cat([r[0] for r in layer])
+            mp = max(r[3].shape[1] for r in layer)
+            tbl = torch.cat([torch.nn.functional.pad(
+                r[3], (0, mp - r[3].shape[1])) for r in layer])
+            seen = torch.cat([r[4] for r in layer])
+            full = ops.paged_attention(q, layer[0][1], layer[0][2], tbl,
+                                       seen)
+            row = 0
+            for r in layer:
+                n = r[0].shape[0]
+                check(torch.equal(full[row:row + n], r[5]),
+                      "a coda micro-batch launch's rows differ from the "
+                      "same rows of one full-batch launch")
+                row += n
+        kernel.LAUNCHES.update(saved)
+        self.done.append((len(self.groups),
+                          [len(r[0][0]) for r in self.records]))
+        self.groups = None
+
+
+def _coda_run(cfg, params, device, trace, policy, *, obs=True,
+              gate=False) -> dict:
+    """Serve ``trace`` under ``policy``; launch counts zeroed just before
+    the first step and read after the last. With ``gate``: the micro-batch
+    checks (``_MultiLaunchCheck``) and the re-homed pages' bytes."""
+    pool, eng, o = _coda_engine(cfg, params, device, policy, obs)
+    view = eng.view
+    remapped = []
+    if gate:
+        mlc = _MultiLaunchCheck(eng)
+
+        def bytes_moved(moves):
+            old = torch.tensor(list(moves), device=device)
+            new = torch.tensor(list(moves.values()), device=device)
+            remapped.append((len(moves), all(
+                torch.equal(a.index_select(1, new), a.index_select(1, old))
+                for a in (view.k_pool, view.v_pool))))
+            mlc.want_after_rehome = True
+        view.on_page_remap(bytes_moved)
+    for t in trace:
+        eng.submit(t.prompt, max_new=t.max_new, arrival_s=t.arrival_s)
+    infos, step_s = [], []
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    fkernel.reset_launch_counts()
+    while eng.active or eng.waiting:
+        c0 = eng.prefill_chunks_run
+        s0 = time.perf_counter()
+        info = eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - s0)
+        infos.append(dict(launches=info.get("launches", 0),
+                          rehomed=info.get("rehomed", 0),
+                          prefill=eng.prefill_chunks_run > c0))
+        check(len(infos) < 3000, "coda serving did not finish")
+    launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    view.fabric.check_invariants()
+    reclaimed = (pool.free_count() + int(pool.reserved.sum())
+                 == pool.total_pages and not pool.table.ref)
+    slo = eng.scheduler.slo.summary(eng.scheduler.now)
+    out = dict(policy=policy, finished=len(eng.finished),
+               tokens={s.sid: list(s.tokens) for s in eng.finished},
+               steps=len(infos), infos=infos, step_s=step_s,
+               multi=sum(i["launches"] > 1 for i in infos),
+               rehomed=eng.rehomed_pages, makespan=eng.scheduler.now,
+               goodput=slo["goodput_tok_s"], launches=launches,
+               reclaimed=reclaimed, obs=o, remapped=remapped)
+    if gate:
+        out.update(logit_err=mlc.logit_err, checked=mlc.done, ties=mlc.ties)
+    return out
+
+
+def phase_coda(device, cfg, params) -> dict:
+    """``coda`` serving at full width: ``coda_compare``'s trace under
+    ``coda`` (micro-batch decode, heat-driven re-homing) and under
+    ``bwap_dwp``, then the observatory's host cost."""
+    from benchmarks.torch_scheduler_bench import coda_trace
+    trace = coda_trace(cfg.vocab_size)
+    nl = cfg.num_layers
+    coda = _coda_run(cfg, params, device, trace, "coda", gate=True)
+    glob = _coda_run(cfg, params, device, trace, "bwap_dwp")
+    for r in (coda, glob):
+        check(r["finished"] == len(trace) and r["reclaimed"],
+              f"{r['policy']}: {r['finished']}/{len(trace)} finished, "
+              f"pool reclaimed: {r['reclaimed']}")
+        decode = [i for i in r["infos"] if i["launches"]]
+        check(r["launches"]["paged_attention"]
+              == nl * sum(i["launches"] for i in decode),
+              f"{r['policy']}: {r['launches']['paged_attention']} decode "
+              f"launches, want {nl} a micro-batch")
+        check(r["launches"]["paged_prefill_attention_batch"]
+              == nl * sum(i["prefill"] for i in r["infos"]),
+              f"{r['policy']}: a prefill step missed the prefill kernel")
+        check(r["launches"]["flash_attention"] == 0
+              and r["launches"]["flash_attention_wgmma"] == 0,
+              f"{r['policy']}: the incremental path ran a full-sequence "
+              f"forward")
+        _check_instances(cfg, r)
+    check(coda["rehomed"] > 0 and coda["multi"] > 0,
+          f"coda: {coda['rehomed']} pages re-homed, {coda['multi']} "
+          f"multi-launch steps")
+    check(glob["rehomed"] == 0 and glob["multi"] == 0,
+          f"bwap_dwp: {glob['rehomed']} re-homed, {glob['multi']} "
+          f"multi-launch steps")
+    check(sum(n for n, _ in coda["remapped"]) == coda["rehomed"]
+          and all(ok for _, ok in coda["remapped"]),
+          f"re-homed pages' K/V bytes differ from their sources "
+          f"({coda['remapped']})")
+    check(len(coda["checked"]) == 2,
+          f"micro-batch checks ran on {len(coda['checked'])} steps, want "
+          f"the first multi-launch step and the first after a re-homing")
+    tr = coda["obs"].tracer
+    for sid in coda["tokens"]:
+        for name in ("admit", "prefill", "decode", "finish"):
+            check(tr.spans(name, sid=sid),
+                  f"request {sid} has no {name!r} span")
+    rehome_steps = sum(i["rehomed"] > 0 for i in coda["infos"])
+    check(len(tr.spans("rehome")) == rehome_steps,
+          f"{len(tr.spans('rehome'))} rehome spans, {rehome_steps} steps "
+          f"re-homed")
+    bench = json.loads((ROOT / "BENCH_coda.json").read_text())
+    ratio = coda["goodput"] / max(glob["goodput"], 1e-9)
+    same = sum(coda["tokens"][k] == glob["tokens"].get(k)
+               for k in coda["tokens"])
+    log(f"coda at full width ({cfg.name}, {cfg.compute_dtype}, page 4, "
+        f"bandwidths x "
+        f"{CODA_BW_SCALE}): {coda['steps']} steps ({coda['multi']} "
+        f"multi-launch), {coda['rehomed']} pages re-homed, goodput ratio "
+        f"{ratio:.4f} on the virtual clock; BENCH_coda.json (smoke config, "
+        f"CPU): {bench['coda']['steps']} steps, "
+        f"{bench['coda']['multi_launch_steps']} multi-launch, "
+        f"{bench['coda']['rehomed_pages']} re-homed, ratio "
+        f"{bench['goodput_ratio']:.4f}; bwap_dwp {glob['steps']} steps")
+    log(f"coda micro-batch checks on steps with (launches, rows per launch) "
+        f"{coda['checked']}: full-batch rows equal bit for bit, logits "
+        f"max |diff| {coda['logit_err']:.4g} (gate {LOGIT_TOL}), argmax "
+        f"equal on every row but {coda['ties']} where the plain version's "
+        f"top two logits tie exactly and the kernel picks the other; "
+        f"re-homed "
+        f"pages' K/V equal their sources on {len(coda['remapped'])} "
+        f"re-homings; {len(tr.events)} trace events")
+    log(f"coda vs bwap_dwp tokens equal for {same} of {len(trace)} requests "
+        f"(an observation, not a gate: bf16 GEMM bits depend on the "
+        f"micro-batch's shape)")
+    for r in (coda, glob):
+        dec = [s for s, i in zip(r["step_s"], r["infos"]) if i["launches"]]
+        ls = [i["launches"] for i in r["infos"] if i["launches"]]
+        log(f"{r['policy']}: p50 step {1e3 * np.median(r['step_s']):.2f} ms, "
+            f"p50 decode step {1e3 * np.median(dec):.2f} ms, "
+            f"{np.mean(ls):.3f} decode launches a decode step, launches "
+            f"{r['launches']} -- {smi_line()}")
+    # the observatory's host cost: interleaved pairs; the spread of the
+    # runs without it says how small a cost the pairs can resolve
+    pairs = 5
+    base, traced, same_runs = [], [], 0
+    for _ in range(pairs):
+        for with_obs, into in ((False, base), (True, traced)):
+            r = _coda_run(cfg, params, device, trace, "coda", obs=with_obs)
+            check(r["infos"] == coda["infos"],
+                  "a repeated coda run changed its schedule")
+            same_runs += r["tokens"] == coda["tokens"]
+            into.append(sum(r["step_s"]) / r["steps"])
+    diff = [t - b for b, t in zip(base, traced)]
+    log(f"observatory host cost: {1e3 * min(base):.3f} ms a step without, "
+        f"{1e3 * min(traced):.3f} ms with (best of {pairs} interleaved "
+        f"pairs, {coda['steps']} steps a run; "
+        f"{1e3 * (min(traced) - min(base)):+.3f} ms, "
+        f"{100 * (min(traced) / min(base) - 1):+.2f} %); median paired "
+        f"difference {1e3 * float(np.median(diff)):+.3f} ms; runs without "
+        f"it span {1e3 * min(base):.3f}-{1e3 * max(base):.3f} ms "
+        f"({100 * (max(base) / min(base) - 1):.2f} %); {same_runs} of "
+        f"{2 * pairs} repeated runs give the gated run's tokens -- "
+        f"{smi_line()}")
+    return coda
 
 
 # -- main --------------------------------------------------------------------
@@ -1101,6 +1443,7 @@ def main() -> int:
                     s["greedy"])
     g = phase_serve(device, registry.get_config("gemma-2b"))
     phase_profile(device, g["cfg"], g["params"])
+    coda = phase_coda(device, s["cfg"], s["params"])
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
@@ -1142,6 +1485,9 @@ def main() -> int:
                              instance=inst,
                              heads=f"{tag} {heads['nq']}/{heads['nkv']}/"
                                    f"{h}"))
+            if tag == "qwen2-0.5b" and name != "flash_attention_bh":
+                # phase 10's coda run, counted apart from phase 4's
+                rows[-1]["coda_launches"] = coda["launches"][name]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

@@ -14,12 +14,13 @@ Differences from the reference, all on the data plane:
 - compute-dtype weights are cast once when the decoder is built, not at
   every use: the same bits, without a 1 GB bf16 cast per step at full width
   (for fp32 compute the cast is the identity and costs nothing);
-- one device-to-host copy per step brings the argmax tokens back.
+- one device-to-host copy per decode launch brings the argmax tokens back
+  (one a step, or one a domain micro-batch under ``coda``).
 
 Heat-driven re-homing (``rehome=True``, the ``coda`` policy's default)
-needs ``obs/heat.py``, which is not ported yet: asking for it raises. The
-observatory hooks and the finish callbacks of the cluster handoff come
-with their subsystems.
+moves hot shared pages into fast domains on the pool's device, through the
+executor's in-place gather/scatter (``FabricView.rehome_hot``). The finish
+callbacks of the cluster handoff come with the cluster subsystem.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM, layer_params_of
+from repro_torch.obs.heat import PageHeat
 from repro_torch.placement.fabric import as_view
 from repro_torch.scheduler.scheduler import Request, RequestScheduler
 
@@ -208,6 +210,7 @@ class ServeEngine:
                  prefix_reuse: bool = True,
                  drafter=None,
                  rehome: bool | None = None,
+                 rehome_budget_frac: float = 0.5,
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve(device)
@@ -215,13 +218,6 @@ class ServeEngine:
         if self.view.pool.device != self.device:
             raise ValueError(f"pool on {self.view.pool.device}, engine "
                              f"asked for {self.device}")
-        rehome = (bool(rehome) if rehome is not None
-                  else bool(getattr(self.view.placement_policy, "rehome",
-                                    False)))
-        if rehome:
-            raise NotImplementedError(
-                "heat-driven re-homing needs obs/heat.py, which is not "
-                "ported yet (ROADMAP queue 1 item 7)")
         self.model = LM(cfg)
         self.decoder = PagedDecoder(cfg, params, self.view)
         self.params = params
@@ -244,6 +240,17 @@ class ServeEngine:
         if drafter is not None:
             self.scheduler.spec_tokens = max(self.scheduler.spec_tokens,
                                              drafter.max_tokens)
+        # heat-driven re-homing: after each decode step, migrate the
+        # hottest shared slow-domain pages into fast domains under an Eq.-1
+        # budget of ``rehome_budget_frac`` of the step's stall. Default
+        # follows the view's policy (``coda`` turns it on). Heat comes from
+        # the attached observatory when it has one, else a private PageHeat
+        self.rehome = (bool(rehome) if rehome is not None
+                       else bool(getattr(self.view.placement_policy,
+                                         "rehome", False)))
+        self.rehome_budget_frac = float(rehome_budget_frac)
+        self._heat = None
+        self.rehomed_pages = 0
         self.prefill_tokens_computed = 0   # forward-pass tokens spent on
         self.prefill_chunks_run = 0        # prefill (the O(n) vs O(n²) gap)
         self.decode_steps = 0              # steps that ran a decode batch
@@ -381,7 +388,17 @@ class ServeEngine:
             sim = 0.0
         dt = ((wall if self.wall_clock else 0.0) + sim + plan.swap_seconds
               + (self.sim_step_s if batch else 0.0))
+        v0 = self.scheduler.now
         self.scheduler.advance(dt)
+        # bytes-weighted heat: a partial tail page streams fewer bytes
+        read_weights = self._page_read_weights(batch) if batch else {}
+        obs = self.view.fabric.obs
+        if obs is not None:
+            # spans, heat touches and (with a probe) drift pairs, one per
+            # launch in micro-batch mode
+            obs.on_engine_step(self.view, plan, batch, read_pages,
+                               sim, v0, dt, launches=launches,
+                               read_weights=read_weights)
         for s in batch:
             if produced_before[s.sid] == 0 and s.produced > 0:
                 self.scheduler.notice_first_token(s)
@@ -398,9 +415,12 @@ class ServeEngine:
                 for s in self.scheduler.running:
                     s.pages = self.view.migrate(s.pages)
                 moved = True
+        rehomed = 0
+        if self.rehome and batch:
+            rehomed = self._rehome_step(obs, read_pages, read_weights, sim)
         tel = self.view.snapshot()
         return {"active": len(self.scheduler.running),
-                "latency": dt, "migrated": moved, "rehomed": 0,
+                "latency": dt, "migrated": moved, "rehomed": rehomed,
                 "launches": (len(groups) if groups is not None
                              else (1 if batch else 0)),
                 "dwp": self.view.dwp,
@@ -469,6 +489,59 @@ class ServeEngine:
         for s, t in zip(seqs, nxt):
             s.tokens.append(int(t))
             s.length += 1          # the decoded token's K/V is now pooled
+
+    # -- compute-follows-data: heat + re-homing -------------------------------
+
+    def _page_read_weights(self, batch) -> dict[int, float]:
+        """Fraction of each physical page this step's gather streamed:
+        interior pages in full, a sequence's tail page up to its committed
+        length. A page that is one holder's tail and another's interior
+        counts as a full read."""
+        ps = self.view.page_size
+        out: dict[int, float] = {}
+        for s in batch:
+            for i, p in enumerate(s.pages):
+                if p < 0:
+                    continue
+                frac = min(1.0, max(0.0, (s.length - i * ps) / ps))
+                if frac > out.get(p, 0.0):
+                    out[p] = frac
+        return out
+
+    def _own_heat(self):
+        """Private heat map for re-homing when no observatory (or a
+        heatless one) is attached."""
+        if self._heat is None:
+            heat = PageHeat(self.view.pool)
+            self.view.fabric.subscribe(
+                "free", lambda page=-1, **_: heat.on_free(page=page))
+            self._heat = heat
+        return self._heat
+
+    def _rehome_step(self, obs, read_pages, read_weights, sim) -> int:
+        """Pull the hottest shared slow-domain pages into fast domains,
+        spending at most ``rehome_budget_frac`` of this step's Eq.-1 stall.
+        The spent seconds advance the virtual clock."""
+        if obs is not None and obs.heat is not None:
+            heat = obs.heat          # the observatory already touched it
+        else:
+            heat = self._own_heat()
+            heat.touch(read_pages,
+                       weights=[read_weights.get(p, 1.0)
+                                for p in read_pages])
+            heat.step()
+        budget = self.rehome_budget_frac * sim
+        if budget <= 0.0:
+            return 0
+        moves, secs = self.view.rehome_hot(heat, budget_s=budget)
+        if not moves:
+            return 0
+        v0 = self.scheduler.now
+        self.scheduler.advance(secs)
+        self.rehomed_pages += len(moves)
+        if obs is not None:
+            obs.on_rehome(self.view, v0, secs, len(moves))
+        return len(moves)
 
     def _verify_step(self, batch, drafts) -> None:
         """Speculative multi-token decode. Per sequence the chunk

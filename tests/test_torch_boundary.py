@@ -1,5 +1,6 @@
-"""The port's boundary: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX or the reference package (the machine with the
+"""The port's boundary: nothing under ``src/repro_torch/``, in the port's
+benchmarks (``benchmarks/torch_*.py``) or in ``chip_smoke.py`` imports JAX
+or the reference package (the machine with the
 card has no JAX), every entry point refuses ``device="cuda"`` when no card
 is present instead of carrying on on the CPU, and ``chip_smoke.py`` fails
 without a card or without the rest of the repository."""
@@ -15,6 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,7 +39,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + PORT_BENCHMARKS + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -46,6 +48,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_the_ast_check_sees_imports():
     assert len(PORT_FILES) > 30
+    assert len(PORT_BENCHMARKS) >= 2
     probe = ROOT / "src" / "repro_torch" / "serve" / "engine.py"
     assert "repro_torch" in _imported_roots(probe)
     assert "torch" in _imported_roots(probe)
@@ -65,9 +68,13 @@ def test_cuda_entry_points_raise_without_a_card():
     from repro_torch.device import resolve
     from repro_torch.launch import serve
     from repro_torch.models.lm import LM
+    from repro_torch.placement.arbiter import (DomainArbiter, DomainSpec,
+                                               Priority)
     from repro_torch.placement.fabric import MemoryFabric
     from repro_torch.placement.pool import BwapPagePool, MemoryDomain
     from repro_torch.serve.engine import ServeEngine
+
+    from benchmarks import torch_obs_bench, torch_scheduler_bench
 
     cfg = registry.get_smoke_config("qwen2-0.5b")
     doms = [MemoryDomain("hbm_local", 8, 819.0, True)]
@@ -76,9 +83,15 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: resolve(),
         lambda: BwapPagePool(cfg, doms),
         lambda: MemoryFabric(cfg, doms),
+        lambda: DomainArbiter([DomainSpec("hbm_local", 8, 819.0)]).register(
+            "A", cfg, priority=Priority.HIGH, share=1.0),
         lambda: LM(cfg).init(torch.Generator().manual_seed(0)),
         lambda: params_from_reference({"w": np.zeros(3, np.float32)}),
         lambda: serve.main(["--requests", "1", "--new", "1"]),
+        lambda: torch_scheduler_bench.main([]),
+        lambda: torch_scheduler_bench.coda_compare(),
+        lambda: torch_obs_bench.main([]),
+        lambda: torch_obs_bench.calibration_loop(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -521,3 +521,23 @@ def test_cuda_instance_matches_plain(cuda, case):
     if dtype == "bfloat16":
         assert _violations(out.cpu(), want.cpu()) == (0, 0)
     assert torch.equal(dec, out[:, 0])
+
+
+@pytest.mark.parametrize("case", [(8, 1, 14, 2, 64, 4, 200, 1024),
+                                  (8, 1, 14, 2, 64, 16, 50, 600),
+                                  (8, 1, 8, 1, 256, 4, 200, 1024)],
+                         ids=["h64-page4", "h64-page16", "h256-page4"])
+def test_cuda_back_to_back_micro_batches_equal_one_full_launch(cuda, case):
+    """``coda``'s decode: micro-batches of differing B launched back to back
+    on one stream (one workspace and one set of tickets, reused) give the
+    same bits as the same rows of one full-batch launch."""
+    q, kp, vp, tbl, qs = _inputs(case, seed=sum(case), device=cuda)
+    q1, lens = q[:, 0].contiguous(), qs + 1
+    slices = ((0, 3), (3, 4), (4, 8), (0, 8), (6, 8))
+    full = kernel.paged_attention(q1, kp, vp, tbl, lens)
+    parts = [kernel.paged_attention(q1[a:b].contiguous(), kp, vp,
+                                    tbl[a:b].contiguous(), lens[a:b])
+             for a, b in slices]
+    torch.cuda.synchronize()
+    for (a, b), part in zip(slices, parts):
+        assert torch.equal(part, full[a:b]), (a, b)

@@ -164,11 +164,19 @@ def test_recompute_prefill_gives_the_same_tokens(setup, reference_greedy):
 
 
 def test_engine_refuses_what_is_not_ported(setup):
+    """Re-homing is ported: ``rehome=True`` and the ``coda`` policy's
+    default build an engine. A pool on another device than the engine's
+    is still refused."""
     _, _, tcfg, tparams = setup
     pool = t_pool.BwapPagePool(
         tcfg, [t_pool.MemoryDomain("hbm_local", 16, 819.0, True)],
         page_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        t_engine.ServeEngine(tcfg, tparams, pool, rehome=True, device="cpu")
+    assert t_engine.ServeEngine(tcfg, tparams, pool, rehome=True,
+                                device="cpu").rehome
+    coda = t_pool.BwapPagePool(
+        tcfg, [t_pool.MemoryDomain("hbm_local", 16, 819.0, True)],
+        page_size=4, policy="coda", device="cpu")
+    eng = t_engine.ServeEngine(tcfg, tparams, coda, device="cpu")
+    assert eng.rehome and eng.rehome_budget_frac == 0.5
     with pytest.raises(ValueError, match="pool on cpu"):
         t_engine.ServeEngine(tcfg, tparams, pool, device="meta")
