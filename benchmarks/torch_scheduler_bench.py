@@ -1,7 +1,8 @@
 """Scheduler benchmarks of the PyTorch port (``src/repro_torch``): the
 ports of ``benchmarks/scheduler_bench.py``'s ``run_config`` / ``compare``,
-``prefix_compare``, ``fabric_compare`` and ``coda_compare``, on the same
-traces, pools and gates.
+``prefix_compare``, ``fabric_compare``, ``persist_compare``,
+``coda_compare`` and ``disagg_compare``, on the same traces, pools and
+gates.
 
 Everything runs on the virtual clock (``wall_clock=False``), so the
 counters — steps, swaps, re-homed pages, makespan, goodput — are a property
@@ -13,7 +14,9 @@ Each function builds its pools on ``device`` (default ``"cuda"``, as every
 entry point of the port; ``device="cpu"`` runs them where the reference's
 benchmarks run) and writes nothing; run as a module, it writes
 ``BENCH_torch_scheduler.json``, ``BENCH_torch_prefix.json``,
-``BENCH_torch_fabric.json`` and ``BENCH_torch_coda.json`` at the repo root:
+``BENCH_torch_fabric.json``, ``BENCH_torch_persist.json``,
+``BENCH_torch_coda.json`` and ``BENCH_torch_disagg.json`` at the repo root
+(``persist_compare``'s prefix store goes to a temporary directory):
 
     PYTHONPATH=src python -m benchmarks.torch_scheduler_bench --device cpu
 """
@@ -21,7 +24,10 @@ benchmarks run) and writes nothing; run as a module, it writes
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -353,6 +359,175 @@ def fabric_compare(seed: int = 0, check: bool = True, *, params=None,
             "best_effort_goodput_ratio": ratio}
 
 
+# persist_compare's setup (persist_trace, persist_run), shared with
+# chip_smoke.py's full-width persistence phase
+PERSIST_DOMAINS = (("hbm_local", 64, 819.0, True),
+                   ("hbm_peer_1hop", 48, 0.05, False),
+                   ("host_dram", 64, 0.016, False))
+PERSIST_TIER_GBPS = 0.008
+
+
+def persist_trace(vocab_size: int, seed: int = 0) -> tuple[list, list,
+                                                           list]:
+    """(preambles, warmup prompts, phase-2 prompts): two 48-token system
+    preambles, one warmup request per preamble, then 8 requests cycling
+    the two preambles with 2-5 own tokens."""
+    rng = np.random.default_rng(seed)
+    groups, requests = 2, 8
+    preambles = [rng.integers(1, vocab_size, 48).tolist()
+                 for _ in range(groups)]
+    warmup = [preambles[g] + rng.integers(1, vocab_size, 4).tolist()
+              for g in range(groups)]
+    phase2 = [preambles[i % groups]
+              + rng.integers(1, vocab_size, 2 + i % 4).tolist()
+              for i in range(requests)]
+    return preambles, warmup, phase2
+
+
+def persist_run(cfg, params, store, *, seed: int = 0, bw_scale: float = 1,
+                hook=None, device="cuda") -> dict:
+    """``persist_compare``'s three engines, its domains' and tier's
+    bandwidths times ``bw_scale``, the prefix store under ``store``:
+    engine ``oracle`` serves the warmup, pins and exports the preamble
+    chains, then serves phase 2 uninterrupted; ``warm`` is a restart that
+    imports the store; ``cold`` a restart without one. ``hook(name,
+    engine)``, when given, sees each engine once it is built (its tier
+    attached), before it serves. Returns each engine's record (tokens
+    included), the export's manifest, and the pages and Eq.-1 seconds the
+    import restored."""
+    from repro_torch.placement.fabric import as_view
+    from repro_torch.placement.persist import PersistentTier
+
+    preambles, warmup, phase2 = persist_trace(cfg.vocab_size, seed)
+    store = Path(store)
+    store.mkdir(parents=True, exist_ok=True)
+
+    def boot(name, tier):
+        pool = BwapPagePool(cfg, [MemoryDomain(n, pages, bw * bw_scale, fast)
+                                  for n, pages, bw, fast in PERSIST_DOMAINS],
+                            page_size=4, dwp_config=DWPConfig(n=10 ** 6, c=1),
+                            device=device)
+        view = as_view(pool)
+        if tier is not None:
+            view.fabric.attach_persist(tier)
+        sched = RequestScheduler(pool, max_batch=len(phase2),
+                                 prefill_token_budget=16,
+                                 default_max_new=8)
+        eng = ServeEngine(cfg, params, pool, scheduler=sched,
+                          wall_clock=False, sim_step_s=0.005, device=device)
+        if hook is not None:
+            hook(name, eng)
+        return pool, view, eng
+
+    def tier():
+        return PersistentTier(bw_gbps=PERSIST_TIER_GBPS * bw_scale,
+                              capacity_pages=64, directory=store)
+
+    def drain(eng) -> int:
+        steps = 0
+        while (eng.active or eng.waiting) and steps < 3000:
+            eng.step()
+            steps += 1
+        return steps
+
+    def run_phase2(eng, pool) -> dict:
+        for p in phase2:
+            eng.submit(list(p), arrival_s=0.0)
+        hits0 = pool.table.prefix_hit_pages
+        eng.step()
+        first_hits = pool.table.prefix_hit_pages - hits0
+        steps = drain(eng) + 1
+        slo = eng.scheduler.slo.summary(eng.scheduler.now)
+        toks = [list(s.tokens) for s in
+                sorted(eng.finished, key=lambda s: s.sid)[-len(phase2):]]
+        return {"steps": steps,
+                "finished": len(eng.finished),
+                "ttft_mean_s": slo["classes"]["default"]["ttft_mean_s"],
+                "first_step_prefix_hit_pages": first_hits,
+                "tokens": toks}
+
+    # phase 1: serve the preamble groups, then pin + export their chains
+    tier_a = tier()
+    pool_a, view_a, eng_a = boot("oracle", tier_a)
+    for p in warmup:
+        eng_a.submit(list(p))
+    # pin while the warmup requests are live: the trie drops a chain when
+    # its last holder releases, so the pin's own holds must land between
+    # prefill (registration) and sequence finish
+    pinned = [None] * len(preambles)
+    steps = 0
+    while (eng_a.active or eng_a.waiting) and steps < 3000:
+        eng_a.step()
+        steps += 1
+        for g, p in enumerate(preambles):
+            if pinned[g] is None:
+                pinned[g] = tier_a.pin(view_a, p)
+    assert all(k is not None for k in pinned), \
+        "warmup left no preamble chain to pin"
+    manifest = tier_a.export_prefixes(view_a)
+    view_a.fabric.check_invariants()
+
+    oracle = run_phase2(eng_a, pool_a)        # A continues uninterrupted
+
+    tier_b = tier()                           # restart: reload the store
+    pool_b, view_b, eng_b = boot("warm", tier_b)
+    restored, restore_s = tier_b.import_prefixes(view_b)
+    view_b.fabric.check_invariants()
+    warm = run_phase2(eng_b, pool_b)
+
+    pool_c, view_c, eng_c = boot("cold", None)   # cold restart: empty trie
+    cold = run_phase2(eng_c, pool_c)
+    return {"oracle": oracle, "warm": warm, "cold": cold,
+            "manifest": manifest, "restored": restored,
+            "restore_s": restore_s, "phase2": len(phase2)}
+
+
+def persist_compare(seed: int = 0, check: bool = True, *, params=None,
+                    store=None, device="cuda") -> dict:
+    """Warm-restart vs cold-restart TTFT over a shared-prefix trace
+    (``persist_run``); gates: generated tokens identical across the three
+    engines, the warm engine's very first step hits the restored trie, the
+    cold one's does not, and cold mean TTFT / warm mean TTFT >= 1.3x. The
+    prefix store goes to ``store``, a temporary directory by default."""
+    cfg, params = smoke(params, device=device)
+    with (tempfile.TemporaryDirectory() if store is None
+          else contextlib.nullcontext(store)) as where:
+        r = persist_run(cfg, params, where, seed=seed, device=device)
+    oracle, warm, cold = r["oracle"], r["warm"], r["cold"]
+    manifest, restored, restore_s = r["manifest"], r["restored"], \
+        r["restore_s"]
+    identical = warm["tokens"] == cold["tokens"] == oracle["tokens"]
+
+    ratio = cold["ttft_mean_s"] / max(warm["ttft_mean_s"], 1e-9)
+    for name, row in (("oracle", oracle), ("warm", warm), ("cold", cold)):
+        print(f"  {name:7s} ttft_mean {row['ttft_mean_s'] * 1e3:7.1f} ms  "
+              f"first-step prefix hits "
+              f"{row['first_step_prefix_hit_pages']:3d} pages  steps "
+              f"{row['steps']:3d}")
+    print(f"-> warm restart ({len(manifest['chains'])} chains, {restored} "
+          f"pages, restore {restore_s * 1e3:.2f} ms) vs cold: "
+          f"{ratio:.2f}x mean TTFT")
+    if check:
+        assert identical, "restart (warm or cold) changed generated tokens"
+        assert restored > 0, "prefix store restored nothing"
+        assert warm["first_step_prefix_hit_pages"] > 0, \
+            "first request after warm restart missed the restored trie"
+        assert cold["first_step_prefix_hit_pages"] == 0, \
+            "cold restart had a non-empty trie — not a restart baseline"
+        assert warm["finished"] == cold["finished"] == r["phase2"]
+        assert ratio >= 1.3, (
+            f"warm restart must beat cold on mean TTFT >= 1.3x "
+            f"(got {ratio:.2f}x)")
+    return {"oracle": {k: v for k, v in oracle.items() if k != "tokens"},
+            "warm": {k: v for k, v in warm.items() if k != "tokens"},
+            "cold": {k: v for k, v in cold.items() if k != "tokens"},
+            "restored_pages": restored,
+            "restore_seconds": restore_s,
+            "exported_chains": len(manifest["chains"]),
+            "ttft_cold_over_warm": ratio,
+            "token_identical": identical}
+
+
 # coda_compare's setup (coda_trace, CODA_DOMAINS, coda_engine), shared with
 # chip_smoke.py's full-width coda phase
 CODA_DOMAINS = (("hbm_local", 34, 819.0, True),
@@ -464,6 +639,150 @@ def coda_compare(seed: int = 0, check: bool = True, *, params=None,
             "token_identical": identical}
 
 
+# disagg_compare's setup (disagg_prompts, disagg_run), shared with
+# chip_smoke.py's full-width disaggregation phase
+DISAGG_DOMAINS = (("hbm_local", 96, 819.0, True),
+                  ("host_dram", 96, 0.016, False))
+DISAGG_TIER_GBPS = 8.0
+DISAGG_LINKS = (("nvl", 0.2, 1e-4), ("rdma", 0.05, 5e-4))
+
+
+def disagg_prompts(vocab_size: int, seed: int = 0) -> list:
+    """A prefill-heavy burst: 10 prompts of 40-55 tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab_size, int(n)).tolist()
+            for n in rng.integers(40, 56, 10)]
+
+
+def disagg_run(cfg, params, *, seed: int = 0, bw_scale: float = 1,
+               hook=None, device="cuda") -> dict:
+    """``disagg_compare``'s two setups, every Eq.-1 bandwidth (domains,
+    tiers, the wire's links) and the wire's chunk size times ``bw_scale``
+    (a handoff of pages ``bw_scale`` times larger then takes as many
+    chunks, so as many link latencies): one host (page 8) serves
+    the burst alone; then a prefill host (page 4) admits each prompt with
+    ``max_new=1`` and hands its range over the Eq.-5-striped wire to a
+    decode host (page 8). ``hook(name, obj)``, when given, sees the
+    ``single``, ``prefill`` and ``decode`` engines once built and the
+    ``router`` before anything is served. Returns both records (tokens
+    included), the router, its channel and the wire."""
+    from repro_torch.cluster import (ClusterRouter, Interconnect, Link,
+                                     PageChannel)
+    from repro_torch.placement.fabric import as_view
+    from repro_torch.placement.persist import PersistentTier
+
+    prompts = disagg_prompts(cfg.vocab_size, seed)
+    max_new = 6
+
+    def host(name, page_size):
+        pool = BwapPagePool(cfg, [MemoryDomain(n, pages, bw * bw_scale, fast)
+                                  for n, pages, bw, fast in DISAGG_DOMAINS],
+                            page_size=page_size,
+                            dwp_config=DWPConfig(n=10 ** 6, c=1),
+                            device=device)
+        view = as_view(pool)
+        view.fabric.attach_persist(PersistentTier(
+            bw_gbps=DISAGG_TIER_GBPS * bw_scale, capacity_pages=256))
+        sched = RequestScheduler(pool, max_batch=10,
+                                 prefill_token_budget=32,
+                                 default_max_new=max_new)
+        eng = ServeEngine(cfg, params, pool, scheduler=sched,
+                          wall_clock=False, sim_step_s=0.005, device=device)
+        if hook is not None:
+            hook(name, eng)
+        return view, eng
+
+    # single host: prefills and decodes share every step
+    view_s, eng_s = host("single", 8)
+    for p in prompts:
+        eng_s.submit(list(p), max_new=max_new)
+    steps = 0
+    while (eng_s.active or eng_s.waiting) and steps < 3000:
+        eng_s.step()
+        steps += 1
+    slo = eng_s.scheduler.slo.summary(eng_s.scheduler.now)
+    single = {
+        "finished": len(eng_s.finished),
+        "steps": steps,
+        "makespan_s": eng_s.scheduler.now,
+        "ttft_mean_s": slo["ttft_mean_s"],
+        "goodput_tok_s": slo["goodput_tok_s"],
+        "ttft_weighted_goodput": slo["ttft_weighted_goodput"],
+        "tokens": [list(s.tokens) for s in
+                   sorted(eng_s.finished, key=lambda s: s.sid)],
+    }
+
+    # cluster: prefill host (ps 4) -> Eq.-5-striped wire -> decode host
+    view_p, eng_p = host("prefill", 4)
+    view_d, eng_d = host("decode", 8)
+    wire = Interconnect([Link(n, bw * bw_scale, latency_s=lat)
+                         for n, bw, lat in DISAGG_LINKS])
+    channel = PageChannel(wire, chunk_bytes=int((1 << 14) * bw_scale))
+    router = ClusterRouter(eng_p, eng_d, channel,
+                           saturation_horizon_s=0.25)
+    if hook is not None:
+        hook("router", router)
+    rids = [router.submit(list(p), max_new=max_new) for p in prompts]
+    router.drain()
+    summ = router.summary()
+    view_p.fabric.check_invariants()
+    view_d.fabric.check_invariants()
+    disagg = {
+        "finished": summ["completed"],
+        "handoffs": summ["handoffs"],
+        "fallbacks": summ["fallbacks"],
+        "converted_imports": channel.converted_imports,
+        "wire_bytes": wire.sent_bytes,
+        "wire_busy_s": wire.busy_seconds,
+        "makespan_s": summ["elapsed_s"],
+        "ttft_mean_s": summ["ttft_mean_s"],
+        "goodput_tok_s": summ["goodput_tok_s"],
+        "ttft_weighted_goodput": summ["ttft_weighted_goodput"],
+        "tokens": [router.result(r) for r in rids],
+    }
+    return {"single": single, "disagg": disagg, "prompts": len(prompts),
+            "router": router, "channel": channel, "wire": wire}
+
+
+def disagg_compare(seed: int = 0, check: bool = True, *, params=None,
+                   device="cuda") -> dict:
+    """Prefill/decode disaggregation over the BWAP-priced page wire vs
+    single-host serving (``disagg_run``); gates: token-identical to the
+    single host, >= 1.15x TTFT-weighted goodput (goodput / mean TTFT),
+    every handoff converted (the hosts' page sizes differ), no fallback,
+    both fabrics' ledgers balanced."""
+    cfg, params = smoke(params, device=device)
+    r = disagg_run(cfg, params, seed=seed, device=device)
+    single = {k: v for k, v in r["single"].items() if k != "tokens"}
+    disagg = {k: v for k, v in r["disagg"].items() if k != "tokens"}
+    identical = r["disagg"]["tokens"] == r["single"]["tokens"]
+    ratio = disagg["ttft_weighted_goodput"] \
+        / max(single["ttft_weighted_goodput"], 1e-9)
+    for name, row in (("single", single), ("disagg", disagg)):
+        print(f"  {name:7s} ttft_mean {row['ttft_mean_s'] * 1e3:6.1f} ms  "
+              f"goodput {row['goodput_tok_s']:7.1f} tok/s  "
+              f"ttft-weighted {row['ttft_weighted_goodput']:9.0f}  "
+              f"makespan {row['makespan_s']:.3f}s")
+    print(f"-> disaggregated vs single host: {ratio:.2f}x TTFT-weighted "
+          f"goodput ({disagg['handoffs']} handoffs, "
+          f"{disagg['converted_imports']} converted imports, "
+          f"{disagg['wire_bytes'] / 1024:.0f} KiB on the wire; "
+          f"token-identical: {identical})")
+    if check:
+        assert identical, "disaggregation changed generated tokens"
+        assert single["finished"] == disagg["finished"] == r["prompts"]
+        assert disagg["handoffs"] == r["prompts"] \
+            and disagg["fallbacks"] == 0, "the wire saturated mid-benchmark"
+        assert disagg["converted_imports"] == disagg["handoffs"], \
+            "mismatched page sizes must convert on every import"
+        assert ratio >= 1.15, (
+            f"disaggregation must lift TTFT-weighted goodput >= 1.15x "
+            f"single-host (got {ratio:.2f}x)")
+    return {"single": single, "disagg": disagg,
+            "ttft_goodput_ratio": ratio,
+            "token_identical": identical}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     # the sizes ``benchmarks/run.py`` gives the reference's compare, which
@@ -484,10 +803,17 @@ def main(argv=None) -> None:
           "vs isolated")
     artifacts.dump("BENCH_torch_fabric.json",
                    fabric_compare(seed=args.seed, device=dev))
+    print("\npersistence tier — warm vs cold restart TTFT")
+    artifacts.dump("BENCH_torch_persist.json",
+                   persist_compare(seed=args.seed, device=dev))
     print("\ncompute-follows-data — micro-batch decode + re-homing "
           "vs global batching")
     artifacts.dump("BENCH_torch_coda.json",
                    coda_compare(seed=args.seed, device=dev))
+    print("\ndisaggregated serving — prefill/decode split over the "
+          "page wire vs single host")
+    artifacts.dump("BENCH_torch_disagg.json",
+                   disagg_compare(seed=args.seed, device=dev))
 
 
 if __name__ == "__main__":

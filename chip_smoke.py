@@ -40,10 +40,10 @@ Phases (each failed check raises; the script then exits non-zero):
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
    counters zeroed just before and read just after, every paged launch on
    the instance its dtype and head dim select; one decode step is also
-   run through the plain version and the logits compared (within 0.1, the
-   kernel's token an argmax of the plain version's logits: bf16 logits can
-   tie exactly, and a tie passes either token; the gate of phases 4, 7, 9
-   and 10);
+   run through the plain version and the logits compared (within 0.1, and
+   on every row a token that is an argmax of both versions: bf16 logits
+   can tie exactly in either, and a tie passes either token; the gate of
+   phases 4, 7 and 9-12);
 5. speculative decode at full width on a repetition-friendly trace, counters
    zeroed again, verify steps through the prefill kernel;
 6. a ``torch.profiler`` window over 3 full-width decode steps: the device's
@@ -76,12 +76,39 @@ Phases (each failed check raises; the script then exits non-zero):
    counters beside ``BENCH_coda.json``'s, token agreement of the two
    policies, p50 step times and launches a step, and the observatory's
    host cost (5 interleaved pairs with and without it: best of each,
-   median paired difference, and the spread of the runs without it).
+   median paired difference, and the spread of the runs without it);
+11. the persistence tier at full width: qwen2-0.5b (phase 4's weights)
+   through ``benchmarks/torch_scheduler_bench.persist_run`` (page 4;
+   domain and tier bandwidths x 48, as phase 10): an engine serves the
+   warmup, pins and exports the two preamble chains to a prefix store in a
+   temporary directory and serves the trace on; a restarted engine imports
+   the store (warm), another starts empty (cold). Gates: chains, restored
+   pages, first-step prefix hits and steps equal ``BENCH_persist.json``'s;
+   the warm restart's tokens equal the uninterrupted engine's; the warm
+   engine's first decode step over restored pages holds the plain
+   version's logits (phase 4's gate). Then, on pages of that prefill:
+   demote 2 of 4 parked pages and promote them back, bit-equal; a 12-page
+   range through ``export_range``, the wire and ``import_range`` into a
+   second pool on the card, bit-equal, its sha256 the host copy's.
+   Printed: the cold restart's token agreement, the TTFT ratio beside
+   ``BENCH_persist.json``'s, synchronised wall ms of each step;
+12. prefill/decode disaggregation at full width: ``disagg_run`` (a prefill
+   host at page 4 hands each prompt's range over the Eq.-5-striped wire to
+   a decode host at page 8; every Eq.-1 bandwidth x 48, the wire's links
+   too, and the wire's chunk size, so a handoff takes the smoke run's
+   chunks). Gates: 10 handoffs, 10 converted imports, 0 fallbacks, both
+   fabrics' invariants; the first handoff's re-chunked K/V equal the
+   prefill host's token for token; the decode host's first decode step
+   over imported pages holds the plain logits. Printed: token agreement
+   with the single host, wire bytes beside ``BENCH_disagg.json``'s, and
+   the wall ms a handoff spends in export, serialize, deserialize,
+   convert and import.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
 instance and context, and the context-4096 decode rows; the qwen2-0.5b
-paged rows also carry phase 10's ``coda_launches``) and the card's
+paged rows also carry phases 10-12's ``coda_launches``,
+``persist_launches`` and ``disagg_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -858,19 +885,19 @@ def _decode_plain_check(eng):
     log(f"decode step, kernel vs plain version, full width: max |logit "
         f"diff| {err:.4g} (bf16 gate {LOGIT_TOL}; |logit| up to "
         f"{float(plain.abs().max()):.3g}), argmax equal on "
-        f"{len(seqs) - ties}/{len(seqs)} rows, the rest exact ties of the "
-        f"plain version")
+        f"{len(seqs) - ties}/{len(seqs)} rows, the rest exact ties")
     return err
 
 
 def _logits_gate(fast, plain, what) -> tuple[float, int]:
     """The gate of every phase that holds logits through the kernels
     against the plain version's on the same inputs (``[rows, vocab]``):
-    max |diff| <= ``LOGIT_TOL``, and on every row the kernel's token is an
-    argmax of the plain version. bf16 logits can tie exactly: where the
-    plain version's top two are equal either token passes, and any
-    non-zero plain margin fails. Returns (max |diff|, tied rows whose
-    argmaxes differ)."""
+    max |diff| <= ``LOGIT_TOL``, and on every row some token is an argmax
+    of both versions. bf16 logits can tie exactly, in either version, and
+    ``argmax`` then takes the lower index: where the argmaxes differ, the
+    row passes if the two tokens tie exactly in the plain version or in
+    the kernel's, and fails if both margins are non-zero. Returns
+    (max |diff|, tied rows whose argmaxes differ)."""
     fast, plain = fast.float(), plain.float()
     err = float((fast - plain).abs().max())
     af, ap = fast.argmax(-1), plain.argmax(-1)
@@ -880,9 +907,10 @@ def _logits_gate(fast, plain, what) -> tuple[float, int]:
               float(fast[i, af[i]] - fast[i, ap[i]]))
              for i in torch.nonzero(af != ap).flatten().tolist()]
     check(err <= LOGIT_TOL, f"{what}: logits differ by {err} > {LOGIT_TOL}")
-    check(all(m == 0.0 for _, m, _ in flips),
-          f"{what}: the kernel's argmax is not an argmax of the plain "
-          f"version on (row, plain margin, kernel margin) {flips}")
+    check(all(mp == 0.0 or mf == 0.0 for _, mp, mf in flips),
+          f"{what}: no token is an argmax of both the kernel's and the "
+          f"plain version's logits on (row, plain margin, kernel margin) "
+          f"{flips}")
     return err, len(flips)
 
 
@@ -1150,6 +1178,31 @@ def _coda_engine(cfg, params, device, policy, obs: bool):
     return pool, eng, o
 
 
+def _plain_gate(eng, seqs, what) -> tuple[float, int]:
+    """The decode step of ``seqs`` through the kernel and through the plain
+    version on the same pool state, held by ``_logits_gate``. The K/V both
+    write land at the slots the real launch rewrites; these launches are
+    taken back out of the counts."""
+    d = eng.decoder
+    mp = max(len(s.pages) for s in seqs)
+    tables = np.zeros((len(seqs), mp), np.int32)
+    for i, s in enumerate(seqs):
+        tables[i, :len(s.pages)] = s.pages
+    lens = np.asarray([s.length for s in seqs], np.int64)
+    toks = np.asarray([[s.tokens[-1]] for s in seqs], np.int64)
+    args = (d._t(toks), d._t(tables, torch.int32),
+            d._t(lens, torch.int32), d._t(lens))
+    saved = dict(kernel.LAUNCHES)
+    fast = d.decode_step(*args).float()
+    impl, d.impl = d.impl, "reference"
+    try:
+        plain = d.decode_step(*args).float()
+    finally:
+        d.impl = impl
+    kernel.LAUNCHES.update(saved)
+    return _logits_gate(fast, plain, what)
+
+
 class _MultiLaunchCheck:
     """On the first multi-launch step, and the first after a re-homing:
     before each micro-batch's launch, its decode step through the kernel
@@ -1185,25 +1238,8 @@ class _MultiLaunchCheck:
     def launch(self, seqs):
         if self.groups is None:
             return self._launch(seqs)
-        d = self.eng.decoder
-        mp = max(len(s.pages) for s in seqs)
-        tables = np.zeros((len(seqs), mp), np.int32)
-        for i, s in enumerate(seqs):
-            tables[i, :len(s.pages)] = s.pages
-        lens = np.asarray([s.length for s in seqs], np.int64)
-        toks = np.asarray([[s.tokens[-1]] for s in seqs], np.int64)
-        args = (d._t(toks), d._t(tables, torch.int32),
-                d._t(lens, torch.int32), d._t(lens))
-        saved = dict(kernel.LAUNCHES)
-        fast = d.decode_step(*args).float()
-        impl, d.impl = d.impl, "reference"
-        try:
-            plain = d.decode_step(*args).float()
-        finally:
-            d.impl = impl
-        kernel.LAUNCHES.update(saved)
-        err, ties = _logits_gate(
-            fast, plain, f"coda micro-batch (step {len(self.done) + 1} "
+        err, ties = _plain_gate(
+            self.eng, seqs, f"coda micro-batch (step {len(self.done) + 1} "
             f"checked, {len(seqs)} rows)")
         self.logit_err = max(self.logit_err, err)
         self.ties += ties
@@ -1364,8 +1400,8 @@ def phase_coda(device, cfg, params) -> dict:
     log(f"coda micro-batch checks on steps with (launches, rows per launch) "
         f"{coda['checked']}: full-batch rows equal bit for bit, logits "
         f"max |diff| {coda['logit_err']:.4g} (gate {LOGIT_TOL}), argmax "
-        f"equal on every row but {coda['ties']} where the plain version's "
-        f"top two logits tie exactly and the kernel picks the other; "
+        f"equal on every row but {coda['ties']} where the two tokens tie "
+        f"exactly in one version; "
         f"re-homed "
         f"pages' K/V equal their sources on {len(coda['remapped'])} "
         f"re-homings; {len(tr.events)} trace events")
@@ -1404,6 +1440,322 @@ def phase_coda(device, cfg, params) -> dict:
     return coda
 
 
+# -- phases 11 and 12 ------------------------------------------------------------
+
+def _smoke_page_bytes(page_size: int) -> int:
+    """A smoke-config page's bytes (1 fp32 layer, 2 KV heads of 16): the
+    Eq.-1 scale of phases 10-12 is a full-width page's over this."""
+    return 1 * page_size * 2 * 16 * 2 * 4
+
+
+def _synced_ms(fn, *a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _timed_calls(owner, name: str, into: list) -> None:
+    """Replace ``owner.name`` (an object's method or a module's function)
+    by a version that appends each call's synchronised wall ms to
+    ``into``."""
+    orig = getattr(owner, name)
+
+    def timed(*a, **kw):
+        out, ms = _synced_ms(orig, *a, **kw)
+        into.append(ms)
+        return out
+    setattr(owner, name, timed)
+
+
+class _FirstDecodeGate:
+    """Before an engine's first decode launch: its rows through the kernel
+    and through the plain version (``_plain_gate``)."""
+
+    def __init__(self, eng, what):
+        self.eng, self.what, self.rows = eng, what, 0
+        self.err = self.ties = None
+        self._launch = eng._decode_launch
+        eng._decode_launch = self.launch
+
+    def launch(self, seqs):
+        if self.err is None:
+            self.err, self.ties = _plain_gate(self.eng, seqs, self.what)
+            self.rows = len(seqs)
+        return self._launch(seqs)
+
+
+def _paged_counts(launches, what) -> None:
+    check(launches["paged_attention"] > 0
+          and launches["paged_prefill_attention_batch"] > 0,
+          f"{what}: paged launches {launches}")
+    check(launches["flash_attention"] == 0
+          and launches["flash_attention_wgmma"] == 0,
+          f"{what}: the incremental path ran a full-sequence forward")
+
+
+def phase_persist(device, cfg, params) -> dict:
+    """``persist_compare``'s three engines at full width, then a
+    demote/promote round trip and a range's trip over the wire on pages
+    of that run's prefill."""
+    import hashlib
+    import tempfile
+
+    from benchmarks.torch_scheduler_bench import persist_run
+    from repro_torch.checkpoint.ckpt import host_array
+    from repro_torch.placement.fabric import as_view
+    from repro_torch.placement.persist import (PersistentTier,
+                                               deserialize_range,
+                                               serialize_range)
+    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
+    from repro_torch.scheduler import KVSwapManager
+
+    engines, ms = {}, {k: [] for k in ("export", "import", "demote",
+                                       "promote", "range export",
+                                       "serialize", "deserialize",
+                                       "range import")}
+    gate = {}
+
+    def hook(name, eng):
+        engines[name] = eng
+        check(eng.view.page_bytes == CODA_BW_SCALE * _smoke_page_bytes(4),
+              f"page bytes {eng.view.page_bytes}")
+        tier = eng.view.fabric.persist
+        if name == "oracle":
+            _timed_calls(tier, "export_prefixes", ms["export"])
+        elif name == "warm":
+            _timed_calls(tier, "import_prefixes", ms["import"])
+            gate["warm"] = _FirstDecodeGate(
+                eng, "warm restart, first decode step")
+
+    with tempfile.TemporaryDirectory() as store:
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        fkernel.reset_launch_counts()
+        r = persist_run(cfg, params, store, bw_scale=CODA_BW_SCALE,
+                        hook=hook, device=device)
+        torch.cuda.synchronize()
+        launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    _paged_counts(launches, "persist")
+    _check_instances(cfg, {"launches": launches})
+    bench = json.loads((ROOT / "BENCH_persist.json").read_text())
+    got = (len(r["manifest"]["chains"]), r["restored"],
+           r["warm"]["first_step_prefix_hit_pages"],
+           r["oracle"]["first_step_prefix_hit_pages"],
+           r["cold"]["first_step_prefix_hit_pages"],
+           r["oracle"]["steps"], r["warm"]["steps"], r["cold"]["steps"])
+    want = (bench["exported_chains"], bench["restored_pages"],
+            bench["warm"]["first_step_prefix_hit_pages"],
+            bench["oracle"]["first_step_prefix_hit_pages"],
+            bench["cold"]["first_step_prefix_hit_pages"],
+            bench["oracle"]["steps"], bench["warm"]["steps"],
+            bench["cold"]["steps"])
+    check(got == want, f"persist counters (chains, restored, warm/oracle/"
+          f"cold first-step hits, oracle/warm/cold steps) {got}, "
+          f"BENCH_persist.json {want}")
+    check(r["warm"]["tokens"] == r["oracle"]["tokens"],
+          "the warm restart's tokens differ from the uninterrupted "
+          "engine's")
+    g = gate["warm"]
+    check(g.err is not None, "the warm engine's decode gate never ran")
+    for eng in engines.values():
+        eng.view.fabric.check_invariants()
+
+    # (a), (b): pages of the oracle's prefill, still held by its pins
+    view_a = engines["oracle"].view
+    tier_a = view_a.fabric.persist
+    pin = next(iter(tier_a._pins.values()))
+    src = list(pin["pages"])
+    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 12, 819.0, True),
+                              MemoryDomain("hbm_peer", 12, 0.05, False),
+                              MemoryDomain("host", 16, 0.016, False)],
+                        page_size=4, device=device)
+    view = as_view(pool)
+    tier = PersistentTier(bw_gbps=0.008, capacity_pages=32)
+    view.fabric.attach_persist(tier)
+    _timed_calls(tier, "demote", ms["demote"])
+    _timed_calls(tier, "promote", ms["promote"])
+    swap = KVSwapManager(pool, reserve_fraction=0.5)
+    pages = []
+    for _ in range(4):
+        view.append_page(pages)
+    pool.k_pool[:, pages] = view_a.k_pool[:, src[:4]]
+    pool.v_pool[:, pages] = view_a.v_pool[:, src[:4]]
+    orig = (pool.k_pool[:, pages].clone(), pool.v_pool[:, pages].clone())
+    parked, _ = swap.swap_out(pages)
+    demoted, _ = swap.demote_cold(2)
+    check(demoted == 2 and sum(p < 0 for p in parked) == 2,
+          f"demoted {demoted}, parked list {parked}")
+    view.fabric.check_invariants()
+    back, _ = swap.swap_in(parked)
+    view.fabric.check_invariants()
+    check(torch.equal(pool.k_pool[:, back], orig[0])
+          and torch.equal(pool.v_pool[:, back], orig[1]),
+          "promoted K/V differ from the pages' prefill bytes")
+    view.release(back)
+    swap.close()
+    view.fabric.check_invariants()
+    blob, t = _synced_ms(tier_a.export_range, view_a, src,
+                         tokens=pin["tokens"], ntokens=len(pin["tokens"]))
+    ms["range export"].append(t)
+    data, t = _synced_ms(serialize_range, blob)
+    ms["serialize"].append(t)
+    blob2, t = _synced_ms(deserialize_range, data)
+    ms["deserialize"].append(t)
+    (new_ids, _), t = _synced_ms(tier.import_range, view, blob2)
+    ms["range import"].append(t)
+    host_sha = hashlib.sha256(host_array(
+        view_a.k_pool[:, src].cpu()).tobytes()).hexdigest()
+    check(blob["sha256"]["k"] == blob2["sha256"]["k"] == host_sha
+          == hashlib.sha256(host_array(
+              pool.k_pool[:, new_ids].cpu()).tobytes()).hexdigest(),
+          "range sha256 differs from the host's")
+    check(torch.equal(pool.k_pool[:, new_ids], view_a.k_pool[:, src])
+          and torch.equal(pool.v_pool[:, new_ids], view_a.v_pool[:, src]),
+          "the imported range's K/V differ from the exporter's")
+    got_pages = []
+    check(view.probe_prefix(pin["tokens"], got_pages, count=False)
+          == len(pin["tokens"]), "the imported range's chain is not in "
+          "the importer's trie")
+    view.release(got_pages)
+    view.release(new_ids)
+    view.fabric.check_invariants()
+    view_a.fabric.check_invariants()
+
+    same = sum(a == b for a, b in zip(r["cold"]["tokens"],
+                                      r["oracle"]["tokens"]))
+    ratio = r["cold"]["ttft_mean_s"] / max(r["warm"]["ttft_mean_s"], 1e-9)
+    log(f"persistence at full width ({cfg.name}, {cfg.compute_dtype}, page "
+        f"4, bandwidths x {CODA_BW_SCALE}): {got[0]} chains exported, "
+        f"{got[1]} pages restored, first-step prefix hits warm {got[2]} / "
+        f"oracle {got[3]} / cold {got[4]}, steps {got[5]}/{got[6]}/{got[7]} "
+        f"(BENCH_persist.json: {want}); warm restart tokens equal the "
+        f"uninterrupted engine's on {len(r['warm']['tokens'])} of "
+        f"{len(r['warm']['tokens'])}; cold restart on {same} of "
+        f"{len(r['cold']['tokens'])} (an observation: its bf16 prefill "
+        f"runs other chunks); TTFT cold/warm {ratio:.4f} on the virtual "
+        f"clock (BENCH_persist.json: {bench['ttft_cold_over_warm']:.4f})")
+    log(f"warm restart's first decode step ({g.rows} rows over restored "
+        f"pages): logits max |diff| {g.err:.4g} (gate {LOGIT_TOL}), "
+        f"{g.ties} exact ties; demote/promote of 2 of 4 prefill pages and "
+        f"a {len(src)}-page range over the wire bit-equal, sha256 equal "
+        f"to the host's; launches {launches}")
+    log("persistence wall ms (synchronised): " + ", ".join(
+        f"{k} {np.median(v):.3f}" for k, v in ms.items()
+        if v) + f" -- {smi_line()}")
+    return dict(launches=launches)
+
+
+def phase_disagg(device, cfg, params) -> dict:
+    """``disagg_compare`` at full width: one host, then a prefill host
+    (page 4) handing each prompt's range to a decode host (page 8)."""
+    from benchmarks.torch_scheduler_bench import disagg_run
+    from repro_torch.cluster import transport
+
+    stages = ("export", "serialize", "deserialize", "convert", "import")
+    ms = {k: [] for k in stages}
+    objs, gate, first = {}, {}, {}
+
+    def hook(name, obj):
+        objs[name] = obj
+        if name == "router":
+            ch = obj.channel
+            send, recv = ch.send, ch.recv
+
+            def first_send(view, pages, **kw):
+                first.setdefault("src", (view, list(pages), kw["ntokens"]))
+                return send(view, pages, **kw)
+
+            def first_recv(view, **kw):
+                new_ids, parcel, secs = recv(view, **kw)
+                if "ok" not in first:
+                    first["ok"] = _handoff_equal(first["src"], view,
+                                                 new_ids)
+                return new_ids, parcel, secs
+            ch.send, ch.recv = first_send, first_recv
+            return
+        ps = obj.view.page_size
+        check(obj.view.page_bytes == CODA_BW_SCALE * _smoke_page_bytes(ps),
+              f"{name}: page bytes {obj.view.page_bytes}")
+        tier = obj.view.fabric.persist
+        if name == "prefill":
+            _timed_calls(tier, "export_range", ms["export"])
+        elif name == "decode":
+            _timed_calls(tier, "import_range", ms["import"])
+            gate["decode"] = _FirstDecodeGate(
+                obj, "decode host, first decode step over imported pages")
+
+    saved = {k: getattr(transport, k) for k in
+             ("serialize_range", "deserialize_range", "convert_range")}
+    for k in saved:
+        _timed_calls(transport, k, ms[k.split("_")[0]])
+    try:
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        fkernel.reset_launch_counts()
+        r = disagg_run(cfg, params, bw_scale=CODA_BW_SCALE, hook=hook,
+                       device=device)
+        torch.cuda.synchronize()
+        launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    finally:
+        for k, fn in saved.items():
+            setattr(transport, k, fn)
+    _paged_counts(launches, "disagg")
+    _check_instances(cfg, {"launches": launches})
+    d, single = r["disagg"], r["single"]
+    n = r["prompts"]
+    check((d["finished"], single["finished"], d["handoffs"],
+           d["converted_imports"], d["fallbacks"]) == (n, n, n, n, 0),
+          f"disagg finished {d['finished']}/{single['finished']}, "
+          f"handoffs {d['handoffs']}, converted {d['converted_imports']}, "
+          f"fallbacks {d['fallbacks']}")
+    check(first.get("ok") is True,
+          "the first handoff's re-chunked K/V differ from the prefill "
+          "host's")
+    g = gate["decode"]
+    check(g.err is not None, "the decode host's gate never ran")
+    bench = json.loads((ROOT / "BENCH_disagg.json").read_text())
+    same = sum(a == b for a, b in zip(d["tokens"], single["tokens"]))
+    ratio = d["ttft_weighted_goodput"] \
+        / max(single["ttft_weighted_goodput"], 1e-9)
+    log(f"disaggregation at full width ({cfg.name}, {cfg.compute_dtype}, "
+        f"pages 4 -> 8, bandwidths x {CODA_BW_SCALE}): {d['handoffs']} "
+        f"handoffs, {d['converted_imports']} converted imports, "
+        f"{d['fallbacks']} fallbacks; wire {d['wire_bytes']} bytes "
+        f"(BENCH_disagg.json, smoke page: {bench['disagg']['wire_bytes']}); "
+        f"TTFT-weighted goodput ratio {ratio:.4f} on the virtual clock "
+        f"({bench['ttft_goodput_ratio']:.4f}); single-host steps "
+        f"{single['steps']} ({bench['single']['steps']}); tokens equal to "
+        f"the single host's for {same} of {n} requests (an observation: "
+        f"the decode host re-prefills only the tail page)")
+    log(f"first handoff: decode host's re-chunked K/V equal the prefill "
+        f"host's token for token; decode host's first decode step "
+        f"({g.rows} rows over imported pages): logits max |diff| "
+        f"{g.err:.4g} (gate {LOGIT_TOL}), {g.ties} exact ties; launches "
+        f"{launches}")
+    log("handoff wall ms (synchronised, median of "
+        f"{len(ms['export'])} handoffs): " + ", ".join(
+            f"{k} {np.median(v):.3f}" for k, v in ms.items() if v)
+        + f" -- {smi_line()}")
+    return dict(launches=launches)
+
+
+def _handoff_equal(src, view, new_ids) -> bool:
+    """The imported range's tokens equal the exported range's, K and V:
+    pages flattened to a token axis, the valid ``ntokens`` compared."""
+    sview, pages, ntokens = src
+
+    def tokens(pool_array, ids, ps):
+        a = pool_array[:, ids]
+        return a.reshape(a.shape[0], len(ids) * ps, *a.shape[3:])[
+            :, :ntokens]
+    return all(torch.equal(tokens(sa, pages, sview.page_size),
+                           tokens(da, new_ids, view.page_size))
+               for sa, da in ((sview.k_pool, view.k_pool),
+                              (sview.v_pool, view.v_pool)))
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -1428,22 +1780,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t0 = time.perf_counter()
+
+    def done(phases: str) -> None:
+        log(f"[{time.perf_counter() - t0:.1f} s] phase {phases} done")
     phase_build()
+    done("1")
     errs = phase_correctness()
     ferrs = phase_flash_correctness()
+    done("2")
     times = phase_timing()
+    done("3")
     from repro_torch.configs import registry
     s = phase_serve(device, registry.get_config("qwen2-0.5b"))
     phase_spec(device, s["cfg"], s["params"])
     phase_profile(device, s["cfg"], s["params"])
+    done("4-6")
     flash_launches = {
         "qwen2-0.5b": phase_prefill(device, "qwen2-0.5b", 4, s["params"]),
         "gemma-2b": phase_prefill(device, "gemma-2b", 1)}
     phase_recompute(device, s["cfg"], s["params"], s["prompts"],
                     s["greedy"])
+    done("7-8")
     g = phase_serve(device, registry.get_config("gemma-2b"))
     phase_profile(device, g["cfg"], g["params"])
+    done("9")
     coda = phase_coda(device, s["cfg"], s["params"])
+    done("10")
+    persist = phase_persist(device, s["cfg"], s["params"])
+    done("11")
+    disagg = phase_disagg(device, s["cfg"], s["params"])
+    done("12")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
@@ -1486,8 +1852,10 @@ def main() -> int:
                              heads=f"{tag} {heads['nq']}/{heads['nkv']}/"
                                    f"{h}"))
             if tag == "qwen2-0.5b" and name != "flash_attention_bh":
-                # phase 10's coda run, counted apart from phase 4's
+                # phases 10-12, each counted apart from phase 4's
                 rows[-1]["coda_launches"] = coda["launches"][name]
+                rows[-1]["persist_launches"] = persist["launches"][name]
+                rows[-1]["disagg_launches"] = disagg["launches"][name]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

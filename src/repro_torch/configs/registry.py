@@ -3,7 +3,7 @@
 
 The ids are the reference's ten. The dense ``qwen2-0.5b`` (GQA) and
 ``gemma-2b`` (MQA, head dim 256) are ported; the others raise until their
-model family lands (ROADMAP queue 1 item 13). ``step_fn`` gives the train
+model family lands (ROADMAP queue 1 item 9). ``step_fn`` gives the train
 and prefill steps; decode raises until ``LM.decode_step`` is ported.
 ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
 """
@@ -38,7 +38,7 @@ def _module(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"{arch!r} is not ported yet (ported: {list(PORTED)}; "
-            "ROADMAP queue 1 item 13)")
+            "ROADMAP queue 1 item 9)")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 
@@ -95,4 +95,4 @@ def step_fn(cfg: ModelConfig, shape: Shape, model=None):
     raise NotImplementedError(
         f"{shape.name}: the decode step needs LM.decode_step and "
         "decode_attention, which are not ported yet (ROADMAP queue 1 "
-        "item 3); serving decodes through the paged kernel instead")
+        "item 9); serving decodes through the paged kernel instead")

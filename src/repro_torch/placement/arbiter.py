@@ -31,8 +31,8 @@ never the reverse).
 
 Port of ``repro.placement.arbiter`` (numpy, the same ledger arithmetic).
 The fabric's pool lives on ``device`` (default ``"cuda"``).
-``pin_hot_preambles`` comes with the persistence tier
-(``placement/persist.py``), which the port does not have yet.
+``pin_hot_preambles`` pins the hottest cross-tenant preambles into the
+fabric's persistence tier (``placement/persist.py``).
 """
 
 from __future__ import annotations
@@ -236,6 +236,45 @@ class DomainArbiter:
                 pages = int(o.view.used_pages()[d])
                 total += pages * o.view.page_bytes / (self.bw[d] * 1e9)
         return scale * total
+
+    # -- persistence-tier pin selection (DESIGN.md §13) ------------------------
+
+    def pin_hot_preambles(self, *, top_k: int = 2, min_ref: int = 2) -> list:
+        """Pin the globally hottest shared preambles into the persistence
+        tier. Candidates are maximal trie chains whose pages are shared
+        across tenants (refcount ≥ ``min_ref``) or already pinned; each is
+        scored by Σ refcount × (1 + observatory heat) over its pages — the
+        cross-tenant demand signal the arbiter alone can see. The ``top_k``
+        winners are pinned (re-pinning refreshes the LRU stamp, so a
+        preamble that stays hot never ages into eviction); losers keep any
+        existing pin and age naturally. Returns the pin keys touched."""
+        fabric = self.fabric
+        assert fabric is not None and fabric.persist is not None, \
+            "pin selection needs a fabric with an attached persistence tier"
+        tier = fabric.persist
+        table = fabric.table
+        heat = fabric.obs.heat if fabric.obs is not None else None
+        already = tier.pinned_pages()
+        chains = table.export_chains(
+            select=lambda pid: table.ref.get(pid, 0) >= min_ref
+            or pid in already)
+        scored = []
+        for ch in chains:
+            owner = fabric.owner.get(ch["phys"][0])
+            if owner is None:
+                continue
+            score = sum(
+                table.ref.get(p, 0)
+                * (1.0 + (heat.value(p) if heat is not None else 0.0))
+                for p in ch["phys"])
+            scored.append((-score, owner, tuple(ch["tokens"]), ch))
+        scored.sort(key=lambda t: t[:3])
+        keys = []
+        for _neg, owner, _toks, ch in scored[:top_k]:
+            key = tier.pin(fabric.views[owner], ch["tokens"])
+            if key is not None:
+                keys.append(key)
+        return keys
 
     # -- cross-tenant loans (delegated to the fabric broker) ------------------
 

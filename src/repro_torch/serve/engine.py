@@ -19,8 +19,10 @@ Differences from the reference, all on the data plane:
 
 Heat-driven re-homing (``rehome=True``, the ``coda`` policy's default)
 moves hot shared pages into fast domains on the pool's device, through the
-executor's in-place gather/scatter (``FabricView.rehome_hot``). The finish
-callbacks of the cluster handoff come with the cluster subsystem.
+executor's in-place gather/scatter (``FabricView.rehome_hot``). Finish
+callbacks (``on_request_finish``) run for each finishing request before the
+scheduler releases its pages: the cluster router
+(``repro_torch.cluster.router``) exports the prompt range there.
 """
 
 from __future__ import annotations
@@ -251,6 +253,11 @@ class ServeEngine:
         self.rehome_budget_frac = float(rehome_budget_frac)
         self._heat = None
         self.rehomed_pages = 0
+        # cluster handoff hook (DESIGN.md §13): callbacks fired for each
+        # finishing request BEFORE scheduler.finish releases its pages —
+        # the ClusterRouter exports the prompt range while the trie chain
+        # still has a live holder
+        self._finish_cbs: list = []
         self.prefill_tokens_computed = 0   # forward-pass tokens spent on
         self.prefill_chunks_run = 0        # prefill (the O(n) vs O(n²) gap)
         self.decode_steps = 0              # steps that ran a decode batch
@@ -275,6 +282,13 @@ class ServeEngine:
                arrival_s: float | None = None) -> int:
         return self.scheduler.submit(prompt, cls=cls, max_new=max_new,
                                      arrival_s=arrival_s)
+
+    def on_request_finish(self, cb) -> None:
+        """Register ``cb(engine, seq)`` to run when a request finishes,
+        *before* the scheduler releases its pages — the only window where
+        a handoff can export the sequence's range (release may drop the
+        last reference and the trie chain dies with it)."""
+        self._finish_cbs.append(cb)
 
     # -- chunked prefill ------------------------------------------------------
 
@@ -403,6 +417,8 @@ class ServeEngine:
             if produced_before[s.sid] == 0 and s.produced > 0:
                 self.scheduler.notice_first_token(s)
         for s in done:
+            for cb in self._finish_cbs:
+                cb(self, s)
             self.scheduler.finish(s)
         moved = False
         if batch:

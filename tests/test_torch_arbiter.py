@@ -1,6 +1,7 @@
 """The port's multi-tenant domain arbiter (``repro_torch.placement.arbiter``)
 against the reference's (``repro.placement.arbiter``): the arbiter cases of
-``tests/test_placement.py`` on both packages with the same inputs, then
+``tests/test_placement.py`` on both packages with the same inputs (pin
+selection into the persistence tier included), then
 ``fabric_compare`` (two tenants on one fabric vs isolated partitions;
 ``benchmarks/scheduler_bench.py`` against
 ``benchmarks/torch_scheduler_bench.py``) equal to the reference's live run
@@ -117,6 +118,58 @@ def test_arbiter_observe_rehomes_view_sequences(smoke):
     ref, port = _both(run)
     assert port == ref
     assert port[0]
+
+
+def test_arbiter_pins_hottest_preambles(smoke):
+    """Pin selection ranks cross-tenant chains by refcount × heat and pins
+    the winners into the persistence tier; re-selection refreshes the LRU
+    stamp instead of duplicating pins."""
+    def run(pkg):
+        if pkg.port:
+            from repro_torch.obs.observatory import Observatory
+            from repro_torch.placement.persist import PersistentTier
+        else:
+            from repro.obs.observatory import Observatory
+            from repro.placement.persist import PersistentTier
+        cfg = smoke[pkg.port][0]
+        arb = _arbiter(pkg)
+        a = arb.register("A", cfg, priority=pkg.arb.Priority.HIGH,
+                         share=0.4)
+        b = arb.register("B", cfg, priority=pkg.arb.Priority.BEST_EFFORT,
+                         share=0.4)
+        tier = PersistentTier(capacity_pages=64)
+        arb.fabric.attach_persist(tier)
+        obs = Observatory(arb.fabric, tracer=False, drift=False)
+
+        def chain(toks):
+            pages = []
+            for _ in range(len(toks) // 4):
+                a.view.append_page(pages)
+            a.view.register_prefix(list(toks), pages, len(toks))
+            return pages
+
+        cold = chain(list(range(100, 108)))   # cross-tenant shared, cool
+        hot = chain(list(range(200, 208)))    # cross-tenant shared, hot
+        private = chain(list(range(300, 308)))    # only tenant A: ref 1
+        for toks in (list(range(100, 108)), list(range(200, 208))):
+            got = []
+            assert b.view.probe_prefix(toks, got) == 8   # B shares
+        for _ in range(5):
+            obs.heat.touch(hot)
+        keys = arb.pin_hot_preambles(top_k=1, min_ref=2)
+        assert len(keys) == 1 and keys[0] in tier._pins
+        assert tier.pinned_pages() == set(hot)  # heat broke the ref tie
+        assert not (set(private) & tier.pinned_pages())
+        stamp0 = tier._pins[keys[0]]["stamp"]
+        assert arb.pin_hot_preambles(top_k=1, min_ref=2) == keys
+        assert tier._pins[keys[0]]["stamp"] > stamp0   # touched
+        keys2 = arb.pin_hot_preambles(top_k=3, min_ref=2)
+        assert tier.pinned_pages() == set(hot) | set(cold)
+        assert len(keys2) == 2
+        arb.fabric.check_invariants()
+        return keys, keys2, sorted(tier.pinned_pages()), tier.stats()
+    ref, port = _both(run)
+    assert port == ref
 
 
 def test_fabric_compare_equals_the_reference_and_bench_fabric_json(smoke):

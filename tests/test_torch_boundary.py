@@ -1,7 +1,7 @@
 """The port's boundary: nothing under ``src/repro_torch/``, in the port's
-benchmarks (``benchmarks/torch_*.py``) or in ``chip_smoke.py`` imports JAX
-or the reference package (the machine with the
-card has no JAX), every entry point refuses ``device="cuda"`` when no card
+benchmarks (``benchmarks/torch_*.py``) or in ``chip_smoke.py`` imports JAX,
+``ml_dtypes`` or the reference package (the machine with the card has
+none of them), every entry point refuses ``device="cuda"`` when no card
 is present instead of carrying on on the CPU, and ``chip_smoke.py`` fails
 without a card or without the rest of the repository."""
 
@@ -17,7 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -52,6 +52,13 @@ def test_the_ast_check_sees_imports():
     probe = ROOT / "src" / "repro_torch" / "serve" / "engine.py"
     assert "repro_torch" in _imported_roots(probe)
     assert "torch" in _imported_roots(probe)
+    # every port module is walked, the persistence tier and cluster too
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES}
+    assert {"repro_torch/placement/persist.py",
+            "repro_torch/checkpoint/ckpt.py",
+            "repro_torch/cluster/transport.py",
+            "repro_torch/launch/mesh.py",
+            "repro_torch/sharding/specs.py"} <= names
 
 
 def _no_card():
@@ -90,6 +97,8 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: serve.main(["--requests", "1", "--new", "1"]),
         lambda: torch_scheduler_bench.main([]),
         lambda: torch_scheduler_bench.coda_compare(),
+        lambda: torch_scheduler_bench.persist_compare(),
+        lambda: torch_scheduler_bench.disagg_compare(),
         lambda: torch_obs_bench.main([]),
         lambda: torch_obs_bench.calibration_loop(),
     ]

@@ -12,10 +12,12 @@ whose control plane is the same code, fails the same way on those inputs
 (pinned below). The property here draws footprints within the allocatable
 capacity and holds both packages to the stated invariants.
 
-Cold demotion into a persistent tier runs only with a tier attached, and
-the port has no ``placement/persist.py`` yet: ``_StandInTier`` below
-follows the reference tier's ``demote``/``promote``/``forget`` contract
-(``src/repro/placement/persist.py:219-290``). The port departs from the
+Cold demotion into a persistent tier runs only with a tier attached.
+``_StandInTier`` below follows the reference tier's
+``demote``/``promote``/``forget`` contract
+(``src/repro/placement/persist.py:219-290``) in a few lines, and the same
+sequences run again on the port's ``placement/persist.PersistentTier``
+(the ``_on_the_persistent_tier`` cases). The port departs from the
 reference here (``scheduler/swap.py``'s module docstring): the reference
 forwards a demoted slot's id to its tier handle and, once ``swap_out``
 reuses the slot, forwards the newcomer too. The two falsifying sequences of
@@ -219,10 +221,16 @@ class _StandInTier:
             self.fabric.views[entry[2]].persisted -= 1
 
 
-def _demote_rig():
+def _persistent_tier():
+    from repro_torch.placement.persist import PersistentTier
+    return PersistentTier(bw_gbps=0.008, capacity_pages=32)
+
+
+def _demote_rig(make_tier=_StandInTier):
     """``tests/test_persist.py``'s rig and property setup on the port: a
-    pool of 12/12/16 pages of 4 tokens, the stand-in tier, half the slow
-    domains reserved, three sequences of two pages with known bytes."""
+    pool of 12/12/16 pages of 4 tokens, a tier (the stand-in unless
+    ``make_tier`` builds another), half the slow domains reserved, three
+    sequences of two pages with known bytes."""
     cfg = t_config.ModelConfig(**dataclasses.asdict(dataclasses.replace(
         registry.get_smoke_config("qwen2-0.5b"), num_layers=1,
         compute_dtype="float32")))
@@ -231,7 +239,7 @@ def _demote_rig():
         t_pool.MemoryDomain("hbm_peer", 12, 0.05, False),
         t_pool.MemoryDomain("host", 16, 0.016, False),
     ], page_size=4, dwp_config=DWPConfig(n=10 ** 6, c=1), device="cpu")
-    tier = _StandInTier()
+    tier = make_tier()
     swap = TSwap(pool, reserve_fraction=0.5)
     swap.view.fabric.attach_persist(tier)
     seqs = []
@@ -245,11 +253,11 @@ def _demote_rig():
     return pool, swap, tier, seqs
 
 
-def _run_demote_ops(ops):
+def _run_demote_ops(ops, make_tier=_StandInTier):
     """Park / demote / promote / free interleavings: ``check_invariants``
     after every op, each live sequence's bytes intact at the end, and the
     tier, the reservation and the ledgers drained to zero."""
-    pool, swap, tier, seqs = _demote_rig()
+    pool, swap, tier, seqs = _demote_rig(make_tier)
     view = swap.view
     state = ["live"] * 3
     for act, s in ops:
@@ -301,18 +309,32 @@ def test_demoted_slot_reuse_keeps_each_sequences_kv(ops):
 @pytest.mark.parametrize("seed", range(8))
 def test_demote_interleavings_preserve_kv(seed):
     """Seeded random interleavings of the four ops over three sequences."""
+    _run_demote_ops(_demote_seeded(seed))
+
+
+def _demote_seeded(seed):
     rng = np.random.default_rng(2000 + seed)
     acts = ("out", "demote", "in", "free")
-    ops = [(acts[int(rng.integers(4))], int(rng.integers(3)))
-           for _ in range(int(rng.integers(3, 13)))]
-    _run_demote_ops(ops)
+    return [(acts[int(rng.integers(4))], int(rng.integers(3)))
+            for _ in range(int(rng.integers(3, 13)))]
 
 
-def test_demoted_list_names_its_tier_handles():
+@pytest.mark.parametrize("ops", DEMOTE_FALSIFIERS)
+def test_demoted_slot_reuse_keeps_each_sequences_kv_on_the_persistent_tier(
+        ops):
+    _run_demote_ops(ops, _persistent_tier)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_demote_interleavings_preserve_kv_on_the_persistent_tier(seed):
+    _run_demote_ops(_demote_seeded(seed), _persistent_tier)
+
+
+def test_demoted_list_names_its_tier_handles(make_tier=_StandInTier):
     """Demotion rewrites the owner's list in place: the sequence's list
     holds the tier handles, and a newcomer parked into the vacated slots
     holds the slot ids, with no id shared between the two."""
-    pool, swap, tier, seqs = _demote_rig()
+    pool, swap, tier, seqs = _demote_rig(make_tier)
     parked, _ = swap.swap_out(seqs[1])
     n, _ = swap.demote_cold(2)
     assert n == 2 and all(p <= -2 for p in parked)
@@ -325,6 +347,10 @@ def test_demoted_list_names_its_tier_handles():
     for i, p in enumerate(back):
         assert bool((pool.k_pool[:, p] == 10 + i).all())
 
+
+
+def test_demoted_list_names_its_tier_handles_on_the_persistent_tier():
+    test_demoted_list_names_its_tier_handles(_persistent_tier)
 
 def test_loan_reclaim_rewrites_the_borrowers_list_in_place():
     """``tests/test_fabric.py``'s loan cycle on the port: B parks a
