@@ -1,0 +1,71 @@
+"""The artifact check of the port's benchmarks: every
+``BENCH_torch_<x>.json`` at the repo root must exist, parse, carry the
+required top-level keys of the reference's ``BENCH_<x>.json``
+(``benchmarks.artifacts.SCHEMAS``) and hold only finite numbers.
+
+    PYTHONPATH=src python -m benchmarks.torch_artifacts             # all
+    PYTHONPATH=src python -m benchmarks.torch_artifacts BENCH_torch_zoo.json
+
+The artifacts are written by ``benchmarks.torch_scheduler_bench``,
+``benchmarks.torch_obs_bench`` and ``benchmarks.torch_placement_bench``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+from benchmarks import artifacts
+
+
+def port_name(name: str) -> str:
+    """``BENCH_<x>.json`` -> ``BENCH_torch_<x>.json``."""
+    assert name.startswith("BENCH_"), name
+    return "BENCH_torch_" + name[len("BENCH_"):]
+
+
+SCHEMAS = {port_name(n): keys for n, keys in artifacts.SCHEMAS.items()}
+
+# the artifacts the port's benchmarks write (the reference's
+# BENCH_serve.json has no port benchmark: tests/test_torch_spec.py holds
+# speculative decode against the reference instead)
+EXPECTED = tuple(n for n in SCHEMAS if n != "BENCH_torch_serve.json")
+
+
+def problems(name: str, data) -> list[str]:
+    """What is wrong with one parsed artifact: required keys missing,
+    non-finite numbers."""
+    required = SCHEMAS[name]
+    if not isinstance(data, dict):
+        return [f"{name}: expected a JSON object, got "
+                f"{type(data).__name__}"]
+    out = []
+    absent = [k for k in required if k not in data]
+    if absent:
+        out.append(f"{name}: missing required keys {', '.join(absent)}")
+    bad = artifacts._non_finite(data, name)
+    if bad:
+        out.append(f"{name}: non-finite numbers at {', '.join(bad[:5])}")
+    return out
+
+
+def check(names=EXPECTED, root: pathlib.Path = artifacts.ROOT) -> None:
+    """Fail (SystemExit) unless every named port artifact exists under
+    ``root``, parses, carries its reference schema's keys and holds only
+    finite numbers."""
+    root = pathlib.Path(root)
+    errors: list[str] = []
+    for n in names:
+        try:
+            errors += problems(n, json.loads((root / n).read_text()))
+        except (OSError, ValueError) as e:
+            errors.append(f"{n}: missing or unparseable ({e})")
+    if errors:
+        raise SystemExit("port artifact check failed:\n  "
+                         + "\n  ".join(errors))
+    print(f"[port artifacts OK — {len(names)} checked at {root}]")
+
+
+if __name__ == "__main__":
+    check(tuple(sys.argv[1:]) or EXPECTED)

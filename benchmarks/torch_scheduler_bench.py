@@ -1,8 +1,8 @@
 """Scheduler benchmarks of the PyTorch port (``src/repro_torch``): the
 ports of ``benchmarks/scheduler_bench.py``'s ``run_config`` / ``compare``,
 ``prefix_compare``, ``fabric_compare``, ``persist_compare``,
-``coda_compare`` and ``disagg_compare``, on the same traces, pools and
-gates.
+``coda_compare``, ``zoo_compare`` and ``disagg_compare``, on the same
+traces, pools and gates.
 
 Everything runs on the virtual clock (``wall_clock=False``), so the
 counters — steps, swaps, re-homed pages, makespan, goodput — are a property
@@ -15,8 +15,9 @@ entry point of the port; ``device="cpu"`` runs them where the reference's
 benchmarks run) and writes nothing; run as a module, it writes
 ``BENCH_torch_scheduler.json``, ``BENCH_torch_prefix.json``,
 ``BENCH_torch_fabric.json``, ``BENCH_torch_persist.json``,
-``BENCH_torch_coda.json`` and ``BENCH_torch_disagg.json`` at the repo root
-(``persist_compare``'s prefix store goes to a temporary directory):
+``BENCH_torch_coda.json``, ``BENCH_torch_zoo.json`` (unless ``--skip-zoo``)
+and ``BENCH_torch_disagg.json`` at the repo root (``persist_compare``'s
+prefix store goes to a temporary directory):
 
     PYTHONPATH=src python -m benchmarks.torch_scheduler_bench --device cpu
 """
@@ -639,6 +640,146 @@ def coda_compare(seed: int = 0, check: bool = True, *, params=None,
             "token_identical": identical}
 
 
+# zoo_compare's arena (name, bytes, GB/s, worker) and trace (zoo_prompts,
+# zoo_run), shared with chip_smoke.py's full-width zoo phase
+ZOO_ARENA = (("hbm_local", 64 * 1024, 819.0, True),
+             ("host_dram", 192 * 1024, 8.0, False))
+
+
+def zoo_prompts(vocab_size: int, seed: int = 0) -> list:
+    """The burst: 12 prompts of 16 tokens, all submitted at once. Their
+    peak, 12 x 12 pages = 144, against the chat group's 64 funded pages:
+    static partitions decode in waves, the market annexes idle funding
+    and runs the whole burst concurrently."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab_size, 16).tolist() for _ in range(12)]
+
+
+def zoo_run(chat_cfg, params, *, market: bool, seed: int = 0,
+            scale: float = 1, invariants_every: int = 8, hook=None,
+            device="cuda") -> dict:
+    """One mode of ``zoo_compare``: a chat engine (``chat_cfg``, page 4)
+    bursting over one byte arena beside an idle SSM tenant (one
+    ``xlstm-125m`` smoke state page) and an idle ASR tenant (three
+    ``whisper-tiny`` smoke encoder blocks, one read along), with the
+    capacity market on (``market``) or static partitions. Every arena
+    capacity and bandwidth is times ``scale`` (a chat page ``scale`` times
+    the smoke page's then gets the smoke run's funding and Eq.-1 clock).
+    ``hook(name, obj)``, when given, sees the ``zoo``, the ``server`` and
+    the chat ``engine`` before anything is served. Returns the record,
+    tokens and digests included."""
+    from repro_torch.placement.geometry import encoder_kv_geometry
+    from repro_torch.placement.zoo import ByteDomain, PageFabricZoo
+    from repro_torch.serve.zoo import (EncoderKVDriver, SSMStateDriver,
+                                       ZooServer)
+
+    ssm_cfg = registry.get_smoke_config("xlstm-125m")
+    asr_cfg = registry.get_smoke_config("whisper-tiny")
+    prompts = zoo_prompts(chat_cfg.vocab_size, seed)
+    arena = [ByteDomain(n, int(cap * scale), bw * scale, worker)
+             for n, cap, bw, worker in ZOO_ARENA]
+    zoo = PageFabricZoo(arena, seed=seed, device=device)
+    chat = zoo.register("chat", chat_cfg, share=0.25, page_size=4,
+                        dwp_config=DWPConfig(n=10 ** 6, c=1))
+    zoo.register("ssm", ssm_cfg, share=0.25)
+    zoo.register("asr", asr_cfg, share=0.5, page_size=4,
+                 geometry=encoder_kv_geometry(asr_cfg, 4))
+    start_quota = {n: g.view.quota.copy() for n, g in zoo.groups.items()}
+    srv = ZooServer(zoo, market=market, invariants_every=invariants_every)
+    ssm_drv = SSMStateDriver(zoo.groups["ssm"].view, sessions=1)
+    asr_drv = EncoderKVDriver(zoo.groups["asr"].view, utterances=3)
+    asr_drv.attach(0)              # one decode session reads along
+    srv.add_driver("ssm", ssm_drv)
+    srv.add_driver("asr", asr_drv)
+    eng = ServeEngine(chat_cfg, params, chat.view, wall_clock=False,
+                      sim_step_s=0.005, device=device,
+                      scheduler=RequestScheduler(
+                          chat.view, max_batch=12, prefill_token_budget=64,
+                          default_max_new=32, conservative_admission=True))
+    srv.add_engine("chat", eng)
+    if hook is not None:
+        for name, obj in (("zoo", zoo), ("server", srv), ("engine", eng)):
+            hook(name, obj)
+    for p in prompts:              # the burst: everything at once
+        eng.submit(list(p))
+    steps = srv.drain()
+    # market and static drains take different step counts; bring the
+    # perpetual SSM recurrence to a fixed step so digests compare
+    assert ssm_drv.steps < 512
+    while ssm_drv.steps < 512:
+        ssm_drv.step()
+    zoo.check_invariants()
+    idle_leases = [ln for ln in zoo.leases
+                   if ln.granted_bytes > 0 and ln.lender != "chat"]
+    slo = eng.scheduler.slo.summary(eng.scheduler.now)
+    return {
+        "market": market,
+        "steps": steps,
+        "finished": len(eng.finished),
+        "failed": len(prompts) - len(eng.finished),
+        "goodput_tok_s": slo["goodput_tok_s"],
+        "makespan_s": eng.scheduler.now,
+        "granted_bytes": sum(ln.granted_bytes for ln in zoo.leases),
+        "repaid_bytes": sum(ln.repaid_bytes for ln in zoo.leases),
+        "outstanding_bytes": zoo.outstanding_bytes(),
+        "idle_lenders": sorted({ln.lender for ln in idle_leases}),
+        "funding_restored": all(
+            (zoo.groups[n].view.quota == q).all()
+            for n, q in start_quota.items()),
+        "tokens": [list(s.tokens) for s in
+                   sorted(eng.finished, key=lambda s: s.sid)],
+        "ssm_digests": ssm_drv.digests(),
+        "asr_digests": asr_drv.digests(),
+    }
+
+
+def zoo_compare(seed: int = 0, check: bool = True, *, params=None,
+                device="cuda") -> dict:
+    """Capacity market vs static partitions across three page geometries
+    (``zoo_run`` in both modes); gates: chat tokens and ASR/SSM state
+    digests identical across modes, zero failures; >= 1 lease granted
+    from an idle group and fully repaid (outstanding 0, funding
+    restored); market chat goodput >= 1.2x static; zoo byte ledgers
+    balanced throughout."""
+    cfg, params = smoke(params, device=device)
+    mkt, sta = (zoo_run(cfg, params, market=m, seed=seed, device=device)
+                for m in (True, False))
+    ratio = mkt["goodput_tok_s"] / max(sta["goodput_tok_s"], 1e-9)
+    for r in (mkt, sta):
+        mode = "market" if r["market"] else "static"
+        print(f"  {mode:6s} chat goodput {r['goodput_tok_s']:7.1f} tok/s "
+              f"makespan {r['makespan_s']:.3f}s  steps {r['steps']:3d}  "
+              f"annexed {r['granted_bytes'] / 1024:5.1f} KiB from "
+              f"{r['idle_lenders'] or '-'}  repaid "
+              f"{r['repaid_bytes'] / 1024:5.1f} KiB  failed {r['failed']}")
+    identical = (mkt["tokens"] == sta["tokens"]
+                 and mkt["ssm_digests"] == sta["ssm_digests"]
+                 and mkt["asr_digests"] == sta["asr_digests"])
+    print(f"-> capacity market vs static partitions: {ratio:.2f}x chat "
+          f"goodput (token-identical per model: {identical})")
+    if check:
+        assert identical, \
+            "the capacity market changed tokens or state digests"
+        assert mkt["failed"] == sta["failed"] == 0
+        assert mkt["idle_lenders"], \
+            "market never annexed an idle group's funding"
+        assert mkt["granted_bytes"] > 0 \
+            and mkt["repaid_bytes"] == mkt["granted_bytes"] \
+            and mkt["outstanding_bytes"] == 0, \
+            "annexed funding was not fully repaid on recall"
+        assert mkt["funding_restored"], \
+            "group funding did not return to its registered shares"
+        assert sta["granted_bytes"] == 0
+        assert ratio >= 1.2, (
+            f"capacity market must lift chat goodput >= 1.2x static "
+            f"partitions (got {ratio:.2f}x)")
+    drop = ("tokens", "ssm_digests", "asr_digests")
+    return {"market": {k: v for k, v in mkt.items() if k not in drop},
+            "static": {k: v for k, v in sta.items() if k not in drop},
+            "goodput_ratio": ratio,
+            "token_identical": identical}
+
+
 # disagg_compare's setup (disagg_prompts, disagg_run), shared with
 # chip_smoke.py's full-width disaggregation phase
 DISAGG_DOMAINS = (("hbm_local", 96, 819.0, True),
@@ -792,6 +933,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the pools and params live (cuda or cpu)")
+    ap.add_argument("--skip-zoo", action="store_true")
     args = ap.parse_args(argv)
     dev = args.device
     artifacts.dump("BENCH_torch_scheduler.json",
@@ -810,6 +952,10 @@ def main(argv=None) -> None:
           "vs global batching")
     artifacts.dump("BENCH_torch_coda.json",
                    coda_compare(seed=args.seed, device=dev))
+    if not args.skip_zoo:
+        print("\npage-geometry zoo — capacity market vs static partitions")
+        artifacts.dump("BENCH_torch_zoo.json",
+                       zoo_compare(seed=args.seed, device=dev))
     print("\ndisaggregated serving — prefill/decode split over the "
           "page wire vs single host")
     artifacts.dump("BENCH_torch_disagg.json",

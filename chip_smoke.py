@@ -102,13 +102,34 @@ Phases (each failed check raises; the script then exits non-zero):
    over imported pages holds the plain logits. Printed: token agreement
    with the single host, wire bytes beside ``BENCH_disagg.json``'s, and
    the wall ms a handoff spends in export, serialize, deserialize,
-   convert and import.
+   convert and import;
+13. the page-geometry zoo at full width: ``zoo_run`` (``zoo_compare``'s
+   setup) with qwen2-0.5b (phase 4's weights, page 4, 49152 B a page) as
+   the chat tenant, the arena's capacities and bandwidths x 48, under the
+   capacity market and under static partitions, counts zeroed before
+   each; the SSM and ASR tenants keep the smoke configs' geometries (the
+   published ones do not fit the x 48 arena) and run no model. Gates: 12
+   finished and 0 failed in each mode, at least one idle lender, granted
+   equal to repaid with nothing outstanding, funding restored, no grant
+   under static partitions, the zoo's invariants after every step, SSM
+   and ASR digests equal across the modes and to the CPU smoke run's,
+   the first decode step's logits against the plain version (phase 4's
+   gate), every paged launch on the tensor-core instance. Printed: steps,
+   goodput ratio and granted bytes beside ``BENCH_zoo.json``'s, token
+   agreement of the two modes, p50 zoo step;
+14. the placement executor on the card: ``torch_placement_bench.suite``
+   at ``benchmarks/run.py``'s size (batched moves equal looped ones bit
+   for bit, >= 5x faster), then 1024 moves at qwen2-0.5b's full-width
+   pool geometry in bf16 (equal bit for bit; times and GB/s beside the
+   bound of the bytes read and written at the HBM rate); allocation
+   pages/s.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
 instance and context, and the context-4096 decode rows; the qwen2-0.5b
-paged rows also carry phases 10-12's ``coda_launches``,
-``persist_launches`` and ``disagg_launches``) and the card's
+paged rows also carry phases 10-13's ``coda_launches``,
+``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
+summed over the zoo's two modes) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -1756,6 +1777,143 @@ def _handoff_equal(src, view, new_ids) -> bool:
                               (sview.v_pool, view.v_pool)))
 
 
+# -- phases 13 and 14 ------------------------------------------------------------
+
+# zoo_compare's arena (capacities and bandwidths) times a full-width
+# qwen2-0.5b page's bytes over the smoke page's, as phases 10-12: the chat
+# group is funded with the smoke run's 64 pages and runs its Eq.-1 clock
+ZOO_SCALE = CODA_BW_SCALE
+
+
+def phase_zoo(device, cfg, params) -> dict:
+    """``zoo_compare``'s setup with the chat tenant at full width, under
+    the capacity market and under static partitions. The SSM and ASR
+    tenants keep the smoke configs' geometries: ``xlstm-125m``'s published
+    state page (3,557,376 B) is larger than the x 48 ``hbm_local`` domain,
+    and ``whisper-tiny``'s three encoder blocks (27.6 MB) are larger than
+    the x 48 ASR share (6.3 MB); neither runs a model."""
+    from benchmarks.torch_scheduler_bench import smoke, zoo_run
+
+    # the CPU at the smoke size: the digests the drivers must reproduce
+    scfg, sparams = smoke(device="cpu")
+    cpu = {m: zoo_run(scfg, sparams, market=m, device="cpu")
+           for m in (True, False)}
+    runs = {}
+    for market in (True, False):
+        mode = "market" if market else "static"
+        seen, step_ms = {}, []
+
+        def hook(name, obj):
+            seen[name] = obj
+            if name == "server":
+                _timed_calls(obj, "step", step_ms)
+            elif name == "engine":
+                check(obj.view.page_bytes
+                      == ZOO_SCALE * _smoke_page_bytes(4),
+                      f"zoo chat page bytes {obj.view.page_bytes}")
+                seen["gate"] = _FirstDecodeGate(
+                    obj, f"zoo ({mode}), first decode step")
+
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        fkernel.reset_launch_counts()
+        r = zoo_run(cfg, params, market=market, scale=ZOO_SCALE,
+                    invariants_every=1, hook=hook, device=device)
+        torch.cuda.synchronize()
+        launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+        _paged_counts(launches, f"zoo ({mode})")
+        _check_instances(cfg, {"launches": launches})
+        g = seen["gate"]
+        check(g.err is not None, f"zoo ({mode}): the decode gate never ran")
+        check(r["finished"] == 12 and r["failed"] == 0,
+              f"zoo ({mode}): {r['finished']} finished, {r['failed']} "
+              f"failed")
+        check(r["funding_restored"], f"zoo ({mode}): funding not restored")
+        seen["zoo"].check_invariants()
+        runs[mode] = dict(r, launches=launches, gate=g, step_ms=step_ms,
+                          stats=seen["zoo"].stats())
+    mkt, sta = runs["market"], runs["static"]
+    check(mkt["idle_lenders"] and mkt["granted_bytes"] > 0
+          and mkt["repaid_bytes"] == mkt["granted_bytes"]
+          and mkt["outstanding_bytes"] == 0,
+          f"zoo (market): lenders {mkt['idle_lenders']}, granted "
+          f"{mkt['granted_bytes']}, repaid {mkt['repaid_bytes']}, "
+          f"outstanding {mkt['outstanding_bytes']}")
+    check(sta["granted_bytes"] == 0, f"zoo (static): granted "
+          f"{sta['granted_bytes']}")
+    for tenant in ("ssm_digests", "asr_digests"):
+        check(mkt[tenant] == sta[tenant] == cpu[True][tenant]
+              == cpu[False][tenant],
+              f"zoo {tenant}: market {mkt[tenant]}, static {sta[tenant]}, "
+              f"CPU smoke {cpu[True][tenant]} / {cpu[False][tenant]}")
+    bench = json.loads((ROOT / "BENCH_zoo.json").read_text())
+    ratio = mkt["goodput_tok_s"] / max(sta["goodput_tok_s"], 1e-9)
+    same = sum(a == b for a, b in zip(mkt["tokens"], sta["tokens"]))
+    groups = mkt["stats"]["groups"]
+    log(f"zoo at full width ({cfg.name}, {cfg.compute_dtype}, page 4, "
+        f"{groups['chat']['page_bytes']} B a chat page; arena x "
+        f"{ZOO_SCALE}: {mkt['stats']['capacity_bytes']} B; SSM and ASR at "
+        f"the smoke geometries, {groups['ssm']['page_bytes']} B and "
+        f"{groups['asr']['page_bytes']} B pages): steps market "
+        f"{mkt['steps']} / static {sta['steps']} (BENCH_zoo.json, smoke "
+        f"config, CPU: {bench['market']['steps']} / "
+        f"{bench['static']['steps']}); goodput ratio {ratio:.4f} on the "
+        f"virtual clock ({bench['goodput_ratio']:.4f}); granted / repaid "
+        f"{mkt['granted_bytes']} / {mkt['repaid_bytes']} B from "
+        f"{mkt['idle_lenders']} (smoke run's 49152 B x {ZOO_SCALE} = "
+        f"{49152 * ZOO_SCALE}), outstanding {mkt['outstanding_bytes']}; "
+        f"CPU smoke run: steps {cpu[True]['steps']} / "
+        f"{cpu[False]['steps']}, granted {cpu[True]['granted_bytes']}")
+    log(f"zoo digests equal across modes and to the CPU smoke run's: SSM "
+        f"{mkt['ssm_digests']}, ASR {mkt['asr_digests']}; chat tokens "
+        f"market vs static equal for {same} of {len(mkt['tokens'])} "
+        f"requests (an observation, not a gate: each mode batches "
+        f"differently, so bf16 GEMM bits differ)")
+    for mode, r in runs.items():
+        g = r["gate"]
+        log(f"zoo ({mode}): p50 zoo step {np.median(r['step_ms']):.2f} ms "
+            f"over {len(r['step_ms'])} steps (synchronised); first decode "
+            f"step ({g.rows} rows): logits max |diff| {g.err:.4g} (gate "
+            f"{LOGIT_TOL}), {g.ties} exact ties; launches {r['launches']} "
+            f"-- {smi_line()}")
+    return {"launches": {k: mkt["launches"][k] + sta["launches"][k]
+                         for k in mkt["launches"]}}
+
+
+def phase_placement(device) -> None:
+    """``torch_placement_bench.suite`` at ``benchmarks/run.py``'s size (the
+    reference geometry; batched equal to looped, >= 5x), then the executor
+    at qwen2-0.5b's full-width pool geometry in bf16."""
+    from benchmarks import torch_placement_bench as pb
+
+    rows = pb.suite(pages=1024, device=device)
+    heads = MAIN
+    geometry = (24, PS, heads["nkv"], heads["h"])
+    moves = 1024
+    full = pb.bench_migration(moves, geometry=geometry,
+                              dtype=torch.bfloat16, device=device)
+    page = 2 * 24 * PS * heads["nkv"] * heads["h"] * 2   # K + V, bf16
+    check(full["bytes_moved"] == moves * page,
+          f"executor moved {full['bytes_moved']} B, want {moves * page}")
+    traffic = 2 * full["bytes_moved"]          # each page read and written
+    bound_ms = 1e3 * traffic / HBM_BYTES_PER_S
+    mig = rows["migration"]
+    log(f"executor at the reference geometry (fp32 [1, 2048, 2, 1, 8], "
+        f"1024 moves): batched {1e3 * mig['batched_s']:.4f} ms, looped "
+        f"{1e3 * mig['per_page_loop_s']:.3f} ms, {mig['speedup']:.1f}x "
+        f"(floor 5x), equal bit for bit; allocation "
+        f"{rows['alloc']['pages_per_s']:.0f} pages/s (host)")
+    log(f"executor at qwen2-0.5b's full-width pool (bf16 [24, "
+        f"{2 * moves}, {PS}, {heads['nkv']}, {heads['h']}] for k and "
+        f"for v, {page} B a page, {moves} moves, {traffic / 1e6:.1f} MB "
+        f"read and written): batched {1e3 * full['batched_s']:.4f} ms "
+        f"({traffic / full['batched_s'] / 1e9:.1f} GB/s), looped "
+        f"{1e3 * full['per_page_loop_s']:.3f} ms "
+        f"({traffic / full['per_page_loop_s'] / 1e9:.1f} GB/s), bound "
+        f"{bound_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; equal "
+        f"bit for bit -- {smi_line()}")
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -1810,6 +1968,10 @@ def main() -> int:
     done("11")
     disagg = phase_disagg(device, s["cfg"], s["params"])
     done("12")
+    zoo = phase_zoo(device, s["cfg"], s["params"])
+    done("13")
+    phase_placement(device)
+    done("14")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
@@ -1856,6 +2018,7 @@ def main() -> int:
                 rows[-1]["coda_launches"] = coda["launches"][name]
                 rows[-1]["persist_launches"] = persist["launches"][name]
                 rows[-1]["disagg_launches"] = disagg["launches"][name]
+                rows[-1]["zoo_launches"] = zoo["launches"][name]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

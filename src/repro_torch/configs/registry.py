@@ -1,11 +1,14 @@
 """Architecture registry and the LM shapes (port of
 ``repro.configs.registry``).
 
-The ids are the reference's ten. The dense ``qwen2-0.5b`` (GQA) and
-``gemma-2b`` (MQA, head dim 256) are ported; the others raise until their
-model family lands (ROADMAP queue 1 item 9). ``step_fn`` gives the train
-and prefill steps; decode raises until ``LM.decode_step`` is ported.
-``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
+The ids are the reference's ten, and every config is a copy of the
+reference's. ``LM`` builds the dense family (``qwen2-0.5b``, ``gemma-2b``,
+``internlm2-20b``, ``gemma3-27b``); the other families raise in ``LM``
+until their model lands (ROADMAP queue 1 item 9), but their configs serve
+the placement layer (a geometry needs only the config). ``step_fn`` gives
+the train and prefill steps; decode raises until ``LM.decode_step`` is
+ported. ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -29,16 +32,9 @@ ARCH_IDS = [
     "whisper-tiny",
 ]
 
-PORTED = ("qwen2-0.5b", "gemma-2b")
-
-
 def _module(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet (ported: {list(PORTED)}; "
-            "ROADMAP queue 1 item 9)")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 
@@ -68,7 +64,7 @@ SHAPES: dict[str, Shape] = {
 
 
 def make_model(cfg: ModelConfig) -> LM:
-    """The dense LM (``LM`` raises for a family that is not ported)."""
+    """The LM (``LM`` raises for a family that is not ported)."""
     return LM(cfg)
 
 

@@ -29,10 +29,11 @@ class LayerGroup:
 
 def make_groups(cfg: ModelConfig) -> list[LayerGroup]:
     """Split layers into uniform-kind groups; stack groups of >= 4 layers.
-    Only the dense family is ported."""
-    if cfg.family not in ("dense", "vlm"):
+    Only the plain dense family is ported."""
+    if cfg.family != "dense" or cfg.mla or cfg.mrope or cfg.mtp_depth:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1)")
+            f"{cfg.name}: model family {cfg.family!r} (MLA, M-RoPE and MTP "
+            "included) is not ported yet (ROADMAP queue 1 item 9)")
     idx = tuple(range(cfg.num_layers))
     return [LayerGroup("dense", idx, len(idx) >= 4)]
 
@@ -54,8 +55,6 @@ def _stack(trees: list[Params]) -> Params:
 class LM:
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        assert cfg.mla is None and not cfg.mrope and not cfg.mtp_depth, \
-            f"{cfg.name}: only the plain dense family is ported"
         self.cfg = cfg
         self.groups = make_groups(cfg)
         self.windows = np.asarray(cfg.window_array(), np.int32)

@@ -55,6 +55,12 @@ class PagedDecoder:
 
     def __init__(self, cfg: ModelConfig, params, pool):
         assert cfg.family in ("dense", "vlm") and cfg.mla is None
+        if any(cfg.window_array()):
+            # the paged kernels attend over every cached key; serving a
+            # windowed layer with them would be full attention (ROADMAP §3)
+            raise NotImplementedError(
+                f"{cfg.name}: sliding-window attention in paged serving is "
+                "not ported yet (ROADMAP queue 1 item 9)")
         self.cfg = cfg
         self.params = params
         self.view = as_view(pool)        # placement + data plane surface

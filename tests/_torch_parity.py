@@ -5,10 +5,18 @@ benchmark builds (their finished requests carry the tokens), with no
 artifact written. Also: the port's config of any reference config
 (sub-configs included), the raw bits of an array of either package, and
 ``Pkg``, one package's placement entry points, for the tests that run the
-same operations on both."""
+same operations on both. And ``run_example``/``example_summary``, which run
+one of ``examples/`` on either package and keep the lines both print
+alike."""
 
 import contextlib
 import dataclasses
+import io
+import re
+import runpy
+import shutil
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -93,18 +101,20 @@ class Pkg:
             from repro_torch import cluster
             from repro_torch.core import bwmodel
             from repro_torch.obs.observatory import Observatory
-            from repro_torch.placement import fabric, geometry, persist, pool
+            from repro_torch.placement import (fabric, geometry, persist,
+                                               pool, zoo)
             from repro_torch.scheduler import KVSwapManager
         else:
             from repro import cluster
             from repro.core import bwmodel
             from repro.obs.observatory import Observatory
-            from repro.placement import fabric, geometry, persist, pool
+            from repro.placement import fabric, geometry, persist, pool, zoo
             from repro.scheduler import KVSwapManager
         self.cluster, self.bwmodel, self.Observatory = (cluster, bwmodel,
                                                         Observatory)
         self.persist, self.geometry, self.pool_mod = persist, geometry, pool
         self.as_view, self.KVSwapManager = fabric.as_view, KVSwapManager
+        self.fabric_mod, self.zoo_mod = fabric, zoo
 
     def cfg(self, cfg):
         return port_config(cfg) if self.port else cfg
@@ -116,6 +126,24 @@ class Pkg:
             self.cfg(cfg), [m.MemoryDomain(*d) for d in domains],
             page_size=page_size, geometry=geometry,
             dwp_config=DWPConfig(n=10 ** 6, c=1), **kw)
+
+    def fabric(self, cfg, domains, page_size=4, **kw):
+        """A ``MemoryFabric`` over ``domains`` (tuples of
+        ``MemoryDomain``'s fields)."""
+        m = self.pool_mod
+        if self.port:
+            kw["device"] = self.device
+        return self.fabric_mod.MemoryFabric(
+            self.cfg(cfg), [m.MemoryDomain(*d) for d in domains],
+            page_size=page_size, **kw)
+
+    def zoo(self, arena, seed=0):
+        """A ``PageFabricZoo`` over ``arena`` (tuples of ``ByteDomain``'s
+        fields)."""
+        z = self.zoo_mod
+        kw = {"device": self.device} if self.port else {}
+        return z.PageFabricZoo([z.ByteDomain(*d) for d in arena], seed=seed,
+                               **kw)
 
     def tier(self, **kw):
         return self.persist.PersistentTier(**kw)
@@ -173,3 +201,38 @@ def both(case, *a, **kw):
     ref, port = (case(p, *a, **kw) for p in BOTH)
     assert equal(port, ref)
     return port
+
+
+ROOT = Path(__file__).resolve().parents[1]
+_SNIPPET = re.compile(r"^\s+seq \d+ \[\w+\]: \[")
+
+
+def run_example(name: str, argv=(), *, port: bool) -> str:
+    """The stdout of ``examples/<name>`` (``torch_<name>`` with
+    ``--device cpu`` when ``port``). The port's ``main`` takes ``argv``;
+    the reference's reads ``sys.argv``. A restart demo's on-disk store is
+    removed afterwards unless it was there before."""
+    script = ("torch_" if port else "") + name
+    main = runpy.run_path(str(ROOT / "examples" / script))["main"]
+    store = ROOT / "benchmarks" / "results" / (
+        ("torch_" if port else "") + "persist_store_demo")
+    existed = store.exists()
+    buf = io.StringIO()
+    saved = sys.argv
+    sys.argv = [script, *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(["--device", "cpu", *argv]) if port else main()
+    finally:
+        sys.argv = saved
+        if not existed:
+            shutil.rmtree(store, ignore_errors=True)
+    return buf.getvalue()
+
+
+def example_summary(out: str) -> list[str]:
+    """The lines an example prints alike on both packages: all but the
+    token snippets (each package draws its own random weights), with the
+    restart demo's store path made package-neutral."""
+    out = out.replace("torch_persist_store_demo", "persist_store_demo")
+    return [ln for ln in out.splitlines() if not _SNIPPET.match(ln)]

@@ -1,11 +1,13 @@
 """The port's boundary: nothing under ``src/repro_torch/``, in the port's
-benchmarks (``benchmarks/torch_*.py``) or in ``chip_smoke.py`` imports JAX,
+benchmarks (``benchmarks/torch_*.py``), its examples
+(``examples/torch_*.py``) or in ``chip_smoke.py`` imports JAX,
 ``ml_dtypes`` or the reference package (the machine with the card has
 none of them), every entry point refuses ``device="cuda"`` when no card
 is present instead of carrying on on the CPU, and ``chip_smoke.py`` fails
 without a card or without the rest of the repository."""
 
 import ast
+import runpy
 import shutil
 import subprocess
 import sys
@@ -17,6 +19,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_BENCHMARKS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+PORT_EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
@@ -39,7 +42,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + PORT_BENCHMARKS + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + PORT_BENCHMARKS + PORT_EXAMPLES
+    + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
@@ -49,6 +53,9 @@ def test_no_jax_or_reference_imports(path):
 def test_the_ast_check_sees_imports():
     assert len(PORT_FILES) > 30
     assert len(PORT_BENCHMARKS) >= 2
+    assert {p.name for p in PORT_EXAMPLES} >= {
+        "torch_quickstart.py", "torch_serve_paged.py",
+        "torch_coscheduled.py"}
     probe = ROOT / "src" / "repro_torch" / "serve" / "engine.py"
     assert "repro_torch" in _imported_roots(probe)
     assert "torch" in _imported_roots(probe)
@@ -58,7 +65,13 @@ def test_the_ast_check_sees_imports():
             "repro_torch/checkpoint/ckpt.py",
             "repro_torch/cluster/transport.py",
             "repro_torch/launch/mesh.py",
-            "repro_torch/sharding/specs.py"} <= names
+            "repro_torch/sharding/specs.py",
+            "repro_torch/placement/zoo.py",
+            "repro_torch/serve/zoo.py",
+            "repro_torch/core/canonical.py",
+            "repro_torch/core/simulator.py",
+            "repro_torch/configs/deepseek_v3_671b.py",
+            "repro_torch/configs/whisper_tiny.py"} <= names
 
 
 def _no_card():
@@ -81,7 +94,9 @@ def test_cuda_entry_points_raise_without_a_card():
     from repro_torch.placement.pool import BwapPagePool, MemoryDomain
     from repro_torch.serve.engine import ServeEngine
 
-    from benchmarks import torch_obs_bench, torch_scheduler_bench
+    from benchmarks import (torch_obs_bench, torch_placement_bench,
+                            torch_scheduler_bench)
+    from repro_torch.placement.zoo import ByteDomain, PageFabricZoo
 
     cfg = registry.get_smoke_config("qwen2-0.5b")
     doms = [MemoryDomain("hbm_local", 8, 819.0, True)]
@@ -101,10 +116,21 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: torch_scheduler_bench.disagg_compare(),
         lambda: torch_obs_bench.main([]),
         lambda: torch_obs_bench.calibration_loop(),
+        lambda: torch_scheduler_bench.zoo_compare(),
+        lambda: torch_placement_bench.main([]),
+        lambda: torch_placement_bench.bench_migration(4),
+        lambda: torch_placement_bench.bench_alloc(4),
+        lambda: PageFabricZoo([ByteDomain("hbm_local", 1 << 16, 819.0,
+                                          True)]).register(
+            "chat", cfg, share=0.5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+    for example in ("torch_serve_paged.py", "torch_coscheduled.py"):
+        main = runpy.run_path(str(ROOT / "examples" / example))["main"]
+        with pytest.raises(RuntimeError, match="cuda"):
+            main([])
     pool = BwapPagePool(cfg, doms, device="cpu")
     params = LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):

@@ -27,6 +27,7 @@ from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
+from _torch_parity import port_config  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -46,12 +47,18 @@ def _t(a):
 
 
 def test_registry_mirrors_reference():
-    assert t_registry.get_config("qwen2-0.5b") == ModelConfig(
-        **dataclasses.asdict(registry.get_config("qwen2-0.5b")))
-    assert t_registry.get_smoke_config("qwen2-0.5b") == ModelConfig(
-        **dataclasses.asdict(registry.get_smoke_config("qwen2-0.5b")))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_registry.get_config("gemma3-27b")
+    """All ten configs and smoke configs equal the reference's (sub-configs
+    included); ``LM`` refuses each family that is not ported."""
+    assert t_registry.ARCH_IDS == registry.ARCH_IDS
+    for arch in registry.ARCH_IDS:
+        assert t_registry.get_config(arch) == port_config(
+            registry.get_config(arch))
+        assert t_registry.get_smoke_config(arch) == port_config(
+            registry.get_smoke_config(arch))
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "hymba-1.5b",
+                 "xlstm-125m", "qwen2-vl-7b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TLM(t_registry.get_config(arch))
 
 
 def test_bf16_params_cross_bit_exactly():

@@ -9,7 +9,9 @@ fp32 but sum in different orders (XLA:CPU vs ATen). The port's forward runs
 with ``attn_impl=None`` (the chunked branch on the CPU) and ``"flash"``
 (the flash kernel's plain version); the reference's LM takes its chunked
 branch. The reference runs under ``jax.jit``. On a card, the serving engine
-must refuse a head dim its paged kernel lacks when it is built.
+must refuse a head dim its paged kernel lacks when it is built; on any
+device it refuses a config with sliding windows, which the reference's
+engine serves as full attention.
 """
 
 import dataclasses
@@ -31,9 +33,10 @@ from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
 from repro_torch.train.trainstep import make_eval_step  # noqa: E402
+from _torch_parity import port_config  # noqa: E402
 
 TOL = dict(rtol=5e-5, atol=5e-5)
-ARCHS = ["qwen2-0.5b", "gemma-2b"]
+ARCHS = ["qwen2-0.5b", "gemma-2b", "gemma3-27b", "internlm2-20b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -129,16 +132,63 @@ def test_registry_shapes_and_steps_mirror_reference(model):
 
 
 def test_gemma_config_mirrors_reference():
-    for arch in ARCHS:
-        assert t_registry.get_config(arch) == ModelConfig(
-            **dataclasses.asdict(r_registry.get_config(arch)))
-        assert t_registry.get_smoke_config(arch) == ModelConfig(
-            **dataclasses.asdict(r_registry.get_smoke_config(arch)))
+    """Every config and smoke config equals the reference's; the dense
+    ones (gemma3-27b's sliding windows included) build an ``LM``, and
+    ``LM`` refuses an MoE, an SSM and the other families not ported."""
+    for arch in r_registry.ARCH_IDS:
+        assert t_registry.get_config(arch) == port_config(
+            r_registry.get_config(arch))
+        assert t_registry.get_smoke_config(arch) == port_config(
+            r_registry.get_smoke_config(arch))
     full = t_registry.get_config("gemma-2b")
     assert (full.num_layers, full.head_dim_, full.num_kv_heads) == (18, 256, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_registry.get_config("gemma3-27b")
+    g3 = t_registry.get_config("gemma3-27b")
+    assert (g3.family, g3.sliding_window, g3.global_every) == ("dense", 1024,
+                                                               6)
+    assert TLM(g3).windows.tolist() == [
+        0 if i % 6 == 5 else 1024 for i in range(62)]
+    for arch in ("granite-moe-3b-a800m", "xlstm-125m", "hymba-1.5b",
+                 "deepseek-v3-671b", "qwen2-vl-7b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TLM(t_registry.get_config(arch))
 
+
+
+def test_windowed_serving_is_refused_and_reference_serving_is_window_blind():
+    """The reference's paged serving ignores sliding windows: its
+    ``PagedDecoder`` prefill logits of a windowed config equal the LM's
+    with the windows taken away, and differ from the windowed LM's
+    (ROADMAP §3). The port's engine refuses a windowed config instead of
+    serving it the same way."""
+    from repro.placement.pool import BwapPagePool, MemoryDomain
+    from repro.serve.engine import PagedDecoder
+    from repro_torch.placement import pool as t_pool
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(r_registry.get_smoke_config("gemma3-27b"),
+                              num_layers=2, sliding_window=4, global_every=2,
+                              compute_dtype="float32")
+    assert LM(cfg).windows.tolist() == [4, 0]
+    params = jax.jit(LM(cfg).init)(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(2).integers(1, cfg.vocab_size, 12)
+    pool = BwapPagePool(cfg, [MemoryDomain("hbm_local", 8, 819.0, True)],
+                        page_size=4)
+    pages = [pool.alloc_page() for _ in range(3)]
+    served = np.asarray(PagedDecoder(cfg, params, pool).forward_chunks(
+        [(toks.tolist(), pages, 0)], want_logits=True))[0, -1]
+    batch = {"tokens": jnp.asarray(toks[None])}
+    windowed = np.asarray(LM(cfg).prefill(params, batch))[0, -1]
+    full = np.asarray(LM(dataclasses.replace(cfg, sliding_window=0))
+                      .prefill(params, batch))[0, -1]
+    np.testing.assert_allclose(served, full, **TOL)
+    assert np.abs(served - windowed).max() > 1e-3
+    tcfg = port_config(cfg)
+    tpool = t_pool.BwapPagePool(
+        tcfg, [t_pool.MemoryDomain("hbm_local", 8, 819.0, True)],
+        page_size=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServeEngine(tcfg, params_from_reference(
+            jax.tree.map(np.asarray, params), device="cpu"), tpool,
+            device="cpu")
 
 def test_paged_kernel_head_dim_check():
     """gemma-2b's head dim 256 has a paged-kernel instance (the tensor-core
