@@ -53,7 +53,11 @@ Phases (each failed check raises; the script then exits non-zero):
    through the flash kernel's tensor-core instance (counters zeroed before
    each forward, exactly ``num_layers`` launches), then the same forwards
    through the plain chunked path: last-token logits and loss compared; a
-   profiler window over the kernel forward (informational);
+   profiler window over the kernel forward (informational); then
+   qwen2-0.5b's loss under autograd (B = 1, S = 512): ``attn_impl=None``
+   takes the chunked branch (no flash launch; grads equal
+   ``"reference"``'s and reach wq, wk, wv), and a backward through
+   ``attn_impl="flash"`` raises (the kernel has no backward);
 8. recompute-prefill serving: phase 4's trace with
    ``incremental_prefill=False``, every recompute chunk a 24-layer forward
    through the flash kernel;
@@ -122,7 +126,21 @@ Phases (each failed check raises; the script then exits non-zero):
    for bit, >= 5x faster), then 1024 moves at qwen2-0.5b's full-width
    pool geometry in bf16 (equal bit for bit; times and GB/s beside the
    bound of the bytes read and written at the HBM rate); allocation
-   pages/s.
+   pages/s;
+15. dense decode (``LM.init_cache``/``decode_step``) at full width: for
+   qwen2-0.5b (phase 4's weights) and gemma-2b (phase 9's), an engine
+   serves 8 prompts until each has prefilled, each sequence's K/V is
+   copied from its pool pages into a dense cache, and one decode step runs
+   through ``PagedDecoder.decode_step`` (the paged kernel) and through
+   ``LM.decode_step`` on the same K/V, one sequence at a time (B = 1; the
+   rows' positions differ and ``decode_step`` takes one), logits held by
+   phase 4's gate; then 16 more tokens through both (equal tokens printed,
+   not gated). gemma3-27b at full width with depth cut to 6 layers (5
+   windowed at 1024, 1 global; bf16 params) decodes an 1100-token prompt
+   token by token, and its logits at positions 1022-1026 and 1095-1099
+   are held against ``LM.hidden`` over the whole prompt (the flash kernel
+   with ``window=1024``) by the same gate. Printed: the gaps, ties, equal
+   tokens, ms a ``decode_step``.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
@@ -1145,6 +1163,70 @@ def phase_prefill(device, arch, batch, params=None) -> int:
             + n_fast["eval"]["flash_attention_wgmma"])
 
 
+GRAD_S = 512                     # the gradient check's sequence (B = 1)
+
+
+def _loss_grads(lm, params, toks) -> tuple[list, dict]:
+    """Grads of ``lm.loss`` w.r.t. fresh leaves over ``params``' storage
+    (the shared params keep ``requires_grad`` off), in ``tree_leaves``
+    order, and the flash launches of that forward and backward."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+    fkernel.reset_launch_counts()
+    loss, _ = lm.loss(tree, {"tokens": toks})
+    loss.backward()
+    torch.cuda.synchronize()
+    return [t.grad for t in tree_leaves(tree)], dict(fkernel.LAUNCHES)
+
+
+def phase_grads(device, cfg, params) -> None:
+    """Full-width ``LM.loss`` under autograd (B = 1, S = ``GRAD_S``): with
+    ``attn_impl=None`` it takes the chunked branch, as the reference
+    trains (no flash launch; grads equal ``"reference"``'s and reach wq,
+    wk, wv), and a backward through ``attn_impl="flash"`` raises instead
+    of dropping attention's gradients."""
+    from repro_torch.models.lm import LM
+    lm = LM(cfg)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (1, GRAD_S))).to(device)
+    t0 = time.perf_counter()
+    grads = {}
+    for impl in (None, "reference"):
+        lm.attn_impl = impl
+        grads[impl], n = _loss_grads(lm, params, toks)
+        check(sum(n.values()) == 0,
+              f"attn_impl={impl!r} under autograd launched flash: {n}")
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(grads[None], grads["reference"]))
+    check(rel <= 1e-5, f"grads under attn_impl=None differ from "
+          f"'reference''s by {rel:.3g} of a leaf's largest")
+    from torch.utils._pytree import tree_leaves
+    qkv = [params["groups"][0]["attn"][k] for k in ("wq", "wk", "wv")]
+    attn = [g for g, t in zip(grads[None], tree_leaves(params))
+            if any(t is w for w in qkv)]
+    check(len(attn) == 3 and all(bool(torch.isfinite(g).all())
+                                 and float(g.abs().max()) > 0
+                                 for g in attn),
+          "wq/wk/wv grads missing, zero or not finite")
+    lm.attn_impl = "flash"
+    raised = False
+    try:
+        _loss_grads(lm, params, toks)
+    except NotImplementedError as e:
+        raised = "no backward kernel" in str(e)
+    n = dict(fkernel.LAUNCHES)
+    lm.attn_impl = None
+    check(raised, "a backward through the flash kernel did not raise")
+    check(n["flash_attention_wgmma"] == cfg.num_layers,
+          f"attn_impl='flash' under autograd: flash launches {n}")
+    log(f"{cfg.name} loss grads (B=1, S={GRAD_S}): attn_impl=None under "
+        f"autograd launched no flash kernel, grads equal 'reference''s "
+        f"(max diff {rel:.3g} of a leaf's largest), wq/wk/wv reached; "
+        f"attn_impl='flash' launched {n['flash_attention_wgmma']} and its "
+        f"backward raised; {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+
+
 def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
     """Phase 4's trace with ``incremental_prefill=False``: each prefill
     chunk recomputes the prompt prefix with ``LM.hidden`` (the engine's
@@ -1916,6 +1998,200 @@ def phase_placement(device) -> None:
 
 # -- main --------------------------------------------------------------------
 
+# -- phase 15 ------------------------------------------------------------------
+
+DENSE_NEW = 16                   # tokens decoded after the gated step
+G3_LAYERS, G3_S = 6, 1100        # gemma3-27b's depth cut, prompt length
+
+
+def _dense_cache(lm, eng, s, cap):
+    """A B = 1 dense cache of ``cap`` slots holding ``s``'s K/V copied from
+    its pool pages (positions 0..length-1)."""
+    ps = eng.view.page_size
+    n = s.length
+    dev = eng.view.k_pool.device
+    pos = torch.arange(n, device=dev)
+    pids = torch.as_tensor(s.pages, device=dev)[pos // ps]
+    cache = lm.init_cache(1, cap, device=dev)
+    check(len(cache) == 1 and isinstance(cache[0], dict),
+          f"{lm.cfg.name}: want one stacked cache group")
+    c = cache[0]
+    c["k"][:, 0, :n] = eng.view.k_pool[:, pids, pos % ps]
+    c["v"][:, 0, :n] = eng.view.v_pool[:, pids, pos % ps]
+    c["pos"][:, 0, :n] = pos.to(torch.int32)
+    return cache
+
+
+def phase_dense_decode(device, cfg, params) -> dict:
+    """The paged engine against ``LM.decode_step`` on the same K/V: serve 8
+    prompts until each has prefilled (and none waits on a page boundary or
+    a shared page), copy each sequence's K/V from its pool pages into a
+    dense cache, then run one decode step through ``PagedDecoder
+    .decode_step`` (the kernel) and through ``LM.decode_step``, one
+    sequence at a time (B = 1: ``decode_step`` takes one position, as the
+    reference's, and the rows' positions differ), gated by
+    ``_logits_gate``. Then 16 more tokens through the engine (batch 8) and
+    through dense decode; equal tokens are printed, not gated."""
+    from repro_torch.models.lm import LM
+    from repro_torch.placement.pool import BwapPagePool
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    lm = LM(cfg)
+    pool = BwapPagePool(cfg, _domains(), page_size=PS, device=device)
+    eng = ServeEngine(cfg, params, pool, max_batch=8, max_new=64,
+                      wall_clock=False, device=device)
+    rng = np.random.default_rng(7)
+    for n in rng.integers(128, 769, 8):
+        eng.submit(rng.integers(1, cfg.vocab_size, n).tolist())
+    ps = eng.view.page_size
+
+    def ready(seqs):
+        return len(seqs) == 8 and all(
+            s.length >= s.prefill_target and s.length % ps
+            and not eng.view.shared(s.pages[s.length // ps]) for s in seqs)
+    steps = 0
+    while not ready(eng.scheduler.running):
+        eng.step()
+        steps += 1
+        check(steps < 200 and not eng.finished,
+              f"{cfg.name}: 8 sequences never ready for the dense check")
+    seqs = list(eng.scheduler.running)
+    check(all(s.produced + DENSE_NEW + 1 < s.max_new for s in seqs),
+          f"{cfg.name}: too few tokens left, produced "
+          f"{[s.produced for s in seqs]}")
+    d = eng.decoder
+    saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+    caches, paged, dense, dense_ms = [], [], [], []
+    for s in seqs:
+        n = s.length
+        caches.append(_dense_cache(lm, eng, s, n + DENSE_NEW + 1))
+        tok = np.asarray([[s.tokens[-1]]], np.int64)
+        lens = np.asarray([n], np.int64)
+        paged.append(d.decode_step(
+            d._t(tok), d._t(np.asarray([s.pages], np.int32), torch.int32),
+            d._t(lens, torch.int32), d._t(lens)).float())
+        before = dict(kernel.LAUNCHES)
+        (lg, _), ms = _synced_ms(lm.decode_step, params, caches[-1],
+                                 d._t(tok), torch.tensor(n, device=device))
+        check(kernel.LAUNCHES == before and fkernel.LAUNCHES == fsaved,
+              f"{cfg.name}: dense decode launched a kernel")
+        dense.append(lg[:, 0].float())
+        dense_ms.append(ms)
+    paged, dense = torch.cat(paged), torch.cat(dense)
+    err, ties = _logits_gate(paged, dense,
+                             f"{cfg.name} paged vs dense decode")
+    # the same step with the engine's batch of 8 (one GEMM shape apart from
+    # dense decode's B = 1): watched, not gated
+    tables = np.zeros((8, max(len(s.pages) for s in seqs)), np.int32)
+    for i, s in enumerate(seqs):
+        tables[i, :len(s.pages)] = s.pages
+    lens = np.asarray([s.length for s in seqs], np.int64)
+    batch8 = d.decode_step(
+        d._t(np.asarray([[s.tokens[-1]] for s in seqs], np.int64)),
+        d._t(tables, torch.int32), d._t(lens, torch.int32),
+        d._t(lens)).float()
+    err8 = float((batch8 - dense).abs().max())
+    kernel.LAUNCHES.update(saved)
+    # 16 more tokens: the engine at batch 8, dense decode per sequence
+    n0 = [len(s.tokens) for s in seqs]
+    at = [s.length for s in seqs]
+    for _ in range(DENSE_NEW + 1):
+        eng.step()
+    check(all(len(s.tokens) == n + DENSE_NEW + 1 for s, n in zip(seqs, n0)),
+          f"{cfg.name}: the engine did not decode {DENSE_NEW + 1} tokens a "
+          f"sequence")
+    equal = 0
+    for i, s in enumerate(seqs):
+        toks = [int(dense[i].argmax())]
+        for j in range(DENSE_NEW):
+            (lg, _), ms = _synced_ms(
+                lm.decode_step, params, caches[i],
+                torch.tensor([[toks[-1]]], device=device),
+                torch.tensor(at[i] + 1 + j, device=device))
+            toks.append(int(lg[0, 0].float().argmax()))
+            dense_ms.append(ms)
+        equal += toks == list(s.tokens[n0[i]:])
+    ms = float(np.median(dense_ms))
+    log(f"dense decode, {cfg.name} (full width, {cfg.num_layers} layers): "
+        f"{steps} engine steps to prefill 8 prompts of "
+        f"{sorted(s.prefill_target + 1 for s in seqs)} tokens; paged engine "
+        f"vs LM.decode_step on the same K/V, B=1 each: max |logit diff| "
+        f"{err:.4g} (gate {LOGIT_TOL}; |logit| up to "
+        f"{float(dense.abs().max()):.3g}), argmax equal on "
+        f"{8 - ties}/8 rows, the rest exact ties; the engine's batch of 8 "
+        f"vs dense B=1: {err8:.4g} (watched); tokens equal over "
+        f"{DENSE_NEW + 1} more steps for {equal}/8 sequences (watched, "
+        f"not gated); LM.decode_step p50 {ms:.2f} ms (B=1, synchronised "
+        f"wall); {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return dict(err=err, ties=ties, err8=err8, equal=equal, ms=ms)
+
+
+def phase_window_decode(device) -> dict:
+    """gemma3-27b at full width, depth cut to 6 layers (5 windowed at 1024,
+    then 1 global; bf16 params): one 1100-token prompt stepped token by
+    token through ``LM.decode_step`` from position 0 (one group mixing
+    windowed and global layers: 1100 slots, the window applied by the
+    mask), its logits at positions 1022-1026 and 1095-1099 held against
+    ``LM.hidden`` + ``logits`` over the whole sequence, whose attention is
+    the flash kernel with ``window=1024`` on five layers."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config("gemma3-27b"),
+                              num_layers=G3_LAYERS, param_dtype="bfloat16")
+    lm = LM(cfg)
+    w = cfg.sliding_window
+    check(lm.windows.tolist() == [w] * 5 + [0],
+          f"gemma3-27b cut: windows {lm.windows.tolist()}")
+    # across the window's edge, and the prompt's last positions
+    keep = list(range(w - 2, w + 3)) + list(range(G3_S - 5, G3_S))
+    params = lm.init(torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (1, G3_S))).to(device)
+    cache = lm.init_cache(1, G3_S, device=device)
+    check(tuple(cache[0]["k"].shape) == (G3_LAYERS, 1, G3_S,
+                                         cfg.num_kv_heads, cfg.head_dim_),
+          f"gemma3-27b cache {tuple(cache[0]['k'].shape)}")
+    positions = torch.arange(G3_S, dtype=torch.int32, device=device)
+    kept = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for t in range(G3_S):
+        lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1],
+                                   positions[t])
+        if t in keep:
+            kept.append(lg[0, 0])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / G3_S
+    check(int(cache[0]["pos"][0, 0, -1]) == G3_S - 1,
+          "the dense cache does not hold the last position")
+    fkernel.reset_launch_counts()
+    with torch.no_grad():
+        x = lm.embed(params, {"tokens": toks})
+        h, _, _ = lm.hidden(params, x, positions[None])
+        full = lm.logits(params, h[0, keep])
+    n = dict(fkernel.LAUNCHES)
+    check(n == {"flash_attention": 0, "flash_attention_wgmma": G3_LAYERS},
+          f"gemma3-27b forward: flash launches {n}")
+    dec = torch.stack(kept)
+    err, ties = _logits_gate(full, dec, "gemma3-27b flash forward vs "
+                             "dense decode")
+    log(f"dense decode, gemma3-27b (d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, h {cfg.head_dim_}; depth cut "
+        f"to {G3_LAYERS} layers, windows {lm.windows.tolist()}, bf16 "
+        f"params): {G3_S} tokens decoded one by one, {step_ms:.2f} ms a "
+        f"decode_step (B=1, mean over the prompt); logits at positions "
+        f"{keep[0]}-{keep[4]} and {keep[5]}-{keep[-1]} vs the "
+        f"flash forward ({n['flash_attention_wgmma']} launches, window "
+        f"{w} on 5): max |diff| {err:.4g} (gate {LOGIT_TOL}; |logit| up "
+        f"to {float(dec.abs().max()):.3g}), argmax equal on "
+        f"{len(keep) - ties}/{len(keep)}, the rest exact ties; "
+        f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return dict(err=err, ties=ties, ms=step_ms)
+
+
 def main() -> int:
     global torch, kernel, ops, fkernel, fops
     import torch as _torch
@@ -1956,6 +2232,7 @@ def main() -> int:
     flash_launches = {
         "qwen2-0.5b": phase_prefill(device, "qwen2-0.5b", 4, s["params"]),
         "gemma-2b": phase_prefill(device, "gemma-2b", 1)}
+    phase_grads(device, s["cfg"], s["params"])
     phase_recompute(device, s["cfg"], s["params"], s["prompts"],
                     s["greedy"])
     done("7-8")
@@ -1972,6 +2249,10 @@ def main() -> int:
     done("13")
     phase_placement(device)
     done("14")
+    phase_dense_decode(device, s["cfg"], s["params"])
+    phase_dense_decode(device, g["cfg"], g["params"])
+    phase_window_decode(device)
+    done("15")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"

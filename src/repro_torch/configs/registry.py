@@ -6,9 +6,9 @@ reference's. ``LM`` builds the dense family (``qwen2-0.5b``, ``gemma-2b``,
 ``internlm2-20b``, ``gemma3-27b``); the other families raise in ``LM``
 until their model lands (ROADMAP queue 1 item 9), but their configs serve
 the placement layer (a geometry needs only the config). ``step_fn`` gives
-the train and prefill steps; decode raises until ``LM.decode_step`` is
-ported. ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no
-counterpart.
+the train, prefill and decode steps (decode's batch is ``{"cache",
+"tokens", "position"}``, as the reference's). ``input_specs``
+(``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ def cell_supported(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
 
 def step_fn(cfg: ModelConfig, shape: Shape, model=None):
     """The cell's step (no optimizer): the train branch returns the loss
-    and metrics, the prefill branch the last token's logits."""
+    and metrics, the prefill branch the last token's logits, the decode
+    branch ``(logits, cache)`` of one token."""
     model = model or make_model(cfg)
     if shape.kind == "train":
         def train_loss(params, batch):
@@ -88,7 +89,8 @@ def step_fn(cfg: ModelConfig, shape: Shape, model=None):
         def prefill(params, batch):
             return model.prefill(params, batch)
         return prefill
-    raise NotImplementedError(
-        f"{shape.name}: the decode step needs LM.decode_step and "
-        "decode_attention, which are not ported yet (ROADMAP queue 1 "
-        "item 9); serving decodes through the paged kernel instead")
+
+    def decode(params, batch):
+        return model.decode_step(params, batch["cache"], batch["tokens"],
+                                 batch["position"])
+    return decode

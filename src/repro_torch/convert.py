@@ -1,9 +1,11 @@
-"""Reference params (nested numpy arrays) -> the port's params.
+"""Reference params and decode caches (nested numpy arrays) -> the port's.
 
 The reference initialises with ``jax.random``, which torch cannot
 reproduce, so parity tests hand the same params to both packages through
 numpy: ``params_from_reference(jax.tree.map(np.asarray, ref_params))``.
-The nested dict/list structure (stacked groups included) is kept 1:1.
+A decode cache (``LM.init_cache``'s tree, mid-sequence) crosses the same
+way through ``cache_from_reference``. The nested dict/list structure
+(stacked groups included) is kept 1:1.
 """
 
 from __future__ import annotations
@@ -37,3 +39,10 @@ def params_from_reference(tree, *, device="cuda"):
         return _tensor(np.asarray(x), dev)
 
     return conv(tree)
+
+
+def cache_from_reference(tree, *, device="cuda"):
+    """A reference decode cache (``k``/``v`` in the compute dtype, ``pos``
+    int32, grouped as ``LM.init_cache``) as the port's, on ``device``; the
+    same crossing as ``params_from_reference``."""
+    return params_from_reference(tree, device=device)

@@ -15,7 +15,9 @@ TMA, warp specialisation), ``LAUNCHES["flash_attention"]`` for the CUDA-core
 instance (fp32, and bf16 at h = 16, 32). The instance depends on the dtype
 and the head dim only. There is no fallback: a CPU tensor or a shape the
 kernel does not take raises ``ValueError``, and a failed launch raises
-``RuntimeError``.
+``RuntimeError``. The kernel has no backward: the launch runs inside a
+``torch.autograd.Function`` whose backward raises ``NotImplementedError``,
+so a gradient never silently stops at its output.
 """
 
 from __future__ import annotations
@@ -102,9 +104,29 @@ def _check(q, k, v):
         raise ValueError(f"nq={nq}, B={b}: at most {_MAX_GRID_YZ} each")
 
 
+class _Flash(torch.autograd.Function):
+    """The kernel's launch as an autograd node with no backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        return _launch(q, k, v, window, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the CUDA flash attention has no backward kernel (ROADMAP queue "
+            "1 item 10); train with attn_impl=None or 'reference', which "
+            "take the chunked branch under autograd")
+
+
 def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
-    """q [B,S,nq,h], k/v [B,T,nkv,h] -> [B,S,nq,h] (q's dtype)."""
+    """q [B,S,nq,h], k/v [B,T,nkv,h] -> [B,S,nq,h] (q's dtype). Where
+    autograd records, the output's backward raises."""
     _check(q, k, v)
+    return _Flash.apply(q, k, v, int(window), bool(causal))
+
+
+def _launch(q, k, v, window: int, causal: bool):
     b, s, nq, h = q.shape
     t, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

@@ -1,10 +1,13 @@
 """Dense GQA attention (port of the dense part of ``repro.models.attention``).
 
 The full-sequence reference path (``chunked_mha``), the grouped decode
-einsum (``gqa_attention``), and ``full_attention``, whose causal
-attention goes through the flash-attention op: on a card that is the
-hand-written CUDA kernel (``kernels/flash_attention``), the counterpart of
-the reference's Pallas route (``impl="flash"``). MLA is not ported yet.
+einsum (``gqa_attention``), ``full_attention``, whose causal attention
+goes through the flash-attention op (on a card the hand-written CUDA
+kernel, ``kernels/flash_attention``, the counterpart of the reference's
+Pallas route ``impl="flash"``), and the dense KV cache with one-token
+decode (``init_cache``, ``decode_attention``), in plain torch as the
+reference's is plain jnp. MLA and M-RoPE are not ported yet (ROADMAP
+queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.device import dtype_of
+from repro_torch.device import dtype_of, resolve
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -41,6 +44,27 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         p["bk"] = torch.zeros((nkv * hd,), dtype=dt, device=device)
         p["bv"] = torch.zeros((nkv * hd,), dtype=dt, device=device)
     return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, layer_axes=(),
+               *, device="cuda") -> Params:
+    """Dense KV cache on ``device``: ``k`` and ``v`` [*layer_axes, B, cap,
+    nkv, hd] in the compute dtype, ``pos`` [*layer_axes, B, cap] int32.
+
+    ``pos`` records the absolute position held by each slot (-1 = empty),
+    so a linear cache and a ring buffer (capacity = window) share one
+    path."""
+    if cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: the MLA latent cache is not ported yet (ROADMAP "
+            "queue 1 item 9b)")
+    dev = resolve(device)
+    cdt = dtype_of(cfg.compute_dtype)
+    shape = tuple(layer_axes) + (batch, capacity)
+    kv = shape + (cfg.num_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(kv, dtype=cdt, device=dev),
+            "v": torch.zeros(kv, dtype=cdt, device=dev),
+            "pos": torch.full(shape, -1, dtype=torch.int32, device=dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -124,11 +148,14 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
 
     ``impl`` picks the branch of causal attention: ``None`` takes the flash
     branch on a CUDA tensor (the CUDA kernel) and the chunked reference
-    branch on the CPU; ``"flash"`` takes the flash branch on any device (on
-    the CPU that is the kernel's plain version); ``"reference"`` takes the
-    chunked branch. Non-causal attention always takes the chunked branch,
-    as in the reference. The flash branch assumes ``positions`` is
-    ``arange(S)`` per row, as the reference's does.
+    branch on the CPU, and the chunked branch too wherever autograd records
+    (grad enabled and q, k or v requiring grad), as the reference trains;
+    ``"flash"`` takes the flash branch on any device (on the CPU that is
+    the kernel's plain version; on a card a backward through it raises);
+    ``"reference"`` takes the chunked branch. Non-causal attention always
+    takes the chunked branch, as in the reference. The flash branch
+    assumes ``positions`` is ``arange(S)`` per row, as the reference's
+    does.
 
     Returns (out [B,S,d], (k, v)) with k/v [B,S,nkv,hd] for cache priming.
     """
@@ -153,7 +180,13 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    flash = causal and (impl == "flash" or (impl is None and x.is_cuda))
+    # impl=None takes the kernel only where autograd records nothing: the
+    # kernel has no backward, and the reference trains through the chunked
+    # branch
+    records = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    flash = causal and (impl == "flash" or (
+        impl is None and x.is_cuda and not records))
     if flash:
         out = flash_ops.flash_attention(q, k, v, window=int(window))
     else:
@@ -166,3 +199,51 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
                           scores_dtype=dtype_of(cfg.attn_scores_dtype))
     out = out.reshape(b, s, nq * hd) @ p["wo"].to(cdt)
     return out, (k, v)
+
+
+def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
+                     window: int):
+    """One-token decode with cache append. x [B,1,d]; ``position`` a Python
+    int or a 0-d integer tensor on the cache's device (nothing here reads
+    it back to the host).
+
+    The new K/V and its position are written in place at slot ``position
+    % capacity`` (``index_copy_``), and ``cache`` itself is returned. The
+    mask comes from the per-slot absolute positions only, so a linear
+    cache and a ring buffer share one path. Returns (out [B,1,d], cache).
+    """
+    if cfg.mla or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and M-RoPE decode are not ported yet (ROADMAP "
+            "queue 1 item 9b)")
+    cdt = dtype_of(cfg.compute_dtype)
+    b = x.shape[0]
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    cpos = cache["pos"]
+    position = torch.as_tensor(position, dtype=torch.int32,
+                               device=cpos.device)
+    slot = (position % cpos.shape[-1]).reshape(1).long()
+    pos_b = position.reshape(1, 1).expand(b, 1)
+
+    x = x.to(cdt)
+    q = x @ p["wq"].to(cdt)
+    k = x @ p["wk"].to(cdt)
+    v = x @ p["wv"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    q = q.reshape(b, 1, nq, hd)
+    k = k.reshape(b, 1, nkv, hd)
+    v = v.reshape(b, 1, nkv, hd)
+    if cfg.use_rope:
+        q = layers.apply_rope(q, pos_b, cfg.rope_theta)
+        k = layers.apply_rope(k, pos_b, cfg.rope_theta)
+
+    cache["k"].index_copy_(1, slot, k)
+    cache["v"].index_copy_(1, slot, v)
+    cpos.index_copy_(1, slot, pos_b)
+    bias = _window_bias(pos_b, cpos, int(window), causal=True)
+    out = gqa_attention(q, cache["k"], cache["v"], bias, cdt)
+    out = out.reshape(b, 1, nq * hd) @ p["wo"].to(cdt)
+    return out, cache

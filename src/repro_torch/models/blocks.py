@@ -1,5 +1,6 @@
-"""Transformer blocks: per-layer params and the full-sequence forward body
-(port of the dense part of ``repro.models.blocks``)."""
+"""Transformer blocks: per-layer params, the full-sequence forward body and
+the one-token decode body (port of the dense part of
+``repro.models.blocks``)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,18 @@ def layer_fwd(cfg: ModelConfig, kind: str, p: Params, x, positions,
     h = layers.apply_norm(cfg, p["norm2"], x)
     x = x + layers.mlp_apply(cfg, p["mlp"], h)
     return x, aux, cache
+
+
+def layer_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, position,
+                 window: int):
+    """One-token decode of a dense layer: x [B,1,d] and the layer's cache
+    (``attention.init_cache``), written in place. Returns (x_out, cache)."""
+    if kind != "dense":
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet (ROADMAP queue 1)")
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    a, cache = attention.decode_attention(cfg, p["attn"], h, cache,
+                                          position, window)
+    x = x + a
+    h = layers.apply_norm(cfg, p["norm2"], x)
+    return x + layers.mlp_apply(cfg, p["mlp"], h), cache

@@ -1,10 +1,12 @@
 """Causal LM assembly for the dense family (port of ``repro.models.lm``:
-``init``, ``embed``, ``hidden``, ``logits``, ``loss`` and ``prefill``).
+``init``, ``embed``, ``hidden``, ``logits``, ``loss``, ``prefill``, and
+dense decode: ``cache_capacity``, ``init_cache``, ``decode_step``).
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
 (+ ``"head"`` when embeddings are untied), where each group of 4 or more
 layers is one dict of tensors stacked on axis 0 and a shorter group is a
-list of per-layer dicts, so reference params map onto it 1:1.
+list of per-layer dicts, so reference params map onto it 1:1. The decode
+cache is grouped the same way (``init_cache``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models import blocks, layers
+from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
@@ -156,3 +158,46 @@ class LM:
         positions = self._positions(batch, x.shape[1], x.shape[0])
         h, _, _ = self.hidden(params, x, positions)
         return self.logits(params, h[:, -1:, :])
+
+    # -- decode ----------------------------------------------------------------
+
+    def cache_capacity(self, layer_idx: int, max_len: int) -> int:
+        w = self.cfg.layer_window(layer_idx)
+        return min(max_len, w) if w else max_len
+
+    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
+        """Decode cache grouped like ``params["groups"]``: one dict with a
+        leading layer axis for a stacked group, else a list of per-layer
+        dicts (``attention.init_cache``). A group's capacity is the largest
+        of its layers', so a group that mixes windowed and global layers
+        holds ``max_len`` slots and applies the window through the mask;
+        only an all-windowed group is a ring buffer of ``window`` slots."""
+        dev = resolve(device)
+        out = []
+        for g in self.groups:
+            cap = max(self.cache_capacity(i, max_len) for i in g.indices)
+            if g.scanned:
+                out.append(attention.init_cache(
+                    self.cfg, batch, cap, (len(g.indices),), device=dev))
+            else:
+                out.append([attention.init_cache(self.cfg, batch, cap,
+                                                 device=dev)
+                            for _ in g.indices])
+        return out
+
+    def decode_step(self, params: Params, cache, tokens, position):
+        """tokens [B,1] at ``position`` (a Python int or a 0-d int tensor on
+        the cache's device) -> (logits [B,1,V], cache). The cache is written
+        in place and returned."""
+        cfg = self.cfg
+        x = self.embed(params, {"tokens": tokens})
+        # one tensor for every layer (a no-op for a tensor already there)
+        position = torch.as_tensor(position, dtype=torch.int32,
+                                   device=x.device)
+        for g, gp, gc in zip(self.groups, params["groups"], cache):
+            for j, li in enumerate(g.indices):
+                x, _ = blocks.layer_decode(
+                    cfg, g.kind, layer_params_of(gp, j), x,
+                    layer_params_of(gc, j), position, int(self.windows[li]))
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        return self.logits(params, x), cache

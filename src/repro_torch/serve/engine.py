@@ -60,7 +60,7 @@ class PagedDecoder:
             # windowed layer with them would be full attention (ROADMAP §3)
             raise NotImplementedError(
                 f"{cfg.name}: sliding-window attention in paged serving is "
-                "not ported yet (ROADMAP queue 1 item 9)")
+                "not ported yet (ROADMAP queue 2 item W)")
         self.cfg = cfg
         self.params = params
         self.view = as_view(pool)        # placement + data plane surface

@@ -4,7 +4,7 @@ Only ``make_eval_step`` is ported: the loss of a full-sequence forward,
 which on a card runs every layer's attention through the CUDA
 flash-attention kernel. The optimizer (``train/optimizer.py``),
 ``opt_config_for``, ``make_train_step`` and gradient accumulation wait for
-the training slice (ROADMAP queue 1 item 14).
+the training slice (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations

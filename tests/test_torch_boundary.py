@@ -108,6 +108,7 @@ def test_cuda_entry_points_raise_without_a_card():
         lambda: DomainArbiter([DomainSpec("hbm_local", 8, 819.0)]).register(
             "A", cfg, priority=Priority.HIGH, share=1.0),
         lambda: LM(cfg).init(torch.Generator().manual_seed(0)),
+        lambda: LM(cfg).init_cache(1, 8),
         lambda: params_from_reference({"w": np.zeros(3, np.float32)}),
         lambda: serve.main(["--requests", "1", "--new", "1"]),
         lambda: torch_scheduler_bench.main([]),

@@ -126,9 +126,20 @@ def test_registry_shapes_and_steps_mirror_reference(model):
                                       rm))(params, rbatch)
     np.testing.assert_allclose(prefill(tparams, batch).numpy(),
                                np.asarray(want), **TOL)
+    # the decode shapes' step: one token against a small cache (a stand-in
+    # for the shapes' 32k and 500k slots)
+    toks1 = toks[:, :1]
     for name in ("decode_32k", "long_500k"):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            t_registry.step_fn(tcfg, t_registry.SHAPES[name], tm)
+        decode = t_registry.step_fn(tcfg, t_registry.SHAPES[name], tm)
+        want, _ = jax.jit(r_registry.step_fn(cfg, r_registry.SHAPES[name],
+                                             rm))(
+            params, {"cache": rm.init_cache(2, 8),
+                     "tokens": jnp.asarray(toks1, jnp.int32),
+                     "position": jnp.int32(0)})
+        got, _ = decode(tparams, {"cache": tm.init_cache(2, 8, device="cpu"),
+                                  "tokens": torch.from_numpy(toks1),
+                                  "position": 0})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_gemma_config_mirrors_reference():
