@@ -54,10 +54,10 @@ Phases (each failed check raises; the script then exits non-zero):
    each forward, exactly ``num_layers`` launches), then the same forwards
    through the plain chunked path: last-token logits and loss compared; a
    profiler window over the kernel forward (informational); then
-   qwen2-0.5b's loss under autograd (B = 1, S = 512): ``attn_impl=None``
-   takes the chunked branch (no flash launch; grads equal
-   ``"reference"``'s and reach wq, wk, wv), and a backward through
-   ``attn_impl="flash"`` raises (the kernel has no backward);
+   qwen2-0.5b's loss under autograd (B = 1, S = 512): with
+   ``attn_impl=None`` and ``"flash"`` the forward launches the kernel and
+   the backward raises (the kernel has no backward), and with
+   ``"reference"`` no kernel launches and the grads reach wq, wk, wv;
 8. recompute-prefill serving: phase 4's trace with
    ``incremental_prefill=False``, every recompute chunk a 24-layer forward
    through the flash kernel;
@@ -134,13 +134,17 @@ Phases (each failed check raises; the script then exits non-zero):
    through ``PagedDecoder.decode_step`` (the paged kernel) and through
    ``LM.decode_step`` on the same K/V, one sequence at a time (B = 1; the
    rows' positions differ and ``decode_step`` takes one), logits held by
-   phase 4's gate; then 16 more tokens through both (equal tokens printed,
-   not gated). gemma3-27b at full width with depth cut to 6 layers (5
-   windowed at 1024, 1 global; bf16 params) decodes an 1100-token prompt
-   token by token, and its logits at positions 1022-1026 and 1095-1099
-   are held against ``LM.hidden`` over the whole prompt (the flash kernel
-   with ``window=1024``) by the same gate. Printed: the gaps, ties, equal
-   tokens, ms a ``decode_step``.
+   phase 4's gate; then, for qwen2-0.5b, 16 more tokens through both
+   (equal tokens printed, not gated). gemma3-27b at full width with depth
+   cut to 6 layers (5 windowed at 1024, 1 global; bf16 params) decodes an
+   1100-token prompt token by token, and its logits at positions
+   1022-1026 and 1095-1099 are held against ``LM.hidden`` over the whole
+   prompt (the flash kernel with ``window=1024``) by the same gate, each
+   logit's bound the larger of 0.1 and one bf16 ulp of the logit (each
+   token's own logit reaches ~74, where an ulp is 0.5); the same forward
+   blind to the window must miss that gate at 1095-1099. Printed: the
+   gaps, ties, equal tokens, ms a ``decode_step``, the window-blind
+   gaps.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
@@ -928,29 +932,56 @@ def _decode_plain_check(eng):
     return err
 
 
-def _logits_gate(fast, plain, what) -> tuple[float, int]:
-    """The gate of every phase that holds logits through the kernels
-    against the plain version's on the same inputs (``[rows, vocab]``):
-    max |diff| <= ``LOGIT_TOL``, and on every row some token is an argmax
-    of both versions. bf16 logits can tie exactly, in either version, and
-    ``argmax`` then takes the lower index: where the argmaxes differ, the
-    row passes if the two tokens tie exactly in the plain version or in
-    the kernel's, and fails if both margins are non-zero. Returns
-    (max |diff|, tied rows whose argmaxes differ)."""
+def _bf16_ulp(x):
+    """One bf16 ulp of each |x| (8 significant bits)."""
+    top = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def _gate_misses(fast, plain, scaled: bool = False):
+    """What ``_logits_gate`` would refuse, without refusing it: (max
+    |diff|, rows with a logit over its bound, argmax flips as (row, the
+    plain version's margin between its token and the kernel's, the
+    kernel's margin between the two) where both margins are non-zero,
+    argmax flips that are exact ties)."""
     fast, plain = fast.float(), plain.float()
-    err = float((fast - plain).abs().max())
+    diff = (fast - plain).abs()
+    bound = torch.full_like(plain, LOGIT_TOL)
+    if scaled:
+        bound = torch.maximum(bound, _bf16_ulp(plain))
+    # NaN is over every bound
+    over = torch.nonzero((~(diff <= bound)).any(-1)).flatten().tolist()
     af, ap = fast.argmax(-1), plain.argmax(-1)
-    # where the argmaxes differ: (row, the plain version's margin between
-    # its token and the kernel's, the kernel's margin between the two)
     flips = [(i, float(plain[i, ap[i]] - plain[i, af[i]]),
               float(fast[i, af[i]] - fast[i, ap[i]]))
              for i in torch.nonzero(af != ap).flatten().tolist()]
-    check(err <= LOGIT_TOL, f"{what}: logits differ by {err} > {LOGIT_TOL}")
-    check(all(mp == 0.0 or mf == 0.0 for _, mp, mf in flips),
+    wrong = [f for f in flips if f[1] != 0.0 and f[2] != 0.0]
+    return float(diff.max()), over, wrong, len(flips) - len(wrong)
+
+
+def _logits_gate(fast, plain, what, *, scaled: bool = False
+                 ) -> tuple[float, int]:
+    """The gate of every phase that holds logits through the kernels
+    against the plain version's on the same inputs (``[rows, vocab]``):
+    max |diff| <= ``LOGIT_TOL`` (with ``scaled``, each logit's |diff| <=
+    the larger of ``LOGIT_TOL`` and one bf16 ulp of the plain logit: for
+    logits far above 1, where one ulp outgrows ``LOGIT_TOL``), and on
+    every row some token is an argmax of both versions. bf16 logits can
+    tie exactly, in either version, and ``argmax`` then takes the lower
+    index: where the argmaxes differ, the row passes if the two tokens tie
+    exactly in the plain version or in the kernel's, and fails if both
+    margins are non-zero. Returns (max |diff|, tied rows whose argmaxes
+    differ)."""
+    err, over, wrong, ties = _gate_misses(fast, plain, scaled)
+    bound = (f"{LOGIT_TOL}" if not scaled else
+             f"max({LOGIT_TOL}, 1 bf16 ulp of the logit)")
+    check(not over, f"{what}: logits differ by up to {err} > {bound} on "
+          f"rows {over}")
+    check(not wrong,
           f"{what}: no token is an argmax of both the kernel's and the "
           f"plain version's logits on (row, plain margin, kernel margin) "
-          f"{flips}")
-    return err, len(flips)
+          f"{wrong}")
+    return err, ties
 
 
 def _check_instances(cfg, r) -> None:
@@ -1181,50 +1212,47 @@ def _loss_grads(lm, params, toks) -> tuple[list, dict]:
 
 def phase_grads(device, cfg, params) -> None:
     """Full-width ``LM.loss`` under autograd (B = 1, S = ``GRAD_S``): with
-    ``attn_impl=None`` it takes the chunked branch, as the reference
-    trains (no flash launch; grads equal ``"reference"``'s and reach wq,
-    wk, wv), and a backward through ``attn_impl="flash"`` raises instead
-    of dropping attention's gradients."""
+    ``attn_impl=None`` and ``"flash"`` the forward launches the flash
+    kernel once a layer and the backward raises, naming
+    ``attn_impl='reference'``, instead of dropping attention's gradients;
+    with ``"reference"`` (the chunked branch, as the reference trains) no
+    kernel launches and the grads reach wq, wk, wv, finite and non-zero."""
     from repro_torch.models.lm import LM
     lm = LM(cfg)
     rng = np.random.default_rng(6)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
                                          (1, GRAD_S))).to(device)
     t0 = time.perf_counter()
-    grads = {}
-    for impl in (None, "reference"):
+    for impl in (None, "flash"):
         lm.attn_impl = impl
-        grads[impl], n = _loss_grads(lm, params, toks)
-        check(sum(n.values()) == 0,
-              f"attn_impl={impl!r} under autograd launched flash: {n}")
-    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              for a, b in zip(grads[None], grads["reference"]))
-    check(rel <= 1e-5, f"grads under attn_impl=None differ from "
-          f"'reference''s by {rel:.3g} of a leaf's largest")
+        raised = False
+        try:
+            _loss_grads(lm, params, toks)
+        except NotImplementedError as e:
+            raised = ("no backward kernel" in str(e)
+                      and "attn_impl='reference'" in str(e))
+        n = dict(fkernel.LAUNCHES)
+        check(raised, f"attn_impl={impl!r}: a backward through the flash "
+              f"kernel did not raise its error")
+        check(n["flash_attention_wgmma"] == cfg.num_layers,
+              f"attn_impl={impl!r} under autograd: flash launches {n}")
+    lm.attn_impl = "reference"
+    grads, n = _loss_grads(lm, params, toks)
+    check(sum(n.values()) == 0,
+          f"attn_impl='reference' under autograd launched flash: {n}")
     from torch.utils._pytree import tree_leaves
     qkv = [params["groups"][0]["attn"][k] for k in ("wq", "wk", "wv")]
-    attn = [g for g, t in zip(grads[None], tree_leaves(params))
+    attn = [g for g, t in zip(grads, tree_leaves(params))
             if any(t is w for w in qkv)]
     check(len(attn) == 3 and all(bool(torch.isfinite(g).all())
                                  and float(g.abs().max()) > 0
                                  for g in attn),
           "wq/wk/wv grads missing, zero or not finite")
-    lm.attn_impl = "flash"
-    raised = False
-    try:
-        _loss_grads(lm, params, toks)
-    except NotImplementedError as e:
-        raised = "no backward kernel" in str(e)
-    n = dict(fkernel.LAUNCHES)
-    lm.attn_impl = None
-    check(raised, "a backward through the flash kernel did not raise")
-    check(n["flash_attention_wgmma"] == cfg.num_layers,
-          f"attn_impl='flash' under autograd: flash launches {n}")
-    log(f"{cfg.name} loss grads (B=1, S={GRAD_S}): attn_impl=None under "
-        f"autograd launched no flash kernel, grads equal 'reference''s "
-        f"(max diff {rel:.3g} of a leaf's largest), wq/wk/wv reached; "
-        f"attn_impl='flash' launched {n['flash_attention_wgmma']} and its "
-        f"backward raised; {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    log(f"{cfg.name} loss grads (B=1, S={GRAD_S}): attn_impl=None and "
+        f"'flash' launched {cfg.num_layers} flash kernels each and their "
+        f"backward raised; attn_impl='reference' launched none and its "
+        f"grads reach wq/wk/wv; {time.perf_counter() - t0:.1f} s -- "
+        f"{smi_line()}")
 
 
 def phase_recompute(device, cfg, params, prompts, greedy) -> dict:
@@ -1996,8 +2024,6 @@ def phase_placement(device) -> None:
         f"bit for bit -- {smi_line()}")
 
 
-# -- main --------------------------------------------------------------------
-
 # -- phase 15 ------------------------------------------------------------------
 
 DENSE_NEW = 16                   # tokens decoded after the gated step
@@ -2022,7 +2048,7 @@ def _dense_cache(lm, eng, s, cap):
     return cache
 
 
-def phase_dense_decode(device, cfg, params) -> dict:
+def phase_dense_decode(device, cfg, params, *, watch: bool) -> dict:
     """The paged engine against ``LM.decode_step`` on the same K/V: serve 8
     prompts until each has prefilled (and none waits on a page boundary or
     a shared page), copy each sequence's K/V from its pool pages into a
@@ -2030,8 +2056,9 @@ def phase_dense_decode(device, cfg, params) -> dict:
     .decode_step`` (the kernel) and through ``LM.decode_step``, one
     sequence at a time (B = 1: ``decode_step`` takes one position, as the
     reference's, and the rows' positions differ), gated by
-    ``_logits_gate``. Then 16 more tokens through the engine (batch 8) and
-    through dense decode; equal tokens are printed, not gated."""
+    ``_logits_gate``. With ``watch``, 16 more tokens through the engine
+    (batch 8) and through dense decode; equal tokens are printed, not
+    gated."""
     from repro_torch.models.lm import LM
     from repro_torch.placement.pool import BwapPagePool
     from repro_torch.serve.engine import ServeEngine
@@ -2056,7 +2083,8 @@ def phase_dense_decode(device, cfg, params) -> dict:
         check(steps < 200 and not eng.finished,
               f"{cfg.name}: 8 sequences never ready for the dense check")
     seqs = list(eng.scheduler.running)
-    check(all(s.produced + DENSE_NEW + 1 < s.max_new for s in seqs),
+    check(not watch or all(s.produced + DENSE_NEW + 1 < s.max_new
+                           for s in seqs),
           f"{cfg.name}: too few tokens left, produced "
           f"{[s.produced for s in seqs]}")
     d = eng.decoder
@@ -2064,7 +2092,8 @@ def phase_dense_decode(device, cfg, params) -> dict:
     caches, paged, dense, dense_ms = [], [], [], []
     for s in seqs:
         n = s.length
-        caches.append(_dense_cache(lm, eng, s, n + DENSE_NEW + 1))
+        caches.append(_dense_cache(lm, eng, s,
+                                   n + (DENSE_NEW + 1 if watch else 1)))
         tok = np.asarray([[s.tokens[-1]]], np.int64)
         lens = np.asarray([n], np.int64)
         paged.append(d.decode_step(
@@ -2080,18 +2109,20 @@ def phase_dense_decode(device, cfg, params) -> dict:
     paged, dense = torch.cat(paged), torch.cat(dense)
     err, ties = _logits_gate(paged, dense,
                              f"{cfg.name} paged vs dense decode")
-    # the same step with the engine's batch of 8 (one GEMM shape apart from
-    # dense decode's B = 1): watched, not gated
-    tables = np.zeros((8, max(len(s.pages) for s in seqs)), np.int32)
-    for i, s in enumerate(seqs):
-        tables[i, :len(s.pages)] = s.pages
-    lens = np.asarray([s.length for s in seqs], np.int64)
-    batch8 = d.decode_step(
-        d._t(np.asarray([[s.tokens[-1]] for s in seqs], np.int64)),
-        d._t(tables, torch.int32), d._t(lens, torch.int32),
-        d._t(lens)).float()
-    err8 = float((batch8 - dense).abs().max())
     kernel.LAUNCHES.update(saved)
+    gated_s = time.perf_counter() - t0
+    ms = float(np.median(dense_ms))
+    log(f"dense decode, {cfg.name} (full width, {cfg.num_layers} layers): "
+        f"{steps} engine steps to prefill 8 prompts of "
+        f"{sorted(s.prefill_target + 1 for s in seqs)} tokens; paged engine "
+        f"vs LM.decode_step on the same K/V, B=1 each: max |logit diff| "
+        f"{err:.4g} (gate {LOGIT_TOL}; |logit| up to "
+        f"{float(dense.abs().max()):.3g}), argmax equal on "
+        f"{8 - ties}/8 rows, the rest exact ties; LM.decode_step p50 "
+        f"{ms:.2f} ms (B=1, synchronised wall); {gated_s:.1f} s -- "
+        f"{smi_line()}")
+    if not watch:
+        return dict(err=err, ties=ties, ms=ms)
     # 16 more tokens: the engine at batch 8, dense decode per sequence
     n0 = [len(s.tokens) for s in seqs]
     at = [s.length for s in seqs]
@@ -2112,18 +2143,11 @@ def phase_dense_decode(device, cfg, params) -> dict:
             dense_ms.append(ms)
         equal += toks == list(s.tokens[n0[i]:])
     ms = float(np.median(dense_ms))
-    log(f"dense decode, {cfg.name} (full width, {cfg.num_layers} layers): "
-        f"{steps} engine steps to prefill 8 prompts of "
-        f"{sorted(s.prefill_target + 1 for s in seqs)} tokens; paged engine "
-        f"vs LM.decode_step on the same K/V, B=1 each: max |logit diff| "
-        f"{err:.4g} (gate {LOGIT_TOL}; |logit| up to "
-        f"{float(dense.abs().max()):.3g}), argmax equal on "
-        f"{8 - ties}/8 rows, the rest exact ties; the engine's batch of 8 "
-        f"vs dense B=1: {err8:.4g} (watched); tokens equal over "
-        f"{DENSE_NEW + 1} more steps for {equal}/8 sequences (watched, "
-        f"not gated); LM.decode_step p50 {ms:.2f} ms (B=1, synchronised "
-        f"wall); {time.perf_counter() - t0:.1f} s -- {smi_line()}")
-    return dict(err=err, ties=ties, err8=err8, equal=equal, ms=ms)
+    log(f"dense decode, {cfg.name}: tokens equal over {DENSE_NEW + 1} more "
+        f"steps (the engine at batch 8, dense B=1) for {equal}/8 sequences "
+        f"(watched, not gated); LM.decode_step p50 {ms:.2f} ms; "
+        f"{time.perf_counter() - t0 - gated_s:.1f} s")
+    return dict(err=err, ties=ties, equal=equal, ms=ms)
 
 
 def phase_window_decode(device) -> dict:
@@ -2176,8 +2200,24 @@ def phase_window_decode(device) -> dict:
     check(n == {"flash_attention": 0, "flash_attention_wgmma": G3_LAYERS},
           f"gemma3-27b forward: flash launches {n}")
     dec = torch.stack(kept)
+    # each token's own logit reaches ~74 here (tied embeddings scaled by
+    # sqrt(d)), where one bf16 ulp is 0.5: a logit may differ by one ulp
     err, ties = _logits_gate(full, dec, "gemma3-27b flash forward vs "
-                             "dense decode")
+                             "dense decode", scaled=True)
+    # the same forward blind to the window must miss that gate on some row
+    # past the window, or the gate could not tell a wrong window
+    windows, lm.windows = lm.windows, np.zeros_like(lm.windows)
+    with torch.no_grad():
+        h, _, _ = lm.hidden(params, x, positions[None])
+        blind = lm.logits(params, h[0, keep])
+    lm.windows = windows
+    blind_err, over, wrong, _ = _gate_misses(blind[5:], dec[5:], True)
+    missed = sorted(set(over) | {i for i, _, _ in wrong})
+    check(missed, f"gemma3-27b: a window-blind forward passes the gate "
+          f"(max |diff| {blind_err})")
+    log(f"gemma3-27b window-blind forward vs dense decode at "
+        f"{keep[5]}-{keep[-1]}: max |diff| {blind_err:.4g}, rows "
+        f"{[keep[5] + i for i in missed]} miss the gate")
     log(f"dense decode, gemma3-27b (d {cfg.d_model}, heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads}, h {cfg.head_dim_}; depth cut "
         f"to {G3_LAYERS} layers, windows {lm.windows.tolist()}, bf16 "
@@ -2185,12 +2225,16 @@ def phase_window_decode(device) -> dict:
         f"decode_step (B=1, mean over the prompt); logits at positions "
         f"{keep[0]}-{keep[4]} and {keep[5]}-{keep[-1]} vs the "
         f"flash forward ({n['flash_attention_wgmma']} launches, window "
-        f"{w} on 5): max |diff| {err:.4g} (gate {LOGIT_TOL}; |logit| up "
-        f"to {float(dec.abs().max()):.3g}), argmax equal on "
+        f"{w} on 5): max |diff| {err:.4g} (gate max({LOGIT_TOL}, 1 bf16 "
+        f"ulp of the logit); |logit| up to {float(dec.abs().max()):.3g}), "
+        f"argmax equal on "
         f"{len(keep) - ties}/{len(keep)}, the rest exact ties; "
         f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
-    return dict(err=err, ties=ties, ms=step_ms)
+    return dict(err=err, ties=ties, ms=step_ms, blind_err=blind_err,
+                blind_missed=len(missed))
 
+
+# -- main --------------------------------------------------------------------
 
 def main() -> int:
     global torch, kernel, ops, fkernel, fops
@@ -2249,8 +2293,8 @@ def main() -> int:
     done("13")
     phase_placement(device)
     done("14")
-    phase_dense_decode(device, s["cfg"], s["params"])
-    phase_dense_decode(device, g["cfg"], g["params"])
+    phase_dense_decode(device, s["cfg"], s["params"], watch=True)
+    phase_dense_decode(device, g["cfg"], g["params"], watch=False)
     phase_window_decode(device)
     done("15")
     served = {"qwen2-0.5b": s["greedy"]["launches"],

@@ -28,7 +28,8 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def params_from_reference(tree, *, device="cuda"):
     """Map a nested dict/list/tuple of numpy arrays onto torch tensors on
-    ``device``. fp32 crosses as is; bfloat16 through an int16 view."""
+    ``device``. fp32 and int32 cross as is; bfloat16 through an int16
+    view. A decode cache crosses the same way."""
     dev = resolve(device)
 
     def conv(x):
@@ -41,8 +42,6 @@ def params_from_reference(tree, *, device="cuda"):
     return conv(tree)
 
 
-def cache_from_reference(tree, *, device="cuda"):
-    """A reference decode cache (``k``/``v`` in the compute dtype, ``pos``
-    int32, grouped as ``LM.init_cache``) as the port's, on ``device``; the
-    same crossing as ``params_from_reference``."""
-    return params_from_reference(tree, device=device)
+# an alias: a decode cache (``k``/``v`` in the compute dtype, ``pos`` int32,
+# grouped as ``LM.init_cache``) crosses as params do
+cache_from_reference = params_from_reference

@@ -115,8 +115,8 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, grad):
         raise NotImplementedError(
             "the CUDA flash attention has no backward kernel (ROADMAP queue "
-            "1 item 10); train with attn_impl=None or 'reference', which "
-            "take the chunked branch under autograd")
+            "1 item 10); train with attn_impl='reference' (the chunked "
+            "branch, the reference's default)")
 
 
 def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):

@@ -148,14 +148,13 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
 
     ``impl`` picks the branch of causal attention: ``None`` takes the flash
     branch on a CUDA tensor (the CUDA kernel) and the chunked reference
-    branch on the CPU, and the chunked branch too wherever autograd records
-    (grad enabled and q, k or v requiring grad), as the reference trains;
-    ``"flash"`` takes the flash branch on any device (on the CPU that is
-    the kernel's plain version; on a card a backward through it raises);
-    ``"reference"`` takes the chunked branch. Non-causal attention always
-    takes the chunked branch, as in the reference. The flash branch
-    assumes ``positions`` is ``arange(S)`` per row, as the reference's
-    does.
+    branch on the CPU; ``"flash"`` takes the flash branch on any device (on
+    the CPU that is the kernel's plain version); ``"reference"`` takes the
+    chunked branch. The CUDA kernel has no backward: a backward through it
+    raises, so training on a card passes ``"reference"``, the reference's
+    own default. Non-causal attention always takes the chunked branch, as
+    in the reference. The flash branch assumes ``positions`` is
+    ``arange(S)`` per row, as the reference's does.
 
     Returns (out [B,S,d], (k, v)) with k/v [B,S,nkv,hd] for cache priming.
     """
@@ -180,13 +179,7 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    # impl=None takes the kernel only where autograd records nothing: the
-    # kernel has no backward, and the reference trains through the chunked
-    # branch
-    records = torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad)
-    flash = causal and (impl == "flash" or (
-        impl is None and x.is_cuda and not records))
+    flash = causal and (impl == "flash" or (impl is None and x.is_cuda))
     if flash:
         out = flash_ops.flash_attention(q, k, v, window=int(window))
     else:

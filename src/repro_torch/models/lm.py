@@ -62,7 +62,8 @@ class LM:
         self.windows = np.asarray(cfg.window_array(), np.int32)
         # full_attention's impl for every layer: None takes the CUDA flash
         # kernel on a card and the chunked path on the CPU; "reference"
-        # forces the chunked path (chip_smoke.py compares the two)
+        # forces the chunked path (chip_smoke.py compares the two), and is
+        # the one that trains on a card: the kernel has no backward
         self.attn_impl: str | None = None
 
     # -- parameters ----------------------------------------------------------
