@@ -35,7 +35,10 @@ Phases (each failed check raises; the script then exits non-zero):
    ``scaled_dot_product_attention`` yardstick, beside the least time the
    card could take (bytes at the HBM rate, or flops at the card's dense
    peak for the input type, whichever is larger); the paged rows at
-   qwen2-0.5b and at gemma-2b heads, and decode at context 4096 at both;
+   qwen2-0.5b, gemma-2b and qwen2-vl-7b heads, and decode at context 4096
+   at each; flash at S = T = 4096 at qwen2-0.5b, gemma-2b, qwen2-vl-7b
+   and granite-moe-3b-a800m heads (the last two held against the plain
+   version on the timed inputs, as the qwen2-vl-7b paged rows);
 4. full-width qwen2-0.5b serving (24 layers, seeded random weights) through
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
    counters zeroed just before and read just after, every paged launch on
@@ -144,11 +147,36 @@ Phases (each failed check raises; the script then exits non-zero):
    token's own logit reaches ~74, where an ulp is 0.5); the same forward
    blind to the window must miss that gate at 1095-1099. Printed: the
    gaps, ties, equal tokens, ms a ``decode_step``, the window-blind
-   gaps.
+   gaps;
+16. the MoE, MLA and VLM families at full width, each model freed before
+   the next is built: qwen2-vl-7b (28 layers, d 3584, 28/4 heads of 128;
+   bf16 params, the config's default being fp32) served as phase 4
+   (every paged launch on the h = 128 tensor-core instance, launches
+   printed per entry point, one decode step against the plain version),
+   then ``LM.prefill`` at B = 1 over the published 1024 stub patches
+   (random, seed 3) and 1024 tokens: exactly 28 flash launches, logits
+   against the chunked path's; granite-moe-3b-a800m (32 layers, 40
+   experts top-8 padded to 48, fp32 params): prefill and loss at B = 1,
+   S = 4096, exactly 32 flash launches a forward, logits (0.1) and loss
+   (1e-2) against the chunked path's with the kernel path's expert
+   choices replayed (``_Routing``: bf16 routing flips on near-tied
+   router probabilities otherwise separate two correct paths; the gaps
+   with each path's own routing are printed, the loss gated on both),
+   then ``decode_step`` over 64 tokens at a capacity factor with no
+   drops (``num_experts / top_k``), the forward's routing replayed,
+   against the kernel forward at positions 59-63; deepseek-v3-671b cut
+   to 4 of 61 layers (3 dense, 1 MoE of 256 experts; MLA; the MTP head;
+   bf16 params, the config's): the loss with MTP at S = 512 finite,
+   then MLA's absorbed ``decode_step`` over 64 tokens against the
+   materialised forward the same way. Printed: each part's wall time,
+   ms a forward and a ``decode_step``.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
-point at qwen2-0.5b heads and one at gemma-2b heads, each naming its
-instance and context, and the context-4096 decode rows; the qwen2-0.5b
+point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
+granite-moe-3b-a800m heads, each naming its instance and context, and
+the context-4096 decode rows; the rows at qwen2-vl-7b and granite heads
+carry the error of their phase-3 inputs against the plain version, and
+their launches from phase 16; the qwen2-0.5b
 paged rows also carry phases 10-13's ``coda_launches``,
 ``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
 summed over the zoo's two modes) and the card's
@@ -188,6 +216,8 @@ MAIN = dict(nq=14, nkv=2, h=64)  # qwen2-0.5b attention heads
 SMOKE = dict(nq=4, nkv=2, h=16)  # qwen2 smoke config heads
 GEMMA = dict(nq=8, nkv=1, h=256)  # gemma-2b attention heads
 GEMMA3 = dict(nq=32, nkv=16, h=128)  # gemma3-27b attention heads
+QWEN_VL = dict(nq=28, nkv=4, h=128)  # qwen2-vl-7b attention heads
+GRANITE = dict(nq=24, nkv=8, h=64)   # granite-moe-3b-a800m attention heads
 # phase 2's paged sweep: each instance at serving shapes (tensor cores:
 # bf16 at h 64, 128, 256; CUDA cores: fp32)
 PAGED_SWEEP = ((MAIN, "bfloat16"), (GEMMA3, "bfloat16"), (GEMMA, "bfloat16"),
@@ -681,9 +711,11 @@ def _sdpa_inputs(q4, kp, vp, tables, q_start, t):
 
 
 def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
-               dtype, ctx="<=800") -> dict:
+               dtype, ctx="<=800", gate=False) -> dict:
     """Time one paged entry point (q4 [B,T,nq,h] is its query) beside its
-    bound and the SDPA yardstick over K/V gathered beforehand."""
+    bound and the SDPA yardstick over K/V gathered beforehand. With
+    ``gate`` the kernel is first held against its plain version on these
+    inputs (``_max_err``), and the row carries that error."""
     import torch.nn.functional as F
     b, _, nq, h = q4.shape
     heads = dict(nq=nq, nkv=kp.shape[2], h=h)
@@ -710,8 +742,11 @@ def _paged_row(name, tag, run, plain, q4, kp, vp, tables, q_start, t,
         log(f"  {name}: the same flops on fp32 CUDA cores (what this "
             f"instance uses, {CUDA_CORE_FLOPS / 1e12:.0f} TFLOP/s) take "
             f"{core_ms:.5f} ms; not the bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by, context=ctx)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, context=ctx)
+    if gate:
+        row["max_abs_err"] = _max_err(run(), plain(), dtype)
+    return row
 
 
 def _flash_bound(b, s, t, heads, dtype, window=0,
@@ -733,10 +768,12 @@ def _flash_bound(b, s, t, heads, dtype, window=0,
             "bytes" if t_mem >= t_ops else "operations")
 
 
-def _flash_row(rng, heads, s, tag) -> dict:
+def _flash_row(rng, heads, s, tag, gate=False) -> dict:
     """Time the flash kernel, its plain version (S <= 4096: it holds
     [B,nkv,g,S,T] fp32 scores) and SDPA (causal, GQA) at B = 1, S = T,
-    bf16, causal."""
+    bf16, causal. With ``gate`` (S <= 4096) the kernel is first held
+    against its plain version on these inputs, and the row carries that
+    error."""
     import torch.nn.functional as F
     dtype = "bfloat16"
     q, k, v = _flash_inputs(rng, 1, s, s, heads, dtype)
@@ -763,15 +800,19 @@ def _flash_row(rng, heads, s, tag) -> dict:
         f"HBM {HBM_BYTES_PER_S / 1e12} TB/s), kernel/bound "
         f"{ms / bound_ms:.1f}x, kernel/SDPA {ms / lib_ms:.2f}x -- "
         f"{smi_line()}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    if gate:
+        row["max_abs_err"] = _max_err(run(), plain(), dtype)
+    return row
 
 
-def _paged_rows(rng, heads, tag) -> dict[str, dict]:
+def _paged_rows(rng, heads, tag, gate=False) -> dict[str, dict]:
     """Time the three paged entry points at serving shapes (bf16, page 16,
     pool 1280, batch 8, context <= 800): decode, batched prefill at
     T = 256, and the single-sequence entry point at the same shape; then
-    decode at context 4096 (lengths 4033..4096, pool 2560)."""
+    decode at context 4096 (lengths 4033..4096, pool 2560). ``gate`` as
+    ``_paged_row``'s."""
     dtype, pool, b = "bfloat16", 1280, 8
     nq, nkv, h = heads["nq"], heads["nkv"], heads["h"]
     kp, vp = _pools(rng, pool, nkv, h, dtype)
@@ -783,7 +824,7 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
         "paged_attention", tag,
         lambda: ops.paged_attention(q, kp, vp, tb, ln),
         lambda: ops.paged_attention(q, kp, vp, tb, ln, impl="reference"),
-        q[:, None], kp, vp, tables, lens - 1, 1, dtype)
+        q[:, None], kp, vp, tables, lens - 1, 1, dtype, gate=gate)
     t = 256
     q_start = rng.integers(0, 800 - t + 1, b).astype(np.int32)
     tables = _tables(rng, -(-(q_start + t) // PS), 50, pool, repeat=False)
@@ -794,7 +835,7 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
         lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs),
         lambda: ops.paged_prefill_attention_batch(q4, kp, vp, tb, qs,
                                                   impl="reference"),
-        q4, kp, vp, tables, q_start, t, dtype)
+        q4, kp, vp, tables, q_start, t, dtype, gate=gate)
     # q_start as a device tensor: from a Python int the entry point would
     # copy it to the card on every call, a wait on the host
     q1, tb1, qs1 = q4[0].contiguous(), _ints(tables[0]), _ints(q_start[:1])
@@ -803,7 +844,8 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
         lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1),
         lambda: ops.paged_prefill_attention(q1, kp, vp, tb1, qs1,
                                             impl="reference"),
-        q1[None], kp, vp, tables[:1], q_start[:1], t, dtype)
+        q1[None], kp, vp, tables[:1], q_start[:1], t, dtype,
+        gate=gate)
     del kp, vp
     kp, vp = _pools(rng, LONG_POOL, nkv, h, dtype)
     lens = rng.integers(LONG_CTX - 63, LONG_CTX + 1, b).astype(np.int32)
@@ -814,17 +856,23 @@ def _paged_rows(rng, heads, tag) -> dict[str, dict]:
         "paged_attention", tag,
         lambda: ops.paged_attention(q, kp, vp, tb, ln),
         lambda: ops.paged_attention(q, kp, vp, tb, ln, impl="reference"),
-        q[:, None], kp, vp, tables, lens - 1, 1, dtype, LONG_CTX)
+        q[:, None], kp, vp, tables, lens - 1, 1, dtype, LONG_CTX,
+        gate=gate)
     return rows
 
 
 def phase_timing() -> dict[tuple[str, str], dict]:
-    """The paged rows at qwen2-0.5b and at gemma-2b heads, then the flash
-    rows; keyed (entry point, heads) for the JSON record."""
+    """The paged rows at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads, then
+    the flash rows (and flash at granite-moe-3b-a800m heads); keyed (entry
+    point, heads) for the JSON record. The rows at the heads of phase 16's
+    models also hold the kernel against its plain version on their
+    inputs."""
     rng = np.random.default_rng(2)
     rows = {}
-    for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
-        for name, row in _paged_rows(rng, heads, tag).items():
+    for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA),
+                       ("qwen2-vl-7b", QWEN_VL)):
+        gate = tag == "qwen2-vl-7b"
+        for name, row in _paged_rows(rng, heads, tag, gate).items():
             rows[name, tag] = row   # name: entry point, or (it, context)
     frng = np.random.default_rng(6)
     rows["flash_attention_bh", "qwen2-0.5b"] = _flash_row(
@@ -832,7 +880,12 @@ def phase_timing() -> dict[tuple[str, str], dict]:
     _flash_row(frng, MAIN, LONG_S, "qwen2-0.5b, prefill_32k length")
     rows["flash_attention_bh", "gemma-2b"] = _flash_row(
         frng, GEMMA, PREFILL_S, "gemma-2b")
-    for key in ("qwen2-0.5b", "gemma-2b"):
+    for tag, heads in (("qwen2-vl-7b", QWEN_VL),
+                       ("granite-moe-3b-a800m", GRANITE)):
+        rows["flash_attention_bh", tag] = _flash_row(frng, heads, PREFILL_S,
+                                                     tag, gate=True)
+    for key in ("qwen2-0.5b", "gemma-2b", "qwen2-vl-7b",
+                "granite-moe-3b-a800m"):
         rows["flash_attention_bh", key]["context"] = PREFILL_S
     return rows
 
@@ -2234,6 +2287,378 @@ def phase_window_decode(device) -> dict:
                 blind_missed=len(missed))
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+VL_PATCHES = 1024                # qwen2-vl-7b's published stub patches
+GATE_S = 64                      # the decode gates' prompt
+GATE_KEEP = list(range(GATE_S - 5, GATE_S))   # positions held: 59-63
+DS_LAYERS, DS_LOSS_S = 4, 512    # deepseek-v3's depth cut, its loss length
+
+
+def _no_drop(cfg):
+    """``cfg`` with a capacity factor of ``num_experts / top_k``: each
+    expert's capacity is the row's length, so no copy is dropped (the
+    decode gates' setting, as the reference's MLA decode test's 8)."""
+    import dataclasses
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def _gb(params) -> float:
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+
+
+class _Routing:
+    """MoE routing (``moe._route_one_row``) recorded on one pass and
+    replayed on another, so that two paths take the same experts. A
+    measurement device of this script, not of the port: the router reads
+    bf16 activations, and the bf16 rounding that separates the flash
+    kernel's attention from the chunked path's changes ~12 % of granite's
+    (layer, token) top-8 sets at S = 4096 on an H100 (the count is printed
+    each run), so two correct paths that route on their own differ by
+    more than the logits gate. As the reference's MLA decode test takes a
+    no-drop capacity to keep capacity drops out of its comparison, these
+    gates keep routing flips out of theirs; the gaps with each path's own
+    routing are printed beside them.
+
+    ``with _Routing() as r:`` records each call's result and capacity in
+    ``r.calls``; ``with _Routing(r.calls):`` returns them in order
+    instead. With ``per_token`` each call (one token, as in
+    ``decode_step``) takes token ``i // n`` of recorded call ``i % n`` (n
+    recorded calls, each over a whole sequence with no copy dropped), its
+    copies re-slotted at the call's own capacity."""
+
+    def __init__(self, replay=None, per_token=False):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe._route_one_row
+        self.replay, self.per_token = replay, per_token
+        self.calls, self.used = [], 0
+
+    def __enter__(self):
+        self.moe._route_one_row = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route_one_row = self.route
+        if exc[0] is None and self.replay is not None:
+            n = len(self.replay) * (GATE_S if self.per_token else 1)
+            check(self.used == n, f"routing replay used {self.used} of {n} "
+                  f"recorded routings")
+
+    def _call(self, xf, router, cfg, cap):
+        if self.replay is None:
+            out = self.route(xf, router, cfg, cap)
+            self.calls.append((*out, cap))
+            return out
+        i, self.used = self.used, self.used + 1
+        k, e = cfg.moe.top_k, cfg.moe.num_experts
+        if not self.per_token:
+            dest, weights, counts, probs, _ = self.replay[i]
+            check(dest.numel() == xf.shape[0] * k, "routing replay: the "
+                  "passes route other shapes")
+            return dest, weights, counts, probs
+        n = len(self.replay)
+        dest, weights, _, probs, cap_f = self.replay[i % n]
+        t = i // n
+        d = dest[t * k:(t + 1) * k]
+        check(xf.shape[0] == 1 and bool((d < e * cap_f).all()),
+              "routing replay: want one token a call and no dropped copy")
+        experts = d // cap_f
+        counts = torch.zeros(e, dtype=d.dtype, device=d.device)
+        counts.scatter_add_(0, experts, torch.ones_like(experts))
+        # a token's copies go to distinct experts: rank 0 in each
+        return (experts * cap, weights[t * k:(t + 1) * k], counts,
+                probs[t:t + 1])
+
+
+def _top_sets(probs, k):
+    return torch.topk(probs, k, dim=-1).indices.sort(-1).values
+
+
+def _flips(a, b, k) -> tuple[int, int]:
+    """Tokens whose top-k set differs between two recorded passes of the
+    same shapes, summed over the calls, and the calls where the last token
+    flips."""
+    tot = last = 0
+    for ra, rb in zip(a, b):
+        diff = (_top_sets(ra[3], k) != _top_sets(rb[3], k)).any(-1)
+        tot += int(diff.sum())
+        last += int(diff[-1])
+    return tot, last
+
+
+def _decode_gate(lm, params, device, what, seed) -> dict:
+    """``LM.hidden`` + ``logits`` over a ``GATE_S``-token prompt (its
+    flash launches counted from 0; its routing recorded), then
+    ``LM.decode_step`` over the same prompt from position 0 (no kernel:
+    dense and MLA decode are plain torch) with the forward's routing
+    replayed, its logits at ``GATE_KEEP`` held against the forward's by
+    ``_logits_gate``; then the same decode routing on its own, whose gap
+    and flipped tokens are returned, not gated."""
+    cfg = lm.cfg
+    k = cfg.moe.top_k
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (1, GATE_S))).to(device)
+    positions = torch.arange(GATE_S, dtype=torch.int32, device=device)
+    fkernel.reset_launch_counts()
+    with torch.no_grad(), _Routing() as fwd:
+        x = lm.embed(params, {"tokens": toks})
+        h, _, _ = lm.hidden(params, x, positions[None])
+        full = lm.logits(params, h[0, GATE_KEEP])
+    n = dict(fkernel.LAUNCHES)
+
+    def decode(routing):
+        cache = lm.init_cache(1, GATE_S, device=device)
+        saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+        kept = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), routing:
+            for t in range(GATE_S):
+                lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1],
+                                           positions[t])
+                if t in GATE_KEEP:
+                    kept.append(lg[0, 0])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / GATE_S
+        check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+              f"{what}: decode_step launched a kernel")
+        return torch.stack(kept), ms
+
+    dec, step_ms = decode(_Routing(fwd.calls, per_token=True))
+    err, ties = _logits_gate(full, dec, f"{what}: forward vs decode_step "
+                             "(the forward's routing)")
+    own = _Routing()
+    dec_own, _ = decode(own)
+    nf = len(fwd.calls)
+    flips = sum(int((_top_sets(c[3], k) != _top_sets(
+        fwd.calls[i % nf][3][i // nf:i // nf + 1], k)).any())
+        for i, c in enumerate(own.calls))
+    return dict(err=err, ties=ties, step_ms=step_ms, launches=n,
+                top=float(dec.float().abs().max()),
+                own_err=float((full.float() - dec_own.float()).abs().max()),
+                flips=flips, routed=len(own.calls))
+
+
+def _family_vlm(device) -> dict:
+    """qwen2-vl-7b at full width, bf16 params: phase 4's serving (every
+    paged launch on the h = 128 tensor-core instance, one decode step held
+    against the plain version), then ``LM.prefill`` at B = 1 over the
+    published 1024 stub patches and 1024 tokens through the flash kernel
+    (28 launches) against the chunked path."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config("qwen2-vl-7b"),
+                              param_dtype="bfloat16")
+    inst = kernel.instance(torch.bfloat16, cfg.head_dim_)
+    check(cfg.head_dim_ == 128 and inst == "paged_walk_wgmma",
+          f"qwen2-vl-7b: head dim {cfg.head_dim_}, instance {inst}")
+    s = phase_serve(device, cfg)
+    params, r = s["params"], s["greedy"]
+    paged = {k: r["launches"][k] for k in (
+        "paged_attention", "paged_prefill_attention_batch",
+        "paged_prefill_attention")}
+    serve_s = time.perf_counter() - t0
+    log(f"qwen2-vl-7b serving ({cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}/{cfg.head_dim_}, "
+        f"{_gb(params):.1f} GB of bf16 params): paged launches by entry "
+        f"point {paged}, all {r['launches'][inst]} on {inst}; "
+        f"{serve_s:.1f} s")
+    lm = LM(cfg)
+    rng = np.random.default_rng(3)
+    batch = {"patch_embeds": torch.from_numpy(rng.standard_normal(
+        (1, VL_PATCHES, cfg.d_model)) * 0.02).to(device, torch.bfloat16),
+        "tokens": torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (1, VL_PATCHES))).to(device)}
+    with torch.no_grad():
+        lm.prefill(params, batch)                 # warm-up, not timed
+        fkernel.reset_launch_counts()
+        fast, ms = _synced_ms(lm.prefill, params, batch)
+        n_fast = dict(fkernel.LAUNCHES)
+        lm.attn_impl = "reference"
+        fkernel.reset_launch_counts()
+        plain, plain_ms = _synced_ms(lm.prefill, params, batch)
+        n_plain = dict(fkernel.LAUNCHES)
+    nl = cfg.num_layers
+    check(n_fast == {"flash_attention": 0, "flash_attention_wgmma": nl},
+          f"qwen2-vl-7b prefill: flash launches {n_fast}, want {nl} on the "
+          f"tensor-core instance")
+    check(sum(n_plain.values()) == 0,
+          f"qwen2-vl-7b: the chunked path launched flash {n_plain}")
+    fast, plain = fast[:, 0].float(), plain[:, 0].float()
+    check(bool(torch.isfinite(fast).all()), "qwen2-vl-7b: non-finite logits")
+    err, ties = _logits_gate(fast, plain, "qwen2-vl-7b prefill with stub "
+                             "patches")
+    log(f"qwen2-vl-7b prefill, B=1, {VL_PATCHES} stub patches + "
+        f"{VL_PATCHES} tokens (S={2 * VL_PATCHES}, M-RoPE at the default "
+        f"positions): flash launches {n_fast['flash_attention_wgmma']}; "
+        f"forward {ms:.2f} ms vs chunked path {plain_ms:.2f} ms "
+        f"(synchronised wall); last-token logits max |diff| {err:.4g} "
+        f"(gate {LOGIT_TOL}; |logit| up to {float(plain.abs().max()):.3g}), "
+        f"argmax equal{' but for an exact tie' if ties else ''}; "
+        f"{time.perf_counter() - t0:.1f} s in all -- {smi_line()}")
+    return dict(served=r["launches"], flash=n_fast["flash_attention_wgmma"])
+
+
+def _family_granite(device) -> dict:
+    """granite-moe-3b-a800m at full width (fp32 params, the config's):
+    ``LM.prefill`` and the loss at B = 1, S = 4096 through the flash kernel
+    (32 launches each) against the chunked path; then ``decode_step`` over
+    a 64-token prompt at the no-drop capacity against the kernel forward
+    at positions 59-63."""
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.train.trainstep import make_eval_step
+    t0 = time.perf_counter()
+    cfg = registry.get_config("granite-moe-3b-a800m")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    check(tuple(params["groups"][0]["moe"]["w_gate"].shape[:2]) == (32, 48)
+          and params["groups"][0]["moe"]["router"].shape[-1] == 40,
+          "granite: want 40 routed experts padded to 48")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (1, PREFILL_S))).to(device)
+    step = make_eval_step(lm)
+    nl = cfg.num_layers
+    with _Routing() as kern:
+        fast, n_fast = _forward(lm, params, toks, step)
+    lm.attn_impl = "reference"
+    with _Routing(kern.calls):           # the kernel path's routing
+        plain, n_plain = _forward(lm, params, toks, step)
+    with _Routing() as chunked:          # its own routing
+        own, _ = _forward(lm, params, toks, step)
+    lm.attn_impl = None
+    flips, last = _flips(kern.calls[:nl], chunked.calls[:nl],
+                         cfg.moe.top_k)
+    own_err = float((fast["logits"] - own["logits"]).abs().max())
+    own_dloss = abs(fast["loss"] - own["loss"])
+    want = {"flash_attention": 0, "flash_attention_wgmma": nl}
+    check(n_fast == {"prefill": want, "eval": want},
+          f"granite: flash launches {n_fast}, want {nl} per forward")
+    check(all(n == 0 for f in n_plain.values() for n in f.values()),
+          "granite: the chunked path launched the kernel")
+    check(all(np.isfinite([fast["loss"], plain["loss"]]))
+          and bool(torch.isfinite(fast["logits"]).all()),
+          "granite: non-finite logits or loss")
+    err, ties = _logits_gate(fast["logits"], plain["logits"],
+                             "granite (the kernel path's routing)")
+    dloss = abs(fast["loss"] - plain["loss"])
+    check(max(dloss, own_dloss) <= LOSS_TOL,
+          f"granite: loss differs by {dloss} (same routing), {own_dloss} "
+          f"(each path's own) > {LOSS_TOL}")
+    log(f"granite-moe-3b-a800m forward ({nl} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}/{cfg.head_dim_}, 40 experts "
+        f"top-8 padded to 48, {_gb(params):.1f} GB of fp32 params), B=1, "
+        f"S={PREFILL_S}: flash launches {n_fast}; prefill "
+        f"{1e3 * fast['wall']:.1f} ms vs chunked path "
+        f"{1e3 * plain['wall']:.1f} ms; with the kernel path's routing: "
+        f"last-token logits max |diff| {err:.4g} (gate {LOGIT_TOL}; |logit| "
+        f"up to {float(plain['logits'].abs().max()):.3g}), argmax equal"
+        f"{' but for an exact tie' if ties else ''}, loss "
+        f"{fast['loss']:.6f} vs {plain['loss']:.6f} (|diff| {dloss:.3g}, "
+        f"gate {LOSS_TOL}); with each path's own routing (logits not "
+        f"gated): {flips} of {nl * PREFILL_S} (layer, token) top-8 sets "
+        f"differ, the last token's in {last} of {nl} layers, logits max "
+        f"|diff| {own_err:.4g}, loss |diff| {own_dloss:.3g} (gate "
+        f"{LOSS_TOL}) -- {smi_line()}")
+    dec = _decode_gate(LM(_no_drop(cfg)), params, device, "granite", 9)
+    check(dec["launches"] == want,
+          f"granite decode gate's forward: flash launches {dec['launches']}")
+    log(f"granite-moe-3b-a800m decode_step (B=1, capacity factor "
+        f"{_no_drop(cfg).moe.capacity_factor}: no drops; the forward's "
+        f"routing) over a {GATE_S}-token prompt vs the kernel forward at "
+        f"positions {GATE_KEEP[0]}-{GATE_KEEP[-1]}: max |diff| "
+        f"{dec['err']:.4g} (gate {LOGIT_TOL}; |logit| up to "
+        f"{dec['top']:.3g}), argmax equal on "
+        f"{len(GATE_KEEP) - dec['ties']}/{len(GATE_KEEP)}, the rest exact "
+        f"ties; routing on its own (not gated): {dec['flips']} of "
+        f"{dec['routed']} (layer, token) top-8 sets differ from the "
+        f"forward's, max |diff| {dec['own_err']:.4g}; "
+        f"{dec['step_ms']:.2f} ms a decode_step; "
+        f"{time.perf_counter() - t0:.1f} s in all -- {smi_line()}")
+    return dict(flash=2 * nl + dec["launches"]["flash_attention_wgmma"])
+
+
+def _family_deepseek(device) -> dict:
+    """deepseek-v3-671b at full width, depth cut to 4 layers (3 dense, then
+    1 MoE of 256 routed experts and 1 shared; MLA; the MTP head; bf16
+    params, the config's): the loss with MTP at B = 1, S = 512, then MLA's
+    absorbed decode over a 64-token prompt at the no-drop capacity against
+    the materialised forward at positions 59-63."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config("deepseek-v3-671b"),
+                              num_layers=DS_LAYERS)
+    lm = LM(cfg)
+    check([(g.kind, len(g.indices)) for g in lm.groups]
+          == [("moe_dense", 3), ("moe", 1)],
+          f"deepseek cut: groups {lm.groups}")
+    params = lm.init(torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        1, cfg.vocab_size, (1, DS_LOSS_S))).to(device)
+    saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+    with torch.no_grad():
+        (loss, metrics), loss_ms = _synced_ms(lm.loss, params,
+                                              {"tokens": toks})
+    check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+          "deepseek: MLA's forward launched a kernel")
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(set(vals) == {"ce", "aux", "mtp_ce"}
+          and all(np.isfinite([float(loss), *vals.values()])),
+          f"deepseek loss {float(loss)}, metrics {vals}")
+    log(f"deepseek-v3-671b (d {cfg.d_model}, {cfg.num_heads} MLA heads, "
+        f"depth cut to {DS_LAYERS} of 61 layers: 3 dense + 1 MoE of 256 "
+        f"experts; MTP head; {_gb(params):.1f} GB of bf16 params, init "
+        f"{init_s:.1f} s): loss at B=1, S={DS_LOSS_S} {float(loss):.6f} "
+        f"(ce {vals['ce']:.6f}, aux {vals['aux']:.6g}, mtp_ce "
+        f"{vals['mtp_ce']:.6f}) in {loss_ms:.1f} ms (synchronised wall)")
+    dec = _decode_gate(LM(_no_drop(cfg)), params, device, "deepseek", 10)
+    check(sum(dec["launches"].values()) == 0,
+          f"deepseek: the MLA forward launched flash {dec['launches']}")
+    log(f"deepseek-v3-671b absorbed MLA decode_step (B=1, capacity factor "
+        f"{_no_drop(cfg).moe.capacity_factor}: no drops; the forward's "
+        f"routing) over a {GATE_S}-token prompt vs the materialised forward "
+        f"at positions {GATE_KEEP[0]}-{GATE_KEEP[-1]}: max |diff| "
+        f"{dec['err']:.4g} (gate {LOGIT_TOL}; |logit| up to "
+        f"{dec['top']:.3g}), argmax equal on "
+        f"{len(GATE_KEEP) - dec['ties']}/{len(GATE_KEEP)}, the rest exact "
+        f"ties; routing on its own (not gated): {dec['flips']} of "
+        f"{dec['routed']} (layer, token) top-8 sets differ from the "
+        f"forward's, max |diff| {dec['own_err']:.4g}; "
+        f"{dec['step_ms']:.2f} ms a decode_step; "
+        f"{time.perf_counter() - t0:.1f} s in all -- {smi_line()}")
+    return {}
+
+
+def phase_families(device) -> dict:
+    """Phase 16: qwen2-vl-7b, granite-moe-3b-a800m and deepseek-v3-671b
+    (cut to 4 layers) at full width, each model freed before the next is
+    built. Returns the launches for the JSON record."""
+    import gc
+    out = {}
+    for name, part in (("qwen2-vl-7b", _family_vlm),
+                       ("granite-moe-3b-a800m", _family_granite),
+                       ("deepseek-v3-671b", _family_deepseek)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 16, {name}: {torch.cuda.memory_allocated() / 1e9:.1f} "
+            f"GB allocated on the card before the model is built")
+        out[name] = part(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -2297,14 +2722,19 @@ def main() -> int:
     phase_dense_decode(device, g["cfg"], g["params"], watch=False)
     phase_window_decode(device)
     done("15")
+    del s["params"], g["params"]           # phase 16 needs the room
+    fam = phase_families(device)
+    done("16")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
-              "gemma-2b": g["greedy"]["launches"]}
+              "gemma-2b": g["greedy"]["launches"],
+              "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
     paged_src = "src/repro_torch/csrc/paged_attention.cu"
     paged_tpu = "src/repro/kernels/paged_attention/kernel.py"
     # (name, timed row, source, TPU kernel's pallas_call); a row per entry
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
-    # flash), its error from the bf16 cases at that head dim
+    # flash; phase 16 for qwen2-vl-7b and granite), its error from the bf16
+    # cases at that head dim
     table = [
         ("paged_attention", "paged_attention", paged_src, f"{paged_tpu}:317"),
         ("paged_attention", ("paged_attention", LONG_CTX), paged_src,
@@ -2318,11 +2748,18 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:114"),
     ]
     rows = []
-    for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA)):
+    # the rows at qwen2-vl-7b heads carry the error of their own timed
+    # inputs against the plain version; the others phase 2's at that dtype
+    # and head dim
+    for tag, heads, entries in (
+            ("qwen2-0.5b", MAIN, table), ("gemma-2b", GEMMA, table),
+            ("qwen2-vl-7b", QWEN_VL, table),
+            ("granite-moe-3b-a800m", GRANITE, table[-1:])):
         h = heads["h"]
-        for name, timed, source, replaces in table:
+        for name, timed, source, replaces in entries:
             if name == "flash_attention_bh":
-                launches = flash_launches[tag]
+                launches = (fam[tag]["flash"] if tag in fam
+                            else flash_launches[tag])
                 err = ferrs["bfloat16", h]
                 inst = fkernel.instance(torch.bfloat16, h)
             else:
@@ -2332,10 +2769,11 @@ def main() -> int:
             if name != "paged_prefill_attention":   # no call site on a path
                 check(launches > 0, f"{name} never launched on the "
                       f"{tag} path")
+            row = dict(times[timed, tag])
+            err = row.pop("max_abs_err", err)
             rows.append(dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=launches,
-                             max_abs_err=err, **times[timed, tag],
-                             instance=inst,
+                             max_abs_err=err, **row, instance=inst,
                              heads=f"{tag} {heads['nq']}/{heads['nkv']}/"
                                    f"{h}"))
             if tag == "qwen2-0.5b" and name != "flash_attention_bh":

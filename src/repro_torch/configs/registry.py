@@ -3,9 +3,12 @@
 
 The ids are the reference's ten, and every config is a copy of the
 reference's. ``LM`` builds the dense family (``qwen2-0.5b``, ``gemma-2b``,
-``internlm2-20b``, ``gemma3-27b``); the other families raise in ``LM``
-until their model lands (ROADMAP queue 1 item 9), but their configs serve
-the placement layer (a geometry needs only the config). ``step_fn`` gives
+``internlm2-20b``, ``gemma3-27b``), the MoE family
+(``granite-moe-3b-a800m``, ``deepseek-v3-671b``) and the VLM
+(``qwen2-vl-7b``); the hybrid, SSM and encoder-decoder families
+(``hymba-1.5b``, ``xlstm-125m``, ``whisper-tiny``) raise in ``LM`` until
+their model lands (ROADMAP queue 1 item 9c), but their configs serve the
+placement layer (a geometry needs only the config). ``step_fn`` gives
 the train, prefill and decode steps (decode's batch is ``{"cache",
 "tokens", "position"}``, as the reference's). ``input_specs``
 (``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.

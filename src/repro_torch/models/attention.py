@@ -1,4 +1,5 @@
-"""Dense GQA attention (port of the dense part of ``repro.models.attention``).
+"""Attention: GQA/MQA, sliding windows, M-RoPE, MLA (DeepSeek) and the KV
+caches (port of ``repro.models.attention``).
 
 The full-sequence reference path (``chunked_mha``), the grouped decode
 einsum (``gqa_attention``), ``full_attention``, whose causal attention
@@ -6,8 +7,16 @@ goes through the flash-attention op (on a card the hand-written CUDA
 kernel, ``kernels/flash_attention``, the counterpart of the reference's
 Pallas route ``impl="flash"``), and the dense KV cache with one-token
 decode (``init_cache``, ``decode_attention``), in plain torch as the
-reference's is plain jnp. MLA and M-RoPE are not ported yet (ROADMAP
-queue 1 item 9b).
+reference's is plain jnp. Under M-RoPE (qwen2-vl) q and k rotate with
+``layers.apply_mrope`` over ``[3, B, S]`` positions and the mask reads
+stream 1, as the reference's.
+
+MLA keeps a latent cache (``{"ckv", "kpe", "pos"}``): ``mla_attention``
+materialises per-head K/V and runs ``chunked_mha``, and
+``mla_decode_attention`` attends in the latent space with the K and V
+up-projections absorbed. Both are plain torch, as the reference's are plain
+jnp outside any Pallas kernel; MLA's q/k head dim (192) differs from its v
+head dim (128), which the flash kernel does not take.
 """
 
 from __future__ import annotations
@@ -29,10 +38,26 @@ NEG_INF = -2.0e38
 # ---------------------------------------------------------------------------
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    assert cfg.mla is None, "MLA attention is not ported yet"
     dt = dtype_of(cfg.param_dtype)
     d, hd = cfg.d_model, cfg.head_dim_
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    if cfg.mla:
+        m = cfg.mla
+        return {
+            "wq_a": dense_init(gen, d, m.q_lora_rank, dt, device),
+            "q_norm": torch.zeros((m.q_lora_rank,), dtype=dt, device=device),
+            "wq_b": dense_init(gen, m.q_lora_rank,
+                               nq * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+                               dt, device),
+            "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                                dt, device),
+            "kv_norm": torch.zeros((m.kv_lora_rank,), dtype=dt,
+                                   device=device),
+            "wkv_b": dense_init(gen, m.kv_lora_rank,
+                                nq * (m.qk_nope_head_dim + m.v_head_dim), dt,
+                                device),
+            "wo": dense_init(gen, nq * m.v_head_dim, d, dt, device),
+        }
     p = {
         "wq": dense_init(gen, d, nq * hd, dt, device),
         "wk": dense_init(gen, d, nkv * hd, dt, device),
@@ -48,19 +73,24 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, layer_axes=(),
                *, device="cuda") -> Params:
-    """Dense KV cache on ``device``: ``k`` and ``v`` [*layer_axes, B, cap,
-    nkv, hd] in the compute dtype, ``pos`` [*layer_axes, B, cap] int32.
+    """KV cache on ``device``: ``k`` and ``v`` [*layer_axes, B, cap, nkv,
+    hd] in the compute dtype, ``pos`` [*layer_axes, B, cap] int32; under
+    MLA the latent ``ckv`` [..., cap, kv_lora_rank] and the rotated key
+    part ``kpe`` [..., cap, qk_rope_head_dim] instead of ``k`` and ``v``.
 
     ``pos`` records the absolute position held by each slot (-1 = empty),
     so a linear cache and a ring buffer (capacity = window) share one
     path."""
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA latent cache is not ported yet (ROADMAP "
-            "queue 1 item 9b)")
     dev = resolve(device)
     cdt = dtype_of(cfg.compute_dtype)
     shape = tuple(layer_axes) + (batch, capacity)
+    if cfg.mla:
+        m = cfg.mla
+        return {"ckv": torch.zeros(shape + (m.kv_lora_rank,), dtype=cdt,
+                                   device=dev),
+                "kpe": torch.zeros(shape + (m.qk_rope_head_dim,), dtype=cdt,
+                                   device=dev),
+                "pos": torch.full(shape, -1, dtype=torch.int32, device=dev)}
     kv = shape + (cfg.num_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(kv, dtype=cdt, device=dev),
             "v": torch.zeros(kv, dtype=cdt, device=dev),
@@ -142,6 +172,15 @@ def _mha_one_chunk(q, k, v, bias, compute_dtype,
     return torch.einsum("bnst,btnh->bsnh", probs, v)
 
 
+def takes_flash(impl: str | None, x, causal: bool = True) -> bool:
+    """Whether ``full_attention`` runs causal attention on ``x`` through the
+    flash branch under ``impl``."""
+    if impl not in (None, "flash", "reference"):
+        raise ValueError(f"unknown impl {impl!r}: None, 'flash' or "
+                         "'reference'")
+    return causal and (impl == "flash" or (impl is None and x.is_cuda))
+
+
 def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
                    impl: str | None = None, causal: bool = True):
     """Full-sequence self-attention (train / prefill).
@@ -153,15 +192,16 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     chunked branch. The CUDA kernel has no backward: a backward through it
     raises, so training on a card passes ``"reference"``, the reference's
     own default. Non-causal attention always takes the chunked branch, as
-    in the reference. The flash branch assumes ``positions`` is
-    ``arange(S)`` per row, as the reference's does.
+    in the reference. The flash branch masks by sequence index: it assumes
+    ``positions`` is ``arange(S)`` per row (under M-RoPE, in every
+    stream), as the reference's does; ``LM`` refuses caller-given M-RoPE
+    positions on that branch.
 
-    Returns (out [B,S,d], (k, v)) with k/v [B,S,nkv,hd] for cache priming.
+    ``positions`` is [B,S], or [3,B,S] under M-RoPE (the mask reads stream
+    1, the temporal one, as the reference's). Returns (out [B,S,d],
+    (k, v)) with k/v [B,S,nkv,hd] for cache priming.
     """
-    if impl not in (None, "flash", "reference"):
-        raise ValueError(f"unknown impl {impl!r}: None, 'flash' or "
-                         "'reference'")
-    assert not cfg.mrope, "M-RoPE is not ported yet"
+    flash = takes_flash(impl, x, causal)
     cdt = dtype_of(cfg.compute_dtype)
     b, s, _ = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -176,10 +216,15 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     q = q.reshape(b, s, nq, hd)
     k = k.reshape(b, s, nkv, hd)
     v = v.reshape(b, s, nkv, hd)
-    if cfg.use_rope:
+    if cfg.use_rope and cfg.mrope:
+        q = layers.apply_mrope(q, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = layers.apply_mrope(k, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+    elif cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    flash = causal and (impl == "flash" or (impl is None and x.is_cuda))
+    pos1 = positions[1] if cfg.mrope else positions   # temporal stream masks
     if flash:
         out = flash_ops.flash_attention(q, k, v, window=int(window))
     else:
@@ -187,8 +232,7 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
         g = nq // nkv
         kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
         vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-        out = chunked_mha(q, kf, vf, positions, positions, int(window),
-                          causal, cdt,
+        out = chunked_mha(q, kf, vf, pos1, pos1, int(window), causal, cdt,
                           scores_dtype=dtype_of(cfg.attn_scores_dtype))
     out = out.reshape(b, s, nq * hd) @ p["wo"].to(cdt)
     return out, (k, v)
@@ -203,12 +247,10 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     The new K/V and its position are written in place at slot ``position
     % capacity`` (``index_copy_``), and ``cache`` itself is returned. The
     mask comes from the per-slot absolute positions only, so a linear
-    cache and a ring buffer share one path. Returns (out [B,1,d], cache).
+    cache and a ring buffer share one path. Under M-RoPE the position is
+    broadcast to all three streams, as the reference's. Returns (out
+    [B,1,d], cache).
     """
-    if cfg.mla or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and M-RoPE decode are not ported yet (ROADMAP "
-            "queue 1 item 9b)")
     cdt = dtype_of(cfg.compute_dtype)
     b = x.shape[0]
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -229,7 +271,11 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     q = q.reshape(b, 1, nq, hd)
     k = k.reshape(b, 1, nkv, hd)
     v = v.reshape(b, 1, nkv, hd)
-    if cfg.use_rope:
+    if cfg.mrope:
+        p3 = pos_b[None].expand(3, b, 1)
+        q = layers.apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
         q = layers.apply_rope(q, pos_b, cfg.rope_theta)
         k = layers.apply_rope(k, pos_b, cfg.rope_theta)
 
@@ -239,4 +285,95 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     bias = _window_bias(pos_b, cpos, int(window), causal=True)
     out = gqa_attention(q, cache["k"], cache["v"], bias, cdt)
     out = out.reshape(b, 1, nq * hd) @ p["wo"].to(cdt)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): compressed-latent attention
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg: ModelConfig, p: Params, x, positions):
+    """(q_nope, q_pe [B,S,nq,*], ckv [B,S,r], k_pe [B,S,rope]): q and the
+    latent K/V from x [B,S,d], the rope parts rotated at ``positions``."""
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    b, s, _ = x.shape
+    nq = cfg.num_heads
+    x = x.to(cdt)
+    cq = layers.rmsnorm(x @ p["wq_a"].to(cdt), p["q_norm"], cfg.rms_eps)
+    q = (cq @ p["wq_b"].to(cdt)).reshape(
+        b, s, nq, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_pe = layers.apply_rope(q_pe, positions, cfg.rope_theta)
+
+    kv = x @ p["wkv_a"].to(cdt)
+    ckv, k_pe = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    ckv = layers.rmsnorm(ckv, p["kv_norm"], cfg.rms_eps)
+    k_pe = layers.apply_rope(k_pe[:, :, None, :], positions,
+                             cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_pe, ckv, k_pe
+
+
+def mla_attention(cfg: ModelConfig, p: Params, x, positions, window: int):
+    """Training / prefill MLA: per-head K/V materialised from the latent,
+    then the q-chunked reference path (its scale is the concatenated
+    [nope ; rope] head dim's). Returns (out [B,S,d], (ckv, k_pe)) for cache
+    priming."""
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    b, s, _ = x.shape
+    nq = cfg.num_heads
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, positions)
+    kvb = (ckv @ p["wkv_b"].to(cdt)).reshape(
+        b, s, nq, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_pe[:, :, None, :].expand(b, s, nq, m.qk_rope_head_dim)],
+        dim=-1)
+    out = chunked_mha(q_full, k_full, v, positions, positions, int(window),
+                      True, cdt, scores_dtype=dtype_of(cfg.attn_scores_dtype))
+    out = out.reshape(b, s, nq * m.v_head_dim) @ p["wo"].to(cdt)
+    return out, (ckv, k_pe)
+
+
+def mla_decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
+                         window: int):
+    """Absorbed-matrix MLA decode: attention runs in the latent space, so a
+    step costs O(S * kv_lora_rank) and the cache holds only the latent
+    (arXiv:2412.19437 §2.1). x [B,1,d]; ``position`` as in
+    ``decode_attention``; the new latent, rope key and position are written
+    in place at slot ``position % capacity``. Returns (out [B,1,d],
+    cache)."""
+    m = cfg.mla
+    cdt = dtype_of(cfg.compute_dtype)
+    b = x.shape[0]
+    nq = cfg.num_heads
+    cpos = cache["pos"]
+    position = torch.as_tensor(position, dtype=torch.int32,
+                               device=cpos.device)
+    slot = (position % cpos.shape[-1]).reshape(1).long()
+    pos_b = position.reshape(1, 1).expand(b, 1)
+
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(cfg, p, x, pos_b)
+    cache["ckv"].index_copy_(1, slot, ckv_new)
+    cache["kpe"].index_copy_(1, slot, kpe_new)
+    cpos.index_copy_(1, slot, pos_b)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+
+    wkv_b = p["wkv_b"].to(cdt).reshape(
+        m.kv_lora_rank, nq, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[:, :, :m.qk_nope_head_dim]          # [r, n, hk]
+    w_uv = wkv_b[:, :, m.qk_nope_head_dim:]          # [r, n, hv]
+    # the K up-projection absorbed into the query
+    q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, w_uk)       # [b,1,n,r]
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = (torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv.float())
+              + torch.einsum("bsnh,bth->bnst", q_pe.float(),
+                             kpe.float())) * scale
+    bias = _window_bias(pos_b, cpos, int(window), causal=True)
+    probs = torch.softmax(scores + bias[:, None], dim=-1).to(cdt)
+    out_lat = torch.einsum("bnst,btr->bsnr", probs, ckv)       # [b,1,n,r]
+    out = torch.einsum("bsnr,rnh->bsnh", out_lat, w_uv)
+    out = out.reshape(b, 1, nq * m.v_head_dim) @ p["wo"].to(cdt)
     return out, cache

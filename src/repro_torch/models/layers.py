@@ -1,6 +1,6 @@
 """Shared layer primitives on plain tensors (port of ``repro.models.layers``:
-norms, the gated MLP, rotary embeddings, the initialisers and the
-cross-entropy losses).
+norms, the gated MLP, rotary embeddings (1-D and Qwen2-VL's M-RoPE), the
+initialisers and the cross-entropy losses).
 
 Params are the reference's nested dicts of tensors. Initialisers draw from
 an explicit ``torch.Generator``; they cannot reproduce ``jax.random``, so
@@ -117,6 +117,27 @@ def apply_rope(x, positions, theta: float):
                             device=x.device)
     ang = positions[..., :, None, None].float() * freqs   # [...,S,1,D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
+    """Qwen2-VL M-RoPE: x [B, S, H, D], positions3 [3, B, S] (t, h, w). The
+    head dim's half is split into ``sections`` (summing to D/2); each
+    frequency index takes its angle from its section's position stream
+    (arXiv:2409.12191). In fp32, as ``apply_rope``."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
+                            device=x.device)                      # [D/2]
+    # the position stream of each frequency index
+    sec_id = torch.as_tensor(np.repeat(np.arange(len(sections)), sections),
+                             device=positions3.device)
+    pos = positions3[sec_id].float()                              # [D/2,B,S]
+    ang = torch.einsum("dbs,d->bsd", pos, freqs)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

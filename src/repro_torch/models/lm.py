@@ -1,12 +1,17 @@
-"""Causal LM assembly for the dense family (port of ``repro.models.lm``:
-``init``, ``embed``, ``hidden``, ``logits``, ``loss``, ``prefill``, and
-dense decode: ``cache_capacity``, ``init_cache``, ``decode_step``).
+"""Causal LM assembly (port of ``repro.models.lm``: ``init``, ``embed``,
+``hidden``, ``logits``, ``loss`` with DeepSeek's MTP head, ``prefill``, and
+decode: ``cache_capacity``, ``init_cache``, ``decode_step``) for the dense,
+MoE (granite, deepseek with MLA) and VLM (qwen2-vl: M-RoPE and the vision
+stub's patch embeddings) families. The hybrid, SSM and encoder-decoder
+families (hymba, xlstm, whisper) are not ported yet (ROADMAP queue 1 item
+9c), nor the reference's roofline ``fragments`` and sharding hooks.
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
-(+ ``"head"`` when embeddings are untied), where each group of 4 or more
-layers is one dict of tensors stacked on axis 0 and a shorter group is a
-list of per-layer dicts, so reference params map onto it 1:1. The decode
-cache is grouped the same way (``init_cache``).
+(+ ``"head"`` when embeddings are untied, + ``"mtp"`` under MTP), where
+each group of 4 or more layers is one dict of tensors stacked on axis 0
+and a shorter group is a list of per-layer dicts, so reference params map
+onto it 1:1. The decode cache is grouped the same way (``init_cache``),
+written in place; ``position`` is an int or a 0-d tensor on the device.
 """
 
 from __future__ import annotations
@@ -31,13 +36,23 @@ class LayerGroup:
 
 def make_groups(cfg: ModelConfig) -> list[LayerGroup]:
     """Split layers into uniform-kind groups; stack groups of >= 4 layers.
-    Only the plain dense family is ported."""
-    if cfg.family != "dense" or cfg.mla or cfg.mrope or cfg.mtp_depth:
+    An MoE model's first ``first_k_dense`` layers are ``moe_dense``, the
+    rest ``moe``; the dense and VLM families are ``dense``."""
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} (MLA, M-RoPE and MTP "
-            "included) is not ported yet (ROADMAP queue 1 item 9)")
-    idx = tuple(range(cfg.num_layers))
-    return [LayerGroup("dense", idx, len(idx) >= 4)]
+            f"{cfg.name}: model family {cfg.family!r} is not ported yet "
+            "(ROADMAP queue 1 item 9c)")
+    kinds = [("moe_dense" if i < cfg.moe.first_k_dense else "moe")
+             if cfg.family == "moe" else "dense"
+             for i in range(cfg.num_layers)]
+    groups: list[LayerGroup] = []
+    start = 0
+    for i in range(1, cfg.num_layers + 1):
+        if i == cfg.num_layers or kinds[i] != kinds[start]:
+            idx = tuple(range(start, i))
+            groups.append(LayerGroup(kinds[start], idx, len(idx) >= 4))
+            start = i
+    return groups
 
 
 def layer_params_of(gp, l: int) -> Params:
@@ -87,23 +102,49 @@ class LM:
         if not cfg.tie_embeddings:
             params["head"] = layers.dense_init(gen, cfg.d_model,
                                                cfg.vocab_size, dt, dev)
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": layers.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                          dt, dev),
+                "layer": blocks.layer_params(gen, cfg, self._mtp_kind(), dev),
+                "norm_h": layers.norm_params(cfg, cfg.d_model, dev),
+                "norm_e": layers.norm_params(cfg, cfg.d_model, dev),
+            }
         return params
+
+    def _mtp_kind(self) -> str:
+        return "moe_dense" if self.cfg.family == "moe" else "dense"
 
     # -- embedding -------------------------------------------------------------
 
     def embed(self, params: Params, batch: dict):
+        """Token embeddings [B,S,d]; under the vision stub a batch's
+        ``patch_embeds`` [B,P,d] come first ([B,P+S,d])."""
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         x = params["embed"][batch["tokens"]].to(cdt)
+        if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
         if cfg.embed_scale:
             x = x * np.sqrt(cfg.d_model)
         return x
 
     def _positions(self, batch: dict, seq: int, batchsz: int):
-        """[B, S] int32 positions 0..S-1 (M-RoPE is not ported)."""
+        """[B, S] int32 positions 0..S-1; under M-RoPE [3, B, S], the
+        batch's own ``positions`` if it brings them. The flash branch masks
+        by sequence index, so it refuses caller-given M-RoPE positions."""
         dev = batch["tokens"].device
-        return torch.arange(seq, dtype=torch.int32, device=dev).expand(
-            batchsz, seq)
+        p = torch.arange(seq, dtype=torch.int32, device=dev)
+        if not self.cfg.mrope:
+            return p.expand(batchsz, seq)
+        if "positions" not in batch:
+            return p.expand(3, batchsz, seq)
+        if attention.takes_flash(self.attn_impl, batch["tokens"]):
+            raise NotImplementedError(
+                f"{self.cfg.name}: the flash branch masks by sequence index "
+                "and cannot honour a batch's own M-RoPE positions; set "
+                "attn_impl='reference' to attend at those positions")
+        return batch["positions"]
 
     # -- full-sequence forward ---------------------------------------------------
 
@@ -124,7 +165,7 @@ class LM:
                 group_cache.append(cache)
             if want_cache and g.scanned:
                 caches.append({n: torch.stack([c[n] for c in group_cache])
-                               for n in ("k", "v")})
+                               for n in group_cache[0]})
             else:
                 caches.append(group_cache)
         x = layers.apply_norm(cfg, params["final_norm"], x)
@@ -141,16 +182,44 @@ class LM:
     # -- losses and prefill ----------------------------------------------------------
 
     def loss(self, params: Params, batch: dict):
-        """Mean next-token cross-entropy over ``batch["tokens"]`` [B,S]
-        (fused head + CE, no [B,S,V] logits), plus the layers' aux loss.
-        Returns (total, {"ce", "aux"})."""
+        """Mean next-token cross-entropy over ``batch["tokens"]`` [B,S] on
+        the text region (stub patches are not predicted; fused head + CE,
+        no [B,S,V] logits), plus the layers' aux loss, plus 0.3 times the
+        MTP loss under MTP. Returns (total, {"ce", "aux"[, "mtp_ce"]})."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         x = self.embed(params, batch)
-        positions = self._positions(batch, x.shape[1], x.shape[0])
+        s = x.shape[1]
+        positions = self._positions(batch, s, x.shape[0])
         h, aux, _ = self.hidden(params, x, positions)
-        ce = layers.softmax_xent_fused(h[:, :-1, :], self.head_matrix(params),
+        vis = s - tokens.shape[1]
+        ce = layers.softmax_xent_fused(h[:, vis:-1, :],
+                                       self.head_matrix(params),
                                        tokens[:, 1:])
-        return ce + aux, {"ce": ce, "aux": aux}
+        total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth:
+            mtp_ce = self._mtp_loss(params, h[:, vis:], tokens, positions)
+            metrics["mtp_ce"] = mtp_ce
+            total = total + 0.3 * mtp_ce
+        return total, metrics
+
+    def _mtp_loss(self, params: Params, h, tokens, positions):
+        """DeepSeek-V3 multi-token prediction (depth 1): one extra layer
+        predicts t+2 from [h_t ; embed(token_{t+1})]."""
+        cfg = self.cfg
+        cdt = dtype_of(cfg.compute_dtype)
+        p = params["mtp"]
+        h_in = layers.apply_norm(cfg, p["norm_h"], h[:, :-1])
+        e_in = layers.apply_norm(cfg, p["norm_e"],
+                                 params["embed"][tokens[:, 1:]].to(cdt))
+        x = torch.cat([h_in, e_in], dim=-1) @ p["proj"].to(cdt)
+        x, _, _ = blocks.layer_fwd(cfg, self._mtp_kind(), p["layer"], x,
+                                   positions[..., :-1], 0,
+                                   attn_impl=self.attn_impl)
+        return layers.softmax_xent_fused(x[:, :-1, :],
+                                         self.head_matrix(params),
+                                         tokens[:, 2:])
 
     def prefill(self, params: Params, batch: dict):
         """Full-sequence forward; returns the last token's logits
@@ -169,7 +238,8 @@ class LM:
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
         """Decode cache grouped like ``params["groups"]``: one dict with a
         leading layer axis for a stacked group, else a list of per-layer
-        dicts (``attention.init_cache``). A group's capacity is the largest
+        dicts (``attention.init_cache``: K/V, or MLA's latent
+        ``{"ckv", "kpe", "pos"}``). A group's capacity is the largest
         of its layers', so a group that mixes windowed and global layers
         holds ``max_len`` slots and applies the window through the mask;
         only an all-windowed group is a ring buffer of ``window`` slots."""

@@ -33,6 +33,8 @@ from repro_torch.models.lm import LM as TLM  # noqa: E402
 from _torch_parity import bits, port_config  # noqa: E402
 
 DENSE = ["qwen2-0.5b", "gemma-2b", "internlm2-20b", "gemma3-27b"]
+# the MoE (MLA and MTP included) and VLM families
+FAMILIES = ["granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"]
 
 
 def _tol(cfg) -> dict:
@@ -130,12 +132,13 @@ def _smoke(arch: str, **kw):
     return dataclasses.replace(r_registry.get_smoke_config(arch), **kw)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_smoke_decode_step(arch):
-    """``test_models_smoke.py::test_smoke_decode_step``'s dense rows on both
-    packages: two steps of ones at positions 0 and 1 from an empty cache of
-    32 slots; shapes, finite logits, a cache that evolves, and the port's
-    logits and caches equal to the reference's after each step."""
+    """``test_models_smoke.py::test_smoke_decode_step``'s rows of the
+    families the port builds on both packages: two steps of ones at
+    positions 0 and 1 from an empty cache of 32 slots; shapes, finite
+    logits, a cache that evolves, and the port's logits and caches equal to
+    the reference's after each step (MLA's latent cache included)."""
     cfg = r_registry.get_smoke_config(arch)
     pr = pair(cfg, 2)
     b, cap = 2, 32
@@ -145,8 +148,18 @@ def test_smoke_decode_step(arch):
     fresh = pr.tm.init_cache(b, cap, device="cpu")
     assert not all(torch.equal(x, y) for x, y in
                    zip(jax.tree.leaves(tc), jax.tree.leaves(fresh)))
-    # the smoke configs hold >= 4 layers: one stacked group
-    assert isinstance(tc[0], dict) and tc[0]["pos"].shape[0] == cfg.num_layers
+    # a group of >= 4 layers is stacked, a shorter one a list: the dense
+    # and VLM smoke configs are one stacked group; deepseek's leading dense
+    # layer is a list of one before its stacked MoE layers
+    assert len(tc) == len(pr.tm.groups)
+    for g, c in zip(pr.tm.groups, tc):
+        if g.scanned:
+            assert isinstance(c, dict) and c["pos"].shape[0] == len(g.indices)
+        else:
+            assert isinstance(c, list) and len(c) == len(g.indices)
+    if arch in DENSE:
+        assert isinstance(tc[0], dict) and \
+            tc[0]["pos"].shape[0] == cfg.num_layers
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -2,9 +2,12 @@
 reference's, and the flash kernel's refusal to be differentiated.
 
 On the CPU the port's ``torch.autograd`` grads equal the reference's on
-the four dense smoke configs in fp32 (rtol 1e-4, atol 1e-5) for every param
-leaf: attention's ``wq``, ``wk`` and ``wv`` included, which a forward
-through the flash kernel would cut off. Both get the same params (drawn by
+the four dense smoke configs and those of the MoE and VLM families
+(granite-moe, deepseek-v3 with MLA and its MTP head, qwen2-vl) in fp32
+(rtol 1e-4, atol 1e-5) for every param leaf: attention's projections
+included, which a forward through the flash kernel would cut off, and the
+router (through the aux loss and the gate weights), the experts and the
+MTP head. Both get the same params (drawn by
 the reference, crossing through numpy) and the same seeded tokens; the
 reference's grad runs under ``jax.jit``. On a card, ``attn_impl=None``
 and ``"flash"`` launch the kernel, and a backward through it raises;
@@ -26,7 +29,8 @@ from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
 from _torch_parity import port_config  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "gemma-2b", "internlm2-20b", "gemma3-27b"]
+ARCHS = ["qwen2-0.5b", "gemma-2b", "internlm2-20b", "gemma3-27b",
+         "granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"]
 
 
 def _grads(tm, tparams, toks):
@@ -59,11 +63,20 @@ def test_loss_grads_match_reference(arch):
         assert g is not None, path
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5, err_msg=path)
-    # attention's projections are reached, and not by zeros
+    # attention's projections are reached, and not by zeros: one leaf per
+    # stacked group, one per layer of a list group, one in the MTP layer
+    names = (("wq_a", "wq_b", "wkv_a", "wkv_b") if cfg.mla
+             else ("wq", "wk", "wv"))
     attn = [g for path, g in zip(paths, got)
-            if any(f"'{n}'" in path for n in ("wq", "wk", "wv"))]
-    assert len(attn) == 3 * (1 if cfg.num_layers >= 4 else cfg.num_layers)
+            if any(f"'{n}'" in path for n in names)]
+    leaves = sum(1 if g.scanned else len(g.indices) for g in tm.groups)
+    assert len(attn) == len(names) * (leaves + (1 if cfg.mtp_depth else 0))
     assert all(float(g.abs().max()) > 0 for g in attn)
+    if cfg.moe is not None:
+        moe = [g for path, g in zip(paths, got)
+               if any(f"'{n}'" in path for n in ("router", "w_gate"))
+               and "'moe'" in path]
+        assert moe and all(float(g.abs().max()) > 0 for g in moe)
 
 
 def test_cuda_flash_refuses_backward_and_reference_trains():

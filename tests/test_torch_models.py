@@ -48,15 +48,20 @@ def _t(a):
 
 def test_registry_mirrors_reference():
     """All ten configs and smoke configs equal the reference's (sub-configs
-    included); ``LM`` refuses each family that is not ported."""
+    included); ``LM`` builds the MoE and VLM families with the reference's
+    layer groups, and refuses each family that is not ported."""
     assert t_registry.ARCH_IDS == registry.ARCH_IDS
     for arch in registry.ARCH_IDS:
         assert t_registry.get_config(arch) == port_config(
             registry.get_config(arch))
         assert t_registry.get_smoke_config(arch) == port_config(
             registry.get_smoke_config(arch))
-    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "hymba-1.5b",
-                 "xlstm-125m", "qwen2-vl-7b", "whisper-tiny"):
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"):
+        assert [(g.kind, g.indices, g.scanned) for g in
+                TLM(t_registry.get_config(arch)).groups] == \
+            [(g.kind, g.indices, g.scanned) for g in
+             LM(registry.get_config(arch)).groups]
+    for arch in ("hymba-1.5b", "xlstm-125m", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TLM(t_registry.get_config(arch))
 

@@ -3,8 +3,9 @@
 shapes and step functions, and the gemma-2b config.
 
 Both packages get the same params (drawn by the reference, crossing through
-numpy) and the same seeded tokens, on the qwen2 and gemma smoke configs in
-fp32. Tolerance 5e-5, as ``test_torch_models.py``: both sides compute in
+numpy) and the same seeded tokens, on the dense smoke configs (qwen2, gemma,
+gemma3, internlm2) and those of the MoE and VLM families (granite-moe,
+deepseek-v3 with MLA and its MTP head, qwen2-vl) in fp32. Tolerance 5e-5, as ``test_torch_models.py``: both sides compute in
 fp32 but sum in different orders (XLA:CPU vs ATen). The port's forward runs
 with ``attn_impl=None`` (the chunked branch on the CPU) and ``"flash"``
 (the flash kernel's plain version); the reference's LM takes its chunked
@@ -30,13 +31,13 @@ from repro.train.trainstep import make_eval_step as r_eval_step  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.lm import LM as TLM  # noqa: E402
 from repro_torch.train.trainstep import make_eval_step  # noqa: E402
 from _torch_parity import port_config  # noqa: E402
 
 TOL = dict(rtol=5e-5, atol=5e-5)
-ARCHS = ["qwen2-0.5b", "gemma-2b", "gemma3-27b", "internlm2-20b"]
+ARCHS = ["qwen2-0.5b", "gemma-2b", "gemma3-27b", "internlm2-20b",
+         "granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -47,7 +48,7 @@ def model(request):
                               compute_dtype="float32")
     rm = LM(cfg)
     params = jax.tree.map(np.asarray, jax.jit(rm.init)(jax.random.PRNGKey(0)))
-    tm = TLM(ModelConfig(**dataclasses.asdict(cfg)))
+    tm = TLM(port_config(cfg))     # sub-configs as the port's dataclasses
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 21))
     return (cfg, rm, params, tm, params_from_reference(params, device="cpu"),
             toks)
@@ -66,15 +67,20 @@ def test_prefill_and_loss_match_reference(model, attn_impl):
     (want, wm), (got, gm) = jax.jit(rm.loss)(params, rbatch), \
         tm.loss(tparams, batch)
     np.testing.assert_allclose(got.item(), float(want), **TOL)
-    np.testing.assert_allclose(gm["ce"].item(), float(wm["ce"]), **TOL)
-    assert gm["aux"].item() == float(wm["aux"]) == 0.0
+    assert set(gm) == set(wm)
+    for k in wm:                  # ce, aux, and deepseek's mtp_ce
+        np.testing.assert_allclose(gm[k].item(), float(wm[k]), **TOL)
+    # the dense and VLM families have no aux loss; MoE's router has one
+    assert (gm["aux"].item() == float(wm["aux"]) == 0.0) == \
+        (rm.cfg.moe is None)
 
 
 def test_eval_step_matches_reference(model):
     _, rm, params, tm, tparams, toks = model
     want = jax.jit(r_eval_step(rm))(params, {"tokens": jnp.asarray(toks)})
     got = make_eval_step(tm)(tparams, {"tokens": torch.from_numpy(toks)})
-    assert set(got) == set(want) == {"ce", "aux", "loss"}
+    assert set(got) == set(want) == {"ce", "aux", "loss"} | (
+        {"mtp_ce"} if rm.cfg.mtp_depth else set())
     for k in want:
         np.testing.assert_allclose(got[k].item(), float(want[k]), **TOL)
 
@@ -144,8 +150,9 @@ def test_registry_shapes_and_steps_mirror_reference(model):
 
 def test_gemma_config_mirrors_reference():
     """Every config and smoke config equals the reference's; the dense
-    ones (gemma3-27b's sliding windows included) build an ``LM``, and
-    ``LM`` refuses an MoE, an SSM and the other families not ported."""
+    ones (gemma3-27b's sliding windows included), the MoE ones and the VLM
+    build an ``LM``, and ``LM`` refuses the hybrid, the SSM and the
+    encoder-decoder families, which are not ported."""
     for arch in r_registry.ARCH_IDS:
         assert t_registry.get_config(arch) == port_config(
             r_registry.get_config(arch))
@@ -158,8 +165,9 @@ def test_gemma_config_mirrors_reference():
                                                                6)
     assert TLM(g3).windows.tolist() == [
         0 if i % 6 == 5 else 1024 for i in range(62)]
-    for arch in ("granite-moe-3b-a800m", "xlstm-125m", "hymba-1.5b",
-                 "deepseek-v3-671b", "qwen2-vl-7b", "whisper-tiny"):
+    for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"):
+        assert TLM(t_registry.get_config(arch)).groups
+    for arch in ("xlstm-125m", "hymba-1.5b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TLM(t_registry.get_config(arch))
 
