@@ -36,9 +36,11 @@ Phases (each failed check raises; the script then exits non-zero):
    card could take (bytes at the HBM rate, or flops at the card's dense
    peak for the input type, whichever is larger); the paged rows at
    qwen2-0.5b, gemma-2b and qwen2-vl-7b heads, and decode at context 4096
-   at each; flash at S = T = 4096 at qwen2-0.5b, gemma-2b, qwen2-vl-7b
-   and granite-moe-3b-a800m heads (the last two held against the plain
-   version on the timed inputs, as the qwen2-vl-7b paged rows);
+   at each; flash at S = T = 4096 at qwen2-0.5b, gemma-2b, qwen2-vl-7b,
+   granite-moe-3b-a800m, hymba-1.5b (window 1024; SDPA given the window
+   as a boolean mask) and whisper-tiny heads (the last four held against
+   the plain version on the timed inputs, as the qwen2-vl-7b paged
+   rows);
 4. full-width qwen2-0.5b serving (24 layers, seeded random weights) through
    ``ServeEngine`` on the BWAP pool: 8 requests x 32 new tokens, launch
    counters zeroed just before and read just after, every paged launch on
@@ -169,14 +171,47 @@ Phases (each failed check raises; the script then exits non-zero):
    bf16 params, the config's): the loss with MTP at S = 512 finite,
    then MLA's absorbed ``decode_step`` over 64 tokens against the
    materialised forward the same way. Printed: each part's wall time,
-   ms a forward and a ``decode_step``.
+   ms a forward and a ``decode_step``;
+17. the hybrid, xLSTM and encoder-decoder families at full width, each
+   model freed before the next is built: hymba-1.5b (32 layers, d 1600,
+   25/5 heads of 64, SSM state 16, inner 3200; fp32 params): prefill and
+   loss at B = 1, S = 4096, exactly 32 flash launches a forward, 29 at
+   window 1024 and 3 global (the windows the op receives are recorded),
+   the loss (1e-2) against the chunked path; every launch of a third
+   forward held against the plain version on the model's own activations
+   (two bf16 ulps), and its logits at the last 64 positions against the
+   chunked path within the larger of 0.1 and the chunked path's own move
+   when the embedding is nudged one bf16 ulp (measured in the same run:
+   32 bf16 layers amplify rounding past 0.1), the last token's argmax by
+   phase 4's rule, and a window-blind forward must miss that bound on
+   every row; then, cut to 4 layers (layer 0 global, 1-3 at window
+   1024), ``decode_step`` over an 1100-token prompt against the flash
+   forward, each logit at every
+   position within the larger of 0.1 and one bf16 ulp of it, the argmax
+   rule of phase 4's gate at positions 1022-1026 and 1095-1099 (over all
+   positions the argmax flips are printed, not gated); xlstm-125m (12
+   layers, d 768, 4 heads of 192, sLSTM at 3 and 9; fp32 params): the
+   forward and the loss at B = 1, S = 4096, finite, no kernel launched,
+   then ``decode_step`` over 512 tokens (two mLSTM chunks) against the
+   forward, in bf16 compute (the gap printed: the exponential gates of
+   12 layers amplify bf16 rounding) and in fp32 compute, each logit at
+   every position within 0.1, the argmax rule at 254-258 and 507-511;
+   whisper-tiny (4 + 4 layers, d 384, 6/6 heads of
+   64, vocab 51865; fp32 params): prefill and loss at B = 8 over 1500
+   seeded frames and 448 tokens, exactly 4 flash launches a forward (the
+   decoder's self-attention; the encoder and the cross-attention take the
+   chunked path), logits (0.1) and loss (1e-2) against the chunked path;
+   then ``ck``/``cv`` written from ``encode`` and 64 tokens decoded, the
+   last step against ``prefill`` of the same tokens. Printed: ms a
+   forward and a ``decode_step``.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
-granite-moe-3b-a800m heads, each naming its instance and context, and
-the context-4096 decode rows; the rows at qwen2-vl-7b and granite heads
-carry the error of their phase-3 inputs against the plain version, and
-their launches from phase 16; the qwen2-0.5b
+granite-moe-3b-a800m, hymba-1.5b and whisper-tiny heads, each naming its
+instance and context, and the context-4096 decode rows; the rows at
+qwen2-vl-7b, granite, hymba and whisper heads carry the error of their
+phase-3 inputs against the plain version, and their launches from phases
+16 and 17; the qwen2-0.5b
 paged rows also carry phases 10-13's ``coda_launches``,
 ``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
 summed over the zoo's two modes) and the card's
@@ -218,6 +253,9 @@ GEMMA = dict(nq=8, nkv=1, h=256)  # gemma-2b attention heads
 GEMMA3 = dict(nq=32, nkv=16, h=128)  # gemma3-27b attention heads
 QWEN_VL = dict(nq=28, nkv=4, h=128)  # qwen2-vl-7b attention heads
 GRANITE = dict(nq=24, nkv=8, h=64)   # granite-moe-3b-a800m attention heads
+HYMBA = dict(nq=25, nkv=5, h=64)     # hymba-1.5b attention heads
+HYMBA_WINDOW = 1024                  # hymba-1.5b's sliding window
+WHISPER = dict(nq=6, nkv=6, h=64)    # whisper-tiny attention heads
 # phase 2's paged sweep: each instance at serving shapes (tensor cores:
 # bf16 at h 64, 128, 256; CUDA cores: fp32)
 PAGED_SWEEP = ((MAIN, "bfloat16"), (GEMMA3, "bfloat16"), (GEMMA, "bfloat16"),
@@ -768,20 +806,28 @@ def _flash_bound(b, s, t, heads, dtype, window=0,
             "bytes" if t_mem >= t_ops else "operations")
 
 
-def _flash_row(rng, heads, s, tag, gate=False) -> dict:
+def _flash_row(rng, heads, s, tag, gate=False, window=0) -> dict:
     """Time the flash kernel, its plain version (S <= 4096: it holds
-    [B,nkv,g,S,T] fp32 scores) and SDPA (causal, GQA) at B = 1, S = T,
-    bf16, causal. With ``gate`` (S <= 4096) the kernel is first held
-    against its plain version on these inputs, and the row carries that
-    error."""
+    [B,nkv,g,S,T] fp32 scores) and SDPA (causal, GQA; with a ``window``
+    its mask as a boolean [S,T] ``attn_mask``) at B = 1, S = T, bf16,
+    causal. With ``gate`` (S <= 4096) the kernel is first held against its
+    plain version on these inputs, and the row carries that error."""
     import torch.nn.functional as F
     dtype = "bfloat16"
     q, k, v = _flash_inputs(rng, 1, s, s, heads, dtype)
-    run = lambda: fops.flash_attention(q, k, v)
-    plain = lambda: fops.flash_attention(q, k, v, impl="reference")
+    run = lambda: fops.flash_attention(q, k, v, window=window)
+    plain = lambda: fops.flash_attention(q, k, v, window=window,
+                                         impl="reference")
     sq, sk, sv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
-                                                 enable_gqa=True)
+    if window:
+        i = torch.arange(s, device=q.device)
+        d = i[:, None] - i[None, :]
+        mask = (d >= 0) & (d < window)
+        lib = lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
     lib_err = float((run().float() - lib().transpose(1, 2).float())
                     .abs().max())
     long = s > PREFILL_S         # the plain version would need > 8 GB
@@ -789,12 +835,14 @@ def _flash_row(rng, heads, s, tag, gate=False) -> dict:
     ms = _timed(run, iters, warm)
     lib_ms = _timed(lib, iters, warm)
     plain_ms = None if long else _timed(plain, 3, 1)
-    bound_ms, bound_by = _flash_bound(1, s, s, heads, dtype)
+    bound_ms, bound_by = _flash_bound(1, s, s, heads, dtype, window)
     plain_txt = "not run (S > 4096)" if long else f"{plain_ms:.4f} ms"
+    how = f"window {window} mask" if window else "is_causal"
     log(f"time flash_attention ({tag} heads nq {heads['nq']}/nkv "
-        f"{heads['nkv']}/h {heads['h']}, B=1, S=T={s}, bf16, causal): "
+        f"{heads['nkv']}/h {heads['h']}, B=1, S=T={s}, bf16, causal"
+        f"{f', window {window}' if window else ''}): "
         f"kernel {ms:.4f} ms, plain {plain_txt}, library yardstick (SDPA, "
-        f"is_causal, enable_gqa; never called by the port) {lib_ms:.4f} ms "
+        f"{how}, enable_gqa; never called by the port) {lib_ms:.4f} ms "
         f"[|kernel-SDPA| {lib_err:.3g}], bound {bound_ms:.5f} ms "
         f"({bound_by}; bf16 peak {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
         f"HBM {HBM_BYTES_PER_S / 1e12} TB/s), kernel/bound "
@@ -802,6 +850,8 @@ def _flash_row(rng, heads, s, tag, gate=False) -> dict:
         f"{smi_line()}")
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=bound_ms, bound_by=bound_by)
+    if window:
+        row["window"] = window
     if gate:
         row["max_abs_err"] = _max_err(run(), plain(), dtype)
     return row
@@ -863,10 +913,10 @@ def _paged_rows(rng, heads, tag, gate=False) -> dict[str, dict]:
 
 def phase_timing() -> dict[tuple[str, str], dict]:
     """The paged rows at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads, then
-    the flash rows (and flash at granite-moe-3b-a800m heads); keyed (entry
-    point, heads) for the JSON record. The rows at the heads of phase 16's
-    models also hold the kernel against its plain version on their
-    inputs."""
+    the flash rows (and flash at granite-moe-3b-a800m, hymba-1.5b (window
+    1024) and whisper-tiny heads); keyed (entry point, heads) for the JSON
+    record. The rows at the heads of phase 16's and 17's models also hold
+    the kernel against its plain version on their inputs."""
     rng = np.random.default_rng(2)
     rows = {}
     for tag, heads in (("qwen2-0.5b", MAIN), ("gemma-2b", GEMMA),
@@ -880,12 +930,14 @@ def phase_timing() -> dict[tuple[str, str], dict]:
     _flash_row(frng, MAIN, LONG_S, "qwen2-0.5b, prefill_32k length")
     rows["flash_attention_bh", "gemma-2b"] = _flash_row(
         frng, GEMMA, PREFILL_S, "gemma-2b")
-    for tag, heads in (("qwen2-vl-7b", QWEN_VL),
-                       ("granite-moe-3b-a800m", GRANITE)):
-        rows["flash_attention_bh", tag] = _flash_row(frng, heads, PREFILL_S,
-                                                     tag, gate=True)
+    for tag, heads, window in (("qwen2-vl-7b", QWEN_VL, 0),
+                               ("granite-moe-3b-a800m", GRANITE, 0),
+                               ("hymba-1.5b", HYMBA, HYMBA_WINDOW),
+                               ("whisper-tiny", WHISPER, 0)):
+        rows["flash_attention_bh", tag] = _flash_row(
+            frng, heads, PREFILL_S, tag, gate=True, window=window)
     for key in ("qwen2-0.5b", "gemma-2b", "qwen2-vl-7b",
-                "granite-moe-3b-a800m"):
+                "granite-moe-3b-a800m", "hymba-1.5b", "whisper-tiny"):
         rows["flash_attention_bh", key]["context"] = PREFILL_S
     return rows
 
@@ -2659,6 +2711,487 @@ def phase_families(device) -> dict:
     return out
 
 
+# -- phase 17 ------------------------------------------------------------------
+
+HY_LAYERS, HY_S = 4, 1100        # hymba's decode depth cut, prompt length
+XL_DECODE = 512                  # xlstm's decode prompt: two mLSTM chunks
+# xlstm's bf16 decode against the fp32 forward, over the bf16 forward's
+# gap: mean and max |diff| (the CPU test's bounds)
+XL_MEAN_RATIO, XL_MAX_RATIO = 1.05, 1.1
+WH_B, WH_S = 8, 448              # whisper: batch, published text context
+WH_DECODE = 64                   # whisper's decode prompt
+
+
+class _FlashCalls:
+    """Within the block, the ``window`` of every call of the flash op that
+    ``full_attention`` makes; with ``plain``, each call's output is also
+    held against the op's plain version on the same inputs (``_max_err``:
+    two bf16 ulps) and its error kept. The op itself runs unchanged, and
+    the plain version launches no kernel."""
+
+    def __init__(self, plain: bool = False):
+        self.plain = plain
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.seen, self.errs = [], []
+        self._mod = attention.flash_ops
+        self._orig = op = self._mod.flash_attention
+
+        def recorded(q, k, v, *, window=0, causal=True, impl=None):
+            self.seen.append(int(window))
+            out = op(q, k, v, window=window, causal=causal, impl=impl)
+            if self.plain:
+                want = op(q, k, v, window=window, causal=causal,
+                          impl="reference")
+                self.errs.append(_max_err(out, want, str(q.dtype)[6:]))
+            return out
+        self._mod.flash_attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._orig
+        return False
+
+
+def _all_rows_gate(fast, plain, keep, what, *, scaled: bool) -> dict:
+    """Every row: each logit within ``_logits_gate``'s bound (logged
+    before it is checked, with the argmax flips over all rows: (row, plain
+    margin, kernel margin), watched); then ``_logits_gate`` itself, argmax
+    rule included, on the rows ``keep``."""
+    err, over, wrong, ties = _gate_misses(fast, plain, scaled)
+    big = max((min(abs(m), abs(n)) for _, m, n in wrong), default=0.0)
+    log(f"{what}: over all {plain.shape[0]} rows max |diff| {err:.4g}, "
+        f"{len(over)} rows over the bound {over[:8]}, argmax flips with "
+        f"non-zero margins on {len(wrong)} rows (watched, not gated; the "
+        f"larger of the two margins at most {big:.4g}: {wrong[:4]}), "
+        f"{ties} exact ties")
+    check(not over, f"{what}: logits differ by up to {err} over the bound "
+          f"on rows {over}")
+    kerr, kties = _logits_gate(fast[keep], plain[keep], what, scaled=scaled)
+    return dict(err=err, flips=len(wrong), ties=ties, keep_err=kerr,
+                keep_ties=kties)
+
+
+HY_ROWS = 64                     # the forward gate's last positions
+
+
+def _noise_floor_gate(lm, params, toks) -> dict:
+    """hymba's forward gate. Its 32 bf16 layers amplify rounding: the
+    chunked path against itself with the embedding nudged by one bf16 ulp
+    (seeded signs) moves the logits by more than ``LOGIT_TOL`` (this gate
+    prints by how much). So: every flash launch of the kernel forward is
+    held against its plain version on the model's own activations
+    (``_FlashCalls(plain=True)``, two bf16 ulps); the logits at the last
+    ``HY_ROWS`` positions, kernel against chunked path, within the larger
+    of ``LOGIT_TOL`` and that nudge's gap, measured here; the last
+    token's argmax by ``_logits_gate``'s rule; and a window-blind kernel
+    forward must miss that bound on every row."""
+    s = toks.shape[1]
+    rows = list(range(s - HY_ROWS, s))
+    pos = torch.arange(s, dtype=torch.int32, device=toks.device)[None]
+
+    def logits(p, impl, windows=None):
+        saved = lm.windows
+        lm.attn_impl = impl
+        if windows is not None:
+            lm.windows = windows
+        try:
+            with torch.no_grad():
+                h, _, _ = lm.hidden(p, lm.embed(p, {"tokens": toks}), pos)
+                return lm.logits(p, h[0, rows]).float()
+        finally:
+            lm.attn_impl, lm.windows = None, saved
+
+    fkernel.reset_launch_counts()
+    with _FlashCalls(plain=True) as calls:
+        fast = logits(params, None)
+    n = dict(fkernel.LAUNCHES)
+    plain = logits(params, "reference")
+    gen = torch.Generator(device=toks.device).manual_seed(0)
+    sign = torch.randint(0, 2, params["embed"].shape, generator=gen,
+                         device=toks.device) * 2.0 - 1
+    nudge = dict(params, embed=params["embed"] * (1 + sign * 2.0 ** -8))
+    nudged = logits(nudge, "reference")
+    fkernel.reset_launch_counts()
+    blind = logits(params, None, np.zeros_like(lm.windows))
+    n_blind = dict(fkernel.LAUNCHES)
+    gap = float((fast - plain).abs().max())
+    floor = float((nudged - plain).abs().max())
+    bound = max(LOGIT_TOL, floor)
+    blind_min = float((blind - plain).abs().amax(-1).min())
+    _, _, wrong, ties = _gate_misses(fast[-1:], plain[-1:])
+    nl = lm.cfg.num_layers
+    want = {"flash_attention": 0, "flash_attention_wgmma": nl}
+    check(len(calls.errs) == nl and n == want and n_blind == want,
+          f"hymba gate: flash launches {n}, {len(calls.errs)} held, window-"
+          f"blind {n_blind}, want {nl}")
+    check(gap <= bound, f"hymba: logits differ by up to {gap} > "
+          f"max({LOGIT_TOL}, one-ulp nudge {floor})")
+    check(not wrong, f"hymba: the last token's argmax differs {wrong}")
+    check(blind_min > bound, f"hymba: a window-blind forward passes the "
+          f"gate on some row (min row |diff| {blind_min} <= {bound})")
+    return dict(errs=calls.errs, gap=gap, floor=floor, bound=bound,
+                ties=ties, blind=blind_min, launches=n,
+                top=float(plain.abs().max()))
+
+
+def _family_hymba(device) -> dict:
+    """hymba-1.5b at full width and depth (fp32 params, the config's):
+    ``LM.prefill`` and the loss at B = 1, S = 4096 through the flash
+    kernel (32 launches a forward, 29 at window 1024 and 3 global) against
+    the chunked path (``_noise_floor_gate``); then, cut to 4 layers (layer
+    0 global, 1-3 at window 1024), ``decode_step`` over an 1100-token
+    prompt against the flash forward at every position."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    from repro_torch.train.trainstep import make_eval_step
+    t0 = time.perf_counter()
+    cfg = registry.get_config("hymba-1.5b")
+    lm = LM(cfg)
+    nl, w = cfg.num_layers, cfg.sliding_window
+    wins = lm.windows.tolist()
+    check(w == HYMBA_WINDOW and wins.count(0) == 3
+          and wins.count(w) == nl - 3,
+          f"hymba windows {wins}")
+    params = lm.init(torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        1, cfg.vocab_size, (1, PREFILL_S))).to(device)
+    step = make_eval_step(lm)
+    with torch.no_grad():
+        lm.prefill(params, {"tokens": toks})      # warm-up, not timed
+    with _FlashCalls() as seen:
+        fast, n_fast = _forward(lm, params, toks, step)
+    lm.attn_impl = "reference"
+    plain, n_plain = _forward(lm, params, toks, step)
+    lm.attn_impl = None
+    want = {"flash_attention": 0, "flash_attention_wgmma": nl}
+    dloss = abs(fast["loss"] - plain["loss"])
+    log(f"hymba-1.5b forward ({nl} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}/{cfg.head_dim_}, SSM state "
+        f"{cfg.ssm.state_dim}, inner {cfg.ssm.expand * cfg.d_model}, "
+        f"{_gb(params):.1f} GB of fp32 params), B=1, S={PREFILL_S}: flash "
+        f"launches {n_fast}, windows {sorted(set(seen.seen))} "
+        f"({seen.seen.count(w)} at {w}, {seen.seen.count(0)} global over "
+        f"both forwards); prefill {1e3 * fast['wall']:.1f} ms vs chunked "
+        f"path {1e3 * plain['wall']:.1f} ms; loss {fast['loss']:.6f} vs "
+        f"{plain['loss']:.6f} (|diff| {dloss:.3g}, gate {LOSS_TOL})")
+    check(n_fast == {"prefill": want, "eval": want},
+          f"hymba: flash launches {n_fast}, want {nl} per forward")
+    check(seen.seen == wins * 2, f"hymba: flash windows {seen.seen}, want "
+          f"{wins} per forward")
+    check(all(n == 0 for f in n_plain.values() for n in f.values()),
+          "hymba: the chunked path launched the kernel")
+    check(all(np.isfinite([fast["loss"], plain["loss"]]))
+          and bool(torch.isfinite(fast["logits"]).all()),
+          "hymba: non-finite logits or loss")
+    check(dloss <= LOSS_TOL, f"hymba: loss differs by {dloss} > {LOSS_TOL}")
+    gate = _noise_floor_gate(lm, params, toks)
+    log(f"hymba-1.5b flash kernel on the model's own activations: "
+        f"{len(gate['errs'])} launches, each within two bf16 ulps of its "
+        f"plain version (max |err| {max(gate['errs']):.4g}); logits at the "
+        f"last {HY_ROWS} positions, kernel vs chunked path: max |diff| "
+        f"{gate['gap']:.4g} (|logit| up to {gate['top']:.3g}); the chunked "
+        f"path against itself with the embedding nudged one bf16 ulp: "
+        f"{gate['floor']:.4g}; gate max({LOGIT_TOL}, that floor) = "
+        f"{gate['bound']:.4g}; the last token's argmax equal"
+        f"{' but for an exact tie' if gate['ties'] else ''}; a window-blind "
+        f"kernel forward misses the gate on every row (min row |diff| "
+        f"{gate['blind']:.4g}); {time.perf_counter() - t0:.1f} s -- "
+        f"{smi_line()}")
+    # decode, cut to 4 layers: the first 4 of the stacked layers' params
+    cut = dataclasses.replace(cfg, num_layers=HY_LAYERS, global_layers=(0,))
+    lm4 = LM(cut)
+    check(lm4.windows.tolist() == [0] + [w] * (HY_LAYERS - 1)
+          and [g.scanned for g in lm4.groups] == [True],
+          f"hymba cut: windows {lm4.windows.tolist()}")
+    p4 = dict(params, groups=[_layers(params["groups"][0], HY_LAYERS)])
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        1, cfg.vocab_size, (1, HY_S))).to(device)
+    positions = torch.arange(HY_S, dtype=torch.int32, device=device)
+    cache = lm4.init_cache(1, HY_S, device=device)
+    saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+    kept = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(HY_S):
+            lg, cache = lm4.decode_step(p4, cache, toks[:, t:t + 1],
+                                        positions[t])
+            kept.append(lg[0, 0])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / HY_S
+    check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+          "hymba: decode_step launched a kernel")
+    fkernel.reset_launch_counts()
+    with torch.no_grad(), _FlashCalls() as seen:
+        x = lm4.embed(p4, {"tokens": toks})
+        h, _, _ = lm4.hidden(p4, x, positions[None])
+        full = lm4.logits(p4, h[0])
+    n = dict(fkernel.LAUNCHES)
+    check(n == {"flash_attention": 0, "flash_attention_wgmma": HY_LAYERS}
+          and seen.seen == lm4.windows.tolist(),
+          f"hymba cut forward: flash launches {n}, windows {seen.seen}")
+    keep = list(range(w - 2, w + 3)) + list(range(HY_S - 5, HY_S))
+    g = _all_rows_gate(full, torch.stack(kept), keep, "hymba-1.5b flash "
+                       "forward vs decode_step", scaled=True)
+    log(f"hymba-1.5b decode (depth cut to {HY_LAYERS} layers, windows "
+        f"{lm4.windows.tolist()}): {HY_S} tokens decoded one by one, "
+        f"{step_ms:.2f} ms a decode_step (B=1, mean over the prompt); "
+        f"every position vs the flash forward: max |diff| {g['err']:.4g} "
+        f"(gate max({LOGIT_TOL}, 1 bf16 ulp of the logit); |logit| up to "
+        f"{float(full.float().abs().max()):.3g}); the argmax rule at "
+        f"positions {keep[0]}-{keep[4]} and {keep[5]}-{keep[-1]}: max "
+        f"|diff| {g['keep_err']:.4g}, {g['keep_ties']} exact ties; "
+        f"{time.perf_counter() - t0:.1f} s in all -- {smi_line()}")
+    # the model's own forwards; not the window-blind one, which runs
+    # windows the config does not have
+    flash = sum(f["flash_attention_wgmma"] for f in
+                (n_fast["prefill"], n_fast["eval"], gate["launches"], n))
+    return dict(flash=flash, step_ms=step_ms)
+
+
+def _layers(tree, n):
+    """The first ``n`` layers of a stacked group's params."""
+    return {k: (_layers(v, n) if isinstance(v, dict) else v[:n])
+            for k, v in tree.items()}
+
+
+def _family_xlstm(device) -> dict:
+    """xlstm-125m at full width and depth (fp32 params): the forward and
+    the loss at B = 1, S = 4096 in the config's bf16 compute, finite, no
+    kernel launched (mLSTM, sLSTM and the head are plain torch); then
+    ``decode_step`` over a 512-token prompt (two mLSTM chunks) against the
+    forward at every position, gated in fp32 compute (the chunkwise and
+    the recurrent form are one recurrence; in bf16 their roundings part
+    through the exponential gates of 12 layers, and that gap is printed,
+    not gated); and in bf16, the decode no further from the fp32 forward
+    than the bf16 forward is (``XL_MEAN_RATIO``, ``XL_MAX_RATIO``)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = registry.get_config("xlstm-125m")
+    lm = LM(cfg)
+    kinds = [(g.kind, len(g.indices)) for g in lm.groups]
+    check(kinds == [("mlstm", 3), ("slstm", 1), ("mlstm", 5), ("slstm", 1),
+                    ("mlstm", 2)], f"xlstm groups {kinds}")
+    params = lm.init(torch.Generator(device=device).manual_seed(0),
+                     device=device)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        1, cfg.vocab_size, (1, PREFILL_S))).to(device)
+    batch = {"tokens": toks}
+    saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+    with torch.no_grad():
+        lm.prefill(params, {"tokens": toks[:, :256]})   # warm-up
+        logits, fwd_ms = _synced_ms(lm.prefill, params, batch)
+        (loss, _), loss_ms = _synced_ms(lm.loss, params, batch)
+    check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+          "xlstm: its forward launched a kernel")
+    check(bool(torch.isfinite(logits).all()) and np.isfinite(float(loss)),
+          f"xlstm: non-finite logits or loss {float(loss)}")
+    log(f"xlstm-125m forward ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim_}, sLSTM at "
+        f"{cfg.xlstm.slstm_at}, {_gb(params):.2f} GB of fp32 params, bf16 "
+        f"compute), B=1, S={PREFILL_S}: prefill {fwd_ms:.1f} ms, loss "
+        f"{float(loss):.6f} in {loss_ms:.1f} ms (synchronised wall; no "
+        f"kernel on this path)")
+    dtoks = toks[:, :XL_DECODE]
+    positions = torch.arange(XL_DECODE, dtype=torch.int32, device=device)
+
+    def decode_and_forward(model):
+        cache = model.init_cache(1, XL_DECODE, device=device)
+        kept = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(XL_DECODE):
+                lg, cache = model.decode_step(params, cache,
+                                              dtoks[:, t:t + 1],
+                                              positions[t])
+                kept.append(lg[0, 0])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1) / XL_DECODE
+            x = model.embed(params, {"tokens": dtoks})
+            h, _, _ = model.hidden(params, x, positions[None])
+            full = model.logits(params, h[0])
+        check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+              "xlstm: decode launched a kernel")
+        return full, torch.stack(kept), ms
+
+    full16, dec16, step_ms = decode_and_forward(lm)
+    berr, bover, bwrong, _ = _gate_misses(full16, dec16)
+    log(f"xlstm-125m decode in bf16 compute: {XL_DECODE} tokens decoded "
+        f"one by one, {step_ms:.2f} ms a decode_step (B=1, mean over the "
+        f"prompt); vs the bf16 forward (watched, not gated): max |diff| "
+        f"{berr:.4g}, {len(bover)} of {XL_DECODE} rows over {LOGIT_TOL}, "
+        f"argmax flips with non-zero margins on {len(bwrong)} rows")
+    lm32 = LM(dataclasses.replace(cfg, compute_dtype="float32"))
+    full, dec, step32_ms = decode_and_forward(lm32)
+    keep = list(range(254, 259)) + list(range(XL_DECODE - 5, XL_DECODE))
+    g = _all_rows_gate(full, dec, keep, "xlstm-125m forward vs "
+                       "decode_step (fp32 compute)", scaled=False)
+    log(f"xlstm-125m decode in fp32 compute: {step32_ms:.2f} ms a "
+        f"decode_step; every position vs the forward: max |diff| "
+        f"{g['err']:.4g} (gate {LOGIT_TOL}; |logit| up to "
+        f"{float(full.abs().max()):.3g}); the argmax rule at positions "
+        f"{keep[0]}-{keep[4]} (across the first chunk's end) and "
+        f"{keep[5]}-{keep[-1]}: max |diff| {g['keep_err']:.4g}, "
+        f"{g['keep_ties']} exact ties")
+    # bf16: the decode strays from the fp32 forward no further than the
+    # bf16 forward does (tests/test_torch_decode.py's
+    # test_bf16_decode_tracks_fp32_forward at full width)
+    fwd_gap = (full16.float() - full).abs()
+    dec_gap = (dec16.float() - full).abs()
+    mean = float(dec_gap.mean()) / float(fwd_gap.mean())
+    top = float(dec_gap.max()) / float(fwd_gap.max())
+    log(f"xlstm-125m bf16 against the fp32 forward, every position: the "
+        f"forward mean |diff| {float(fwd_gap.mean()):.4g}, max "
+        f"{float(fwd_gap.max()):.4g}; decode_step mean "
+        f"{float(dec_gap.mean()):.4g}, max {float(dec_gap.max()):.4g}; "
+        f"ratios {mean:.4g} (gate {XL_MEAN_RATIO}) and {top:.4g} (gate "
+        f"{XL_MAX_RATIO}); {time.perf_counter() - t0:.1f} s in all -- "
+        f"{smi_line()}")
+    check(mean <= XL_MEAN_RATIO and top <= XL_MAX_RATIO,
+          f"xlstm: the bf16 decode strays from the fp32 forward {mean}x "
+          f"(mean) / {top}x (max) as far as the bf16 forward does")
+    return dict(fwd_ms=fwd_ms, step_ms=step_ms, bf16_gap=berr)
+
+
+def _family_whisper(device) -> dict:
+    """whisper-tiny at full width (fp32 params): ``prefill`` and the loss
+    at B = 8 over 1500 seeded frames and 448 tokens, the decoder's
+    self-attention through the flash kernel (4 launches a forward), against
+    the chunked path, and every launch of a kernel forward against its
+    plain version on the model's activations; then ``ck``/``cv`` written
+    from ``encode`` and 64 tokens decoded, the last step against
+    ``prefill`` of those tokens."""
+    from repro_torch.configs import registry
+    from repro_torch.models.whisper import EncDecLM
+    t0 = time.perf_counter()
+    cfg = registry.get_config("whisper-tiny")
+    model = registry.make_model(cfg)
+    check(isinstance(model, EncDecLM), f"whisper: {type(model)}")
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    rng = np.random.default_rng(15)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WH_B, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(device)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (WH_B, WH_S))).to(device)
+    batch = {"frames": frames, "tokens": toks}
+    nl = cfg.num_layers
+
+    def forward():
+        torch.cuda.synchronize()
+        fkernel.reset_launch_counts()
+        with torch.no_grad():
+            logits, ms = _synced_ms(model.prefill, params, batch)
+            n = {"prefill": dict(fkernel.LAUNCHES)}
+            fkernel.reset_launch_counts()
+            loss, _ = model.loss(params, batch)
+            n["loss"] = dict(fkernel.LAUNCHES)
+        return logits[:, 0].float(), float(loss), ms, n
+
+    with torch.no_grad():
+        model.prefill(params, batch)              # warm-up, not timed
+    fast, fast_loss, ms, n_fast = forward()
+    model.attn_impl = "reference"
+    plain, plain_loss, plain_ms, n_plain = forward()
+    model.attn_impl = None
+    want = {"flash_attention": 0, "flash_attention_wgmma": nl}
+    check(n_fast == {"prefill": want, "loss": want},
+          f"whisper: flash launches {n_fast}, want {nl} per forward")
+    check(all(n == 0 for f in n_plain.values() for n in f.values()),
+          "whisper: the chunked path launched the kernel")
+    check(all(np.isfinite([fast_loss, plain_loss]))
+          and bool(torch.isfinite(fast).all()),
+          "whisper: non-finite logits or loss")
+    # every launch of a kernel forward at this shape against its plain
+    # version on the model's own activations
+    fkernel.reset_launch_counts()
+    with torch.no_grad(), _FlashCalls(plain=True) as calls:
+        model.prefill(params, batch)
+    n_held = dict(fkernel.LAUNCHES)
+    check(len(calls.errs) == nl and n_held == want,
+          f"whisper: flash launches {n_held}, {len(calls.errs)} held, want "
+          f"{nl}")
+    err, ties = _logits_gate(fast, plain, "whisper-tiny")
+    dloss = abs(fast_loss - plain_loss)
+    check(dloss <= LOSS_TOL, f"whisper: loss differs by {dloss} > "
+          f"{LOSS_TOL}")
+    log(f"whisper-tiny forward ({cfg.enc_layers}+{nl} layers, d "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}/"
+        f"{cfg.head_dim_}, vocab {cfg.vocab_size}, {_gb(params):.2f} GB of "
+        f"fp32 params), B={WH_B}, {cfg.enc_frames} frames, {WH_S} tokens: "
+        f"flash launches {n_fast}; prefill {ms:.1f} ms vs chunked path "
+        f"{plain_ms:.1f} ms; {len(calls.errs)} launches each within two "
+        f"bf16 ulps of the plain version on the model's own activations "
+        f"(max |err| {max(calls.errs):.4g}); last-token logits max |diff| "
+        f"{err:.4g} (gate "
+        f"{LOGIT_TOL}; |logit| up to {float(plain.abs().max()):.3g}), argmax "
+        f"equal on {WH_B - ties}/{WH_B} rows, the rest exact ties; loss "
+        f"{fast_loss:.6f} vs {plain_loss:.6f} (|diff| {dloss:.3g}, gate "
+        f"{LOSS_TOL})")
+    # decode: the cross K/V from the encoder, as the caller must write them
+    cdt = getattr(torch, cfg.compute_dtype)
+    f, nkv, hd = cfg.enc_frames, cfg.num_kv_heads, cfg.head_dim_
+    dtoks = toks[:, :WH_DECODE]
+    saved, fsaved = dict(kernel.LAUNCHES), dict(fkernel.LAUNCHES)
+    with torch.no_grad():
+        enc = model.encode(params, frames)
+        cache = model.init_cache(params, WH_B, WH_DECODE, f, device=device)
+        for c, p_l in zip(cache, params["dec"]):
+            pc = p_l["cross"]
+            c["ck"].copy_((enc @ pc["wk"].to(cdt)).reshape(WH_B, f, nkv, hd))
+            c["cv"].copy_((enc @ pc["wv"].to(cdt)).reshape(WH_B, f, nkv, hd))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(WH_DECODE):
+            lg, cache = model.decode_step(params, cache, dtoks[:, t:t + 1],
+                                          torch.tensor(t, device=device))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t1) / WH_DECODE
+        check(kernel.LAUNCHES == saved and fkernel.LAUNCHES == fsaved,
+              "whisper: decode launched a kernel")
+        fkernel.reset_launch_counts()
+        full = model.prefill(params, {"frames": frames, "tokens": dtoks})
+        n = dict(fkernel.LAUNCHES)
+    check(n == want, f"whisper decode gate's prefill: flash launches {n}")
+    derr, dties = _logits_gate(full[:, 0].float(), lg[:, 0].float(),
+                               "whisper-tiny prefill vs decode_step")
+    log(f"whisper-tiny decode (B={WH_B}, cross K/V written from encode): "
+        f"{WH_DECODE} tokens, {step_ms:.2f} ms a decode_step; the last "
+        f"step vs prefill of the same tokens: max |diff| {derr:.4g} (gate "
+        f"{LOGIT_TOL}), argmax equal on {WH_B - dties}/{WH_B} rows, the "
+        f"rest exact ties; {time.perf_counter() - t0:.1f} s in all -- "
+        f"{smi_line()}")
+    flash = sum(f["flash_attention_wgmma"] for f in
+                (n_fast["prefill"], n_fast["loss"], n_held, n))
+    return dict(flash=flash, step_ms=step_ms)
+
+
+def phase_families_17(device) -> dict:
+    """Phase 17: hymba-1.5b, xlstm-125m and whisper-tiny at full width,
+    each model freed before the next is built. Returns the flash launches
+    for the JSON record."""
+    import gc
+    out = {}
+    for name, part in (("hymba-1.5b", _family_hymba),
+                       ("xlstm-125m", _family_xlstm),
+                       ("whisper-tiny", _family_whisper)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 17, {name}: {torch.cuda.memory_allocated() / 1e9:.1f} "
+            f"GB allocated on the card before the model is built")
+        out[name] = part(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -2725,6 +3258,8 @@ def main() -> int:
     del s["params"], g["params"]           # phase 16 needs the room
     fam = phase_families(device)
     done("16")
+    fam.update(phase_families_17(device))
+    done("17")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -2733,8 +3268,8 @@ def main() -> int:
     # (name, timed row, source, TPU kernel's pallas_call); a row per entry
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
-    # flash; phase 16 for qwen2-vl-7b and granite), its error from the bf16
-    # cases at that head dim
+    # flash; phase 16 for qwen2-vl-7b and granite, phase 17 for hymba and
+    # whisper), its error from the bf16 cases at that head dim
     table = [
         ("paged_attention", "paged_attention", paged_src, f"{paged_tpu}:317"),
         ("paged_attention", ("paged_attention", LONG_CTX), paged_src,
@@ -2748,13 +3283,15 @@ def main() -> int:
          "src/repro/kernels/flash_attention/kernel.py:114"),
     ]
     rows = []
-    # the rows at qwen2-vl-7b heads carry the error of their own timed
-    # inputs against the plain version; the others phase 2's at that dtype
-    # and head dim
+    # the rows at the heads of phases 16 and 17 carry the error of their
+    # own timed inputs against the plain version; the others phase 2's at
+    # that dtype and head dim
     for tag, heads, entries in (
             ("qwen2-0.5b", MAIN, table), ("gemma-2b", GEMMA, table),
             ("qwen2-vl-7b", QWEN_VL, table),
-            ("granite-moe-3b-a800m", GRANITE, table[-1:])):
+            ("granite-moe-3b-a800m", GRANITE, table[-1:]),
+            ("hymba-1.5b", HYMBA, table[-1:]),
+            ("whisper-tiny", WHISPER, table[-1:])):
         h = heads["h"]
         for name, timed, source, replaces in entries:
             if name == "flash_attention_bh":

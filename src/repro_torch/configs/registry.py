@@ -2,16 +2,15 @@
 ``repro.configs.registry``).
 
 The ids are the reference's ten, and every config is a copy of the
-reference's. ``LM`` builds the dense family (``qwen2-0.5b``, ``gemma-2b``,
-``internlm2-20b``, ``gemma3-27b``), the MoE family
-(``granite-moe-3b-a800m``, ``deepseek-v3-671b``) and the VLM
-(``qwen2-vl-7b``); the hybrid, SSM and encoder-decoder families
-(``hymba-1.5b``, ``xlstm-125m``, ``whisper-tiny``) raise in ``LM`` until
-their model lands (ROADMAP queue 1 item 9c), but their configs serve the
-placement layer (a geometry needs only the config). ``step_fn`` gives
-the train, prefill and decode steps (decode's batch is ``{"cache",
-"tokens", "position"}``, as the reference's). ``input_specs``
-(``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
+reference's. ``make_model`` builds each: ``LM`` for the dense family
+(``qwen2-0.5b``, ``gemma-2b``, ``internlm2-20b``, ``gemma3-27b``), the MoE
+family (``granite-moe-3b-a800m``, ``deepseek-v3-671b``), the VLM
+(``qwen2-vl-7b``), the hybrid (``hymba-1.5b``) and the SSM family
+(``xlstm-125m``), and ``EncDecLM`` for the encoder-decoder
+(``whisper-tiny``). ``step_fn`` gives the train, prefill and decode steps
+(decode's batch is ``{"cache", "tokens", "position"}``, as the
+reference's; whisper's train and prefill batches also bring ``frames``).
+``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins) has no counterpart.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
+from repro_torch.models.whisper import EncDecLM
 
 ARCH_IDS = [
     "granite-moe-3b-a800m",
@@ -66,9 +66,9 @@ SHAPES: dict[str, Shape] = {
 }
 
 
-def make_model(cfg: ModelConfig) -> LM:
-    """The LM (``LM`` raises for a family that is not ported)."""
-    return LM(cfg)
+def make_model(cfg: ModelConfig) -> LM | EncDecLM:
+    """``EncDecLM`` for an encoder-decoder config, else ``LM``."""
+    return EncDecLM(cfg) if cfg.enc_dec else LM(cfg)
 
 
 def cell_supported(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:

@@ -5,7 +5,9 @@ The full-sequence reference path (``chunked_mha``), the grouped decode
 einsum (``gqa_attention``), ``full_attention``, whose causal attention
 goes through the flash-attention op (on a card the hand-written CUDA
 kernel, ``kernels/flash_attention``, the counterpart of the reference's
-Pallas route ``impl="flash"``), and the dense KV cache with one-token
+Pallas route ``impl="flash"``) and whose non-causal attention (whisper's
+encoder, and its cross-attention over ``xkv``) takes the chunked path, as
+the reference's, and the dense KV cache with one-token
 decode (``init_cache``, ``decode_attention``), in plain torch as the
 reference's is plain jnp. Under M-RoPE (qwen2-vl) q and k rotate with
 ``layers.apply_mrope`` over ``[3, B, S]`` positions and the mask reads
@@ -182,8 +184,9 @@ def takes_flash(impl: str | None, x, causal: bool = True) -> bool:
 
 
 def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
-                   impl: str | None = None, causal: bool = True):
-    """Full-sequence self-attention (train / prefill).
+                   impl: str | None = None, causal: bool = True,
+                   kv_positions=None, xkv=None):
+    """Full-sequence attention (train / prefill / encoder / cross).
 
     ``impl`` picks the branch of causal attention: ``None`` takes the flash
     branch on a CUDA tensor (the CUDA kernel) and the chunked reference
@@ -198,33 +201,43 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     positions on that branch.
 
     ``positions`` is [B,S], or [3,B,S] under M-RoPE (the mask reads stream
-    1, the temporal one, as the reference's). Returns (out [B,S,d],
-    (k, v)) with k/v [B,S,nkv,hd] for cache priming.
+    1, the temporal one, as the reference's). ``xkv`` [B,T,d] is the source
+    of K and V (cross-attention; default ``x``) at ``kv_positions``
+    (default ``positions``); rotary embeddings apply to self-attention
+    only (causal, or ``xkv`` is ``x``), as the reference's. Returns (out
+    [B,S,d], (k, v)) with k/v [B,T,nkv,hd] for cache priming.
     """
     flash = takes_flash(impl, x, causal)
     cdt = dtype_of(cfg.compute_dtype)
     b, s, _ = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    self_attn = xkv is None or xkv is x
+    xkv = x if xkv is None else xkv
+    kv_positions = positions if kv_positions is None else kv_positions
     x = x.to(cdt)
+    xkv = xkv.to(cdt)
     q = x @ p["wq"].to(cdt)
-    k = x @ p["wk"].to(cdt)
-    v = x @ p["wv"].to(cdt)
+    k = xkv @ p["wk"].to(cdt)
+    v = xkv @ p["wv"].to(cdt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
+    t = xkv.shape[1]
     q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
-    if cfg.use_rope and cfg.mrope:
-        q = layers.apply_mrope(q, positions, cfg.rope_theta,
-                               cfg.mrope_sections)
-        k = layers.apply_mrope(k, positions, cfg.rope_theta,
-                               cfg.mrope_sections)
-    elif cfg.use_rope:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    k = k.reshape(b, t, nkv, hd)
+    v = v.reshape(b, t, nkv, hd)
+    if cfg.use_rope and (causal or self_attn):
+        if cfg.mrope:
+            q = layers.apply_mrope(q, positions, cfg.rope_theta,
+                                   cfg.mrope_sections)
+            k = layers.apply_mrope(k, kv_positions, cfg.rope_theta,
+                                   cfg.mrope_sections)
+        else:
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
     pos1 = positions[1] if cfg.mrope else positions   # temporal stream masks
+    kpos1 = kv_positions[1] if cfg.mrope else kv_positions
     if flash:
         out = flash_ops.flash_attention(q, k, v, window=int(window))
     else:
@@ -232,7 +245,7 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
         g = nq // nkv
         kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
         vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-        out = chunked_mha(q, kf, vf, pos1, pos1, int(window), causal, cdt,
+        out = chunked_mha(q, kf, vf, pos1, kpos1, int(window), causal, cdt,
                           scores_dtype=dtype_of(cfg.attn_scores_dtype))
     out = out.reshape(b, s, nq * hd) @ p["wo"].to(cdt)
     return out, (k, v)

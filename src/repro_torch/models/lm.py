@@ -1,17 +1,23 @@
 """Causal LM assembly (port of ``repro.models.lm``: ``init``, ``embed``,
 ``hidden``, ``logits``, ``loss`` with DeepSeek's MTP head, ``prefill``, and
 decode: ``cache_capacity``, ``init_cache``, ``decode_step``) for the dense,
-MoE (granite, deepseek with MLA) and VLM (qwen2-vl: M-RoPE and the vision
-stub's patch embeddings) families. The hybrid, SSM and encoder-decoder
-families (hymba, xlstm, whisper) are not ported yet (ROADMAP queue 1 item
-9c), nor the reference's roofline ``fragments`` and sharding hooks.
+MoE (granite, deepseek with MLA), VLM (qwen2-vl: M-RoPE and the vision
+stub's patch embeddings), hybrid (hymba: attention and a Mamba head in
+every layer) and SSM (xlstm: mLSTM layers with sLSTM at
+``xlstm.slstm_at``) families. The encoder-decoder family (whisper) is
+``models.whisper.EncDecLM``, which ``registry.make_model`` builds; ``LM``
+refuses it. The reference's roofline ``fragments``, ``param_specs`` and
+sharding hooks wait for ROADMAP queue 1 items 10 and 11.
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
 (+ ``"head"`` when embeddings are untied, + ``"mtp"`` under MTP), where
 each group of 4 or more layers is one dict of tensors stacked on axis 0
 and a shorter group is a list of per-layer dicts, so reference params map
 onto it 1:1. The decode cache is grouped the same way (``init_cache``),
-written in place; ``position`` is an int or a 0-d tensor on the device.
+written in place; ``position`` is an int or a 0-d tensor on the device. A
+layer's cache is its K/V (``attention.init_cache``), ``{"attn", "ssm"}``
+for a hybrid layer (K/V and the Mamba state), or the mLSTM's or sLSTM's
+recurrent state.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models import attention, blocks, layers
+from repro_torch.models import attention, blocks, layers, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
@@ -37,14 +43,23 @@ class LayerGroup:
 def make_groups(cfg: ModelConfig) -> list[LayerGroup]:
     """Split layers into uniform-kind groups; stack groups of >= 4 layers.
     An MoE model's first ``first_k_dense`` layers are ``moe_dense``, the
-    rest ``moe``; the dense and VLM families are ``dense``."""
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} is not ported yet "
-            "(ROADMAP queue 1 item 9c)")
-    kinds = [("moe_dense" if i < cfg.moe.first_k_dense else "moe")
-             if cfg.family == "moe" else "dense"
-             for i in range(cfg.num_layers)]
+    rest ``moe``; the hybrid family's layers are ``hybrid``; the SSM
+    family's are ``slstm`` at ``xlstm.slstm_at``, else ``mlstm``; the dense
+    and VLM families are ``dense``."""
+    if cfg.enc_dec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder config: build it with "
+            "registry.make_model, which gives models.whisper.EncDecLM")
+
+    def kind(i: int) -> str:
+        if cfg.family == "moe":
+            return "moe_dense" if i < cfg.moe.first_k_dense else "moe"
+        if cfg.family == "hybrid":
+            return "hybrid"
+        if cfg.family == "ssm":
+            return "slstm" if i in cfg.xlstm.slstm_at else "mlstm"
+        return "dense"
+    kinds = [kind(i) for i in range(cfg.num_layers)]
     groups: list[LayerGroup] = []
     start = 0
     for i in range(1, cfg.num_layers + 1):
@@ -151,7 +166,8 @@ class LM:
     def hidden(self, params: Params, x, positions, want_cache: bool = False):
         """Returns (h, aux, caches): caches[g] is {"k","v"} stacked
         [L,B,S,nkv,hd] for a stacked group, else a list of per-layer
-        dicts — the reference's layout."""
+        dicts — the reference's layout; an xLSTM layer has no cache entry
+        (None, or a list of them)."""
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
@@ -164,7 +180,8 @@ class LM:
                 aux_total = aux_total + aux
                 group_cache.append(cache)
             if want_cache and g.scanned:
-                caches.append({n: torch.stack([c[n] for c in group_cache])
+                caches.append(None if group_cache[0] is None else
+                              {n: torch.stack([c[n] for c in group_cache])
                                for n in group_cache[0]})
             else:
                 caches.append(group_cache)
@@ -239,21 +256,34 @@ class LM:
         """Decode cache grouped like ``params["groups"]``: one dict with a
         leading layer axis for a stacked group, else a list of per-layer
         dicts (``attention.init_cache``: K/V, or MLA's latent
-        ``{"ckv", "kpe", "pos"}``). A group's capacity is the largest
-        of its layers', so a group that mixes windowed and global layers
-        holds ``max_len`` slots and applies the window through the mask;
-        only an all-windowed group is a ring buffer of ``window`` slots."""
+        ``{"ckv", "kpe", "pos"}``; a hybrid layer's ``{"attn", "ssm"}``,
+        its K/V and ``ssm.mamba_init_state``; an mLSTM's or sLSTM's state).
+        A group's capacity is the largest of its layers', so a group that
+        mixes windowed and global layers holds ``max_len`` slots and
+        applies the window through the mask; only an all-windowed group is
+        a ring buffer of ``window`` slots."""
+        cfg = self.cfg
         dev = resolve(device)
+
+        def entry(kind: str, cap: int, axes: tuple) -> Params:
+            if kind == "hybrid":
+                return {"attn": attention.init_cache(cfg, batch, cap, axes,
+                                                     device=dev),
+                        "ssm": ssm.mamba_init_state(cfg, batch, axes,
+                                                    device=dev)}
+            if kind == "mlstm":
+                return ssm.mlstm_init_state(cfg, batch, axes, device=dev)
+            if kind == "slstm":
+                return ssm.slstm_init_state(cfg, batch, axes, device=dev)
+            return attention.init_cache(cfg, batch, cap, axes, device=dev)
+
         out = []
         for g in self.groups:
             cap = max(self.cache_capacity(i, max_len) for i in g.indices)
             if g.scanned:
-                out.append(attention.init_cache(
-                    self.cfg, batch, cap, (len(g.indices),), device=dev))
+                out.append(entry(g.kind, cap, (len(g.indices),)))
             else:
-                out.append([attention.init_cache(self.cfg, batch, cap,
-                                                 device=dev)
-                            for _ in g.indices])
+                out.append([entry(g.kind, cap, ()) for _ in g.indices])
         return out
 
     def decode_step(self, params: Params, cache, tokens, position):

@@ -4,8 +4,9 @@ shapes and step functions, and the gemma-2b config.
 
 Both packages get the same params (drawn by the reference, crossing through
 numpy) and the same seeded tokens, on the dense smoke configs (qwen2, gemma,
-gemma3, internlm2) and those of the MoE and VLM families (granite-moe,
-deepseek-v3 with MLA and its MTP head, qwen2-vl) in fp32. Tolerance 5e-5, as ``test_torch_models.py``: both sides compute in
+gemma3, internlm2) and those of the MoE, VLM, hybrid and SSM families
+(granite-moe, deepseek-v3 with MLA and its MTP head, qwen2-vl, hymba,
+xlstm) in fp32. Tolerance 5e-5, as ``test_torch_models.py``: both sides compute in
 fp32 but sum in different orders (XLA:CPU vs ATen). The port's forward runs
 with ``attn_impl=None`` (the chunked branch on the CPU) and ``"flash"``
 (the flash kernel's plain version); the reference's LM takes its chunked
@@ -37,7 +38,8 @@ from _torch_parity import port_config  # noqa: E402
 
 TOL = dict(rtol=5e-5, atol=5e-5)
 ARCHS = ["qwen2-0.5b", "gemma-2b", "gemma3-27b", "internlm2-20b",
-         "granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"]
+         "granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b",
+         "hymba-1.5b", "xlstm-125m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -133,15 +135,20 @@ def test_registry_shapes_and_steps_mirror_reference(model):
     np.testing.assert_allclose(prefill(tparams, batch).numpy(),
                                np.asarray(want), **TOL)
     # the decode shapes' step: one token against a small cache (a stand-in
-    # for the shapes' 32k and 500k slots)
+    # for the shapes' 32k and 500k slots); xlstm's against the reference's
+    # prefill of that token, since its decode leaves out the mLSTM's output
+    # gate (ROADMAP §3)
     toks1 = toks[:, :1]
     for name in ("decode_32k", "long_500k"):
         decode = t_registry.step_fn(tcfg, t_registry.SHAPES[name], tm)
-        want, _ = jax.jit(r_registry.step_fn(cfg, r_registry.SHAPES[name],
-                                             rm))(
-            params, {"cache": rm.init_cache(2, 8),
-                     "tokens": jnp.asarray(toks1, jnp.int32),
-                     "position": jnp.int32(0)})
+        if cfg.xlstm is not None:
+            want = jax.jit(rm.prefill)(params, {"tokens": jnp.asarray(toks1)})
+        else:
+            want, _ = jax.jit(r_registry.step_fn(
+                cfg, r_registry.SHAPES[name], rm))(
+                params, {"cache": rm.init_cache(2, 8),
+                         "tokens": jnp.asarray(toks1, jnp.int32),
+                         "position": jnp.int32(0)})
         got, _ = decode(tparams, {"cache": tm.init_cache(2, 8, device="cpu"),
                                   "tokens": torch.from_numpy(toks1),
                                   "position": 0})
@@ -150,9 +157,10 @@ def test_registry_shapes_and_steps_mirror_reference(model):
 
 def test_gemma_config_mirrors_reference():
     """Every config and smoke config equals the reference's; the dense
-    ones (gemma3-27b's sliding windows included), the MoE ones and the VLM
-    build an ``LM``, and ``LM`` refuses the hybrid, the SSM and the
-    encoder-decoder families, which are not ported."""
+    ones (gemma3-27b's sliding windows included), the MoE ones, the VLM,
+    the hybrid and the SSM build an ``LM`` with the reference's layer
+    groups, and ``LM`` refuses the encoder-decoder config, naming
+    ``EncDecLM``, which ``registry.make_model`` builds."""
     for arch in r_registry.ARCH_IDS:
         assert t_registry.get_config(arch) == port_config(
             r_registry.get_config(arch))
@@ -167,9 +175,15 @@ def test_gemma_config_mirrors_reference():
         0 if i % 6 == 5 else 1024 for i in range(62)]
     for arch in ("granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-vl-7b"):
         assert TLM(t_registry.get_config(arch)).groups
-    for arch in ("xlstm-125m", "hymba-1.5b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TLM(t_registry.get_config(arch))
+    for arch in ("xlstm-125m", "hymba-1.5b"):
+        assert [(g.kind, g.indices, g.scanned) for g in
+                TLM(t_registry.get_config(arch)).groups] == \
+            [(g.kind, g.indices, g.scanned) for g in
+             LM(r_registry.get_config(arch)).groups]
+    with pytest.raises(ValueError, match="EncDecLM"):
+        TLM(t_registry.get_config("whisper-tiny"))
+    assert type(t_registry.make_model(
+        t_registry.get_config("whisper-tiny"))).__name__ == "EncDecLM"
 
 
 
