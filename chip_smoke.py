@@ -203,7 +203,34 @@ Phases (each failed check raises; the script then exits non-zero):
    chunked path), logits (0.1) and loss (1e-2) against the chunked path;
    then ``ck``/``cv`` written from ``encode`` and 64 tokens decoded, the
    last step against ``prefill`` of the same tokens. Printed: ms a
-   forward and a ``decode_step``.
+   forward and a ``decode_step``;
+18. the training path: (a) qwen2-0.5b at full width and depth (fp32
+   params, bf16 compute, ``remat="full"``) trained 3 steps by
+   ``make_train_step`` at global batch 8 (``train_4k``'s 256, cut) and
+   S = 4096, as 2 microbatches of 4 (``accum_steps_for``), from a seeded
+   ``ShardedTokenDataset``: ``make_eval_step`` on the step-0 batch's last
+   microbatch launches exactly 24 flash kernels (tensor-core instance)
+   and its loss is within 1e-2 of step 0's training loss (the chunked
+   branch), the training steps launch none, losses and grad norms are
+   finite; ms a step, tokens/s and the peak of
+   ``max_memory_allocated`` printed, then a ``torch.profiler`` window
+   over one more step (informational, as phase 6's). At 2 layers (the
+   head's fp32 logits at B = 8, S = 4096 fit no depth without
+   accumulation), S = 2048: the
+   grads of 2 microbatches of 4 against one batch of 8 within 2e-2
+   relative L2 (bf16 compute); at 2 layers, B = 2, S = 1024: a
+   ``Trainer`` with ``fail_at_step`` raises ``SimulatedFailure``, a new
+   one resumes from the last checkpoint and ends within 2e-4 of an
+   uninterrupted run's params. (b) 8 layers, B = 1, S = 4096: the grads
+   with ``remat="full"`` equal ``"none"``'s bit for bit (deterministic
+   algorithms on) at a lower peak. (c) deepseek-v3's optimizer layout
+   (int8 moments, no fp32 master) on qwen2-0.5b with bf16 params, 3
+   steps at B = 2: finite losses, int8 ``q`` and fp32 ``scale`` in every
+   moment, a checkpoint round trip of the state bit for bit. (d)
+   ``compressed_psum_grads`` over a one-rank NCCL group on the full-depth
+   gradients: the reference test's error bound and residual identity.
+   (e) ``python -m repro_torch.launch.train --smoke`` and
+   ``examples/torch_train_lm.py``, 3 steps each on the card.
 
 The second-to-last lines are the kernels' JSON record (a row per entry
 point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
@@ -1182,15 +1209,16 @@ def phase_spec(device, cfg, params) -> dict:
     return spec
 
 
-def _profile(tag: str, fn, reps: int, unit: str) -> None:
+def _profile(tag: str, fn, reps: int, unit: str, cpu: bool = True) -> None:
     """torch.profiler over ``reps`` calls of ``fn``: the device's busy share
     of the window and the kernels that fill it. Informational: nothing
-    here gates."""
+    here gates. ``cpu=False`` records the device's activity only (a train
+    step's ~10^5 host ops take longer to process than the step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1302,14 +1330,19 @@ def phase_prefill(device, arch, batch, params=None) -> int:
 GRAD_S = 512                     # the gradient check's sequence (B = 1)
 
 
-def _loss_grads(lm, params, toks) -> tuple[list, dict]:
+def _loss_grads(lm, params, toks, forward=None) -> tuple[list, dict]:
     """Grads of ``lm.loss`` w.r.t. fresh leaves over ``params``' storage
     (the shared params keep ``requires_grad`` off), in ``tree_leaves``
-    order, and the flash launches of that forward and backward."""
+    order, and the flash launches of that forward and backward. The
+    forward's own launches are also written into ``forward`` before the
+    backward runs (under remat the backward recomputes a layer's forward,
+    and a backward through the kernel raises)."""
     from torch.utils._pytree import tree_leaves, tree_map
     tree = tree_map(lambda t: t.detach().requires_grad_(), params)
     fkernel.reset_launch_counts()
     loss, _ = lm.loss(tree, {"tokens": toks})
+    if forward is not None:
+        forward.update(fkernel.LAUNCHES)
     loss.backward()
     torch.cuda.synchronize()
     return [t.grad for t in tree_leaves(tree)], dict(fkernel.LAUNCHES)
@@ -1331,19 +1364,21 @@ def phase_grads(device, cfg, params) -> None:
     for impl in (None, "flash"):
         lm.attn_impl = impl
         raised = False
+        n = {}                           # the forward's launches
         try:
-            _loss_grads(lm, params, toks)
+            _loss_grads(lm, params, toks, n)
         except NotImplementedError as e:
             raised = ("no backward kernel" in str(e)
                       and "attn_impl='reference'" in str(e))
-        n = dict(fkernel.LAUNCHES)
         check(raised, f"attn_impl={impl!r}: a backward through the flash "
               f"kernel did not raise its error")
         check(n["flash_attention_wgmma"] == cfg.num_layers,
-              f"attn_impl={impl!r} under autograd: flash launches {n}")
+              f"attn_impl={impl!r} under autograd: forward flash launches "
+              f"{n}")
     lm.attn_impl = "reference"
-    grads, n = _loss_grads(lm, params, toks)
-    check(sum(n.values()) == 0,
+    fwd = {}
+    grads, n = _loss_grads(lm, params, toks, fwd)
+    check(sum(n.values()) == 0 and sum(fwd.values()) == 0,
           f"attn_impl='reference' under autograd launched flash: {n}")
     from torch.utils._pytree import tree_leaves
     qkv = [params["groups"][0]["attn"][k] for k in ("wq", "wk", "wv")]
@@ -1354,8 +1389,9 @@ def phase_grads(device, cfg, params) -> None:
                                  for g in attn),
           "wq/wk/wv grads missing, zero or not finite")
     log(f"{cfg.name} loss grads (B=1, S={GRAD_S}): attn_impl=None and "
-        f"'flash' launched {cfg.num_layers} flash kernels each and their "
-        f"backward raised; attn_impl='reference' launched none and its "
+        f"'flash' launched {cfg.num_layers} flash kernels each in the "
+        f"forward and their backward raised; attn_impl='reference' "
+        f"launched none and its "
         f"grads reach wq/wk/wv; {time.perf_counter() - t0:.1f} s -- "
         f"{smi_line()}")
 
@@ -3192,6 +3228,391 @@ def phase_families_17(device) -> dict:
     return out
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+TRAIN_B = 8                      # global batch (train_4k's 256, cut)
+TRAIN_STEPS = 3                  # full-depth train steps
+TRAIN_CUT = 2                    # layers of the accumulation and crash cells
+ACCUM_S = 2048                   # the accumulation cell's sequence
+ACCUM_TOL = 2e-2                 # rel. L2, accumulated vs whole-batch grads
+CRASH_B, CRASH_S, CRASH_STEPS = 2, 1024, 4
+CRASH_TOL = 2e-4                 # tests/test_fault_tolerance.py:90-92
+REMAT_LAYERS = 8                 # the remat cell (one stacked group)
+Q8_B, Q8_STEPS = 2, 3            # the int8-moment cell
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"   # checkpoints, removed after
+
+
+def _peak_bytes() -> int:
+    return torch.cuda.max_memory_allocated()
+
+
+def _train_batches(cfg, seq, batch, seed, device):
+    """step -> tokens [batch, seq] on ``device``: shard 0 of a seeded
+    ``ShardedTokenDataset`` (the launcher's synthetic stream)."""
+    from repro_torch.data.pipeline import ShardedTokenDataset
+    ds = ShardedTokenDataset(cfg.vocab_size, seq, num_shards=8, seed=seed)
+    return lambda step: torch.from_numpy(ds.batch(0, step, batch)).to(device)
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf of two grad trees, in fp64."""
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in zip(_leaves(a), _leaves(b)))
+    den = sum(float(y.double().square().sum()) for y in _leaves(b))
+    return (num / den) ** 0.5
+
+
+def _qwen_train_cfg():
+    from repro_torch.configs import registry
+    cfg = registry.get_config("qwen2-0.5b")
+    check(cfg.remat == "full" and cfg.param_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16",
+          f"qwen2-0.5b: remat {cfg.remat}, params {cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}")
+    return cfg
+
+
+def _train_full(device) -> dict:
+    """18a: qwen2-0.5b at full width and depth, ``TRAIN_STEPS`` steps of
+    ``make_train_step`` at global batch ``TRAIN_B`` and S = 4096, the
+    accumulation steps from ``accum_steps_for``. The eval step on the
+    step-0 batch's last microbatch goes through the flash kernel (one
+    launch a layer); the train steps launch none, and step 0's loss (the
+    same microbatch, chunked branch) must be within ``LOSS_TOL`` of it."""
+    from repro_torch.models.lm import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    cfg = _qwen_train_cfg()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(18),
+                     device=device)
+    toks = _train_batches(cfg, PREFILL_S, TRAIN_B, 18, device)
+    accum = ts.accum_steps_for(cfg, TRAIN_B, PREFILL_S, dp_size=1)
+    ocfg = ts.opt_config_for(cfg, lr=1e-3, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    b0 = toks(0)
+    mb = b0[TRAIN_B - TRAIN_B // accum:]          # the last microbatch
+    fkernel.reset_launch_counts()
+    with torch.no_grad():
+        ev, eval_ms = _synced_ms(ts.make_eval_step(lm), params,
+                                 {"tokens": mb})
+    eval_loss = float(ev["loss"])
+    n_eval = dict(fkernel.LAUNCHES)
+    check(n_eval == {"flash_attention": 0,
+                     "flash_attention_wgmma": cfg.num_layers},
+          f"18a eval: flash launches {n_eval}, want {cfg.num_layers} on "
+          f"the tensor-core instance")
+    step = ts.make_train_step(lm, ocfg, accum_steps=accum)
+    state = opt.init_opt_state(ocfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fkernel.reset_launch_counts()
+    ms, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": b0 if i == 0 else toks(i)}
+        (params, state, m), t = _synced_ms(step, params, state, batch)
+        ms.append(t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = _peak_bytes() / 1e9
+    n_train = dict(fkernel.LAUNCHES)
+    check(sum(n_train.values()) == 0,
+          f"18a: the train steps launched the flash kernel: {n_train}")
+    check(lm.attn_impl is None, "18a: the train step left attn_impl set")
+    check(bool(np.isfinite(losses + norms).all()),
+          f"18a: losses {losses}, grad norms {norms}")
+    gap = abs(losses[0] - eval_loss)
+    check(gap <= LOSS_TOL, f"18a: step-0 train loss {losses[0]} vs eval "
+          f"loss {eval_loss} through the kernel: {gap} > {LOSS_TOL}")
+    steady = float(np.mean(ms[1:]))
+    log(f"18a qwen2-0.5b training ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, fp32 params, bf16 compute, remat {cfg.remat}; "
+        f"B={TRAIN_B} as {accum} microbatches of {TRAIN_B // accum} "
+        f"(accum_steps_for), S={PREFILL_S}): step ms "
+        f"{', '.join(f'{t:.1f}' for t in ms)} (steady {steady:.1f} ms, "
+        f"{TRAIN_B * PREFILL_S / steady * 1e3:.0f} tokens/s); peak "
+        f"{peak:.2f} GB (max_memory_allocated); losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}, grad norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}; eval loss through the "
+        f"kernel {eval_loss:.5f} ({n_eval['flash_attention_wgmma']} "
+        f"launches, {eval_ms:.1f} ms), step-0 train loss {losses[0]:.5f}: "
+        f"gap {gap:.3g} (gate {LOSS_TOL}); no flash launch while "
+        f"training -- {smi_line()}")
+    _profile(f"qwen2-0.5b train step, B={TRAIN_B} as {accum} x "
+             f"{TRAIN_B // accum}, S={PREFILL_S}",
+             lambda: step(params, state, {"tokens": toks(TRAIN_STEPS)}), 1,
+             "step", cpu=False)
+    return dict(lm=lm, params=params, mb=mb,
+                flash=n_eval["flash_attention_wgmma"])
+
+
+def _train_compress(device, lm, params, mb) -> None:
+    """18d: ``compressed_psum_grads`` over a one-rank NCCL group on the
+    full-depth model's gradients (18a's trained params, its last
+    microbatch): every leaf within the reference test's error bound
+    (max |g|/127 of the leaf, x 1.01) and its residual identity
+    (``res == g - red``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.train import compress
+    from repro_torch.train import trainstep as ts
+    grads, _ = ts.accumulated_grads(lm, params, {"tokens": mb})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        (red, res), ms = _synced_ms(compress.compressed_psum_grads, grads,
+                                    compress.init_residuals(grads))
+    finally:
+        dist.destroy_process_group()
+    worst, ident = 0.0, 0.0
+    for g, r, e in zip(_leaves(grads), _leaves(red), _leaves(res)):
+        scale = float(g.abs().max()) / 127.0
+        err = float((r - g).abs().max())
+        check(err <= scale * 1.01, f"18d: error {err} > {scale} x 1.01")
+        worst = max(worst, err / scale if scale else 0.0)
+        lost = g - r
+        check(bool(torch.allclose(e, lost, rtol=1e-5, atol=1e-6)),
+              "18d: the residual is not what was lost")
+        ident = max(ident, float((e - lost).abs().max()))
+    n = sum(g.numel() for g in _leaves(grads))
+    log(f"18d compressed_psum_grads (one-rank NCCL group) on {n} gradient "
+        f"elements of the full-depth model: max error {worst:.4f} of the "
+        f"reference's bound (max|g|/127), residual identity within "
+        f"{ident:.3g}; {ms:.1f} ms")
+
+
+def _train_accum(device) -> None:
+    """18a's accumulation gate, at ``TRAIN_CUT`` layers and S =
+    ``ACCUM_S`` (the head's fp32 logits at B = 8, S = 4096 take 19.9 GB
+    and several live copies in the backward: no depth fits them without
+    accumulation): the grads of 2 microbatches of 4 against one batch of
+    8, relative L2 within ``ACCUM_TOL`` in bf16 compute."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+    from repro_torch.train import trainstep as ts
+    cut = dataclasses.replace(_qwen_train_cfg(), num_layers=TRAIN_CUT)
+    lm = LM(cut)
+    p = lm.init(torch.Generator(device=device).manual_seed(19),
+                device=device)
+    batch = {"tokens": _train_batches(cut, ACCUM_S, TRAIN_B, 19,
+                                      device)(0)}
+    g1, m1 = ts.accumulated_grads(lm, p, batch, 1)
+    g2, m2 = ts.accumulated_grads(lm, p, batch, 2)
+    rel = _rel_l2(g2, g1)
+    check(np.isfinite(rel) and rel <= ACCUM_TOL,
+          f"18a accumulation: rel. L2 {rel} > {ACCUM_TOL}")
+    log(f"18a accumulation ({TRAIN_CUT} layers, B={TRAIN_B}, S={ACCUM_S}, "
+        f"bf16 compute): grads of 2 x {TRAIN_B // 2} vs 1 x {TRAIN_B}: "
+        f"relative L2 {rel:.4g} (gate {ACCUM_TOL}); losses "
+        f"{float(m1['loss']):.5f} (whole batch), {float(m2['loss']):.5f} "
+        f"(last microbatch)")
+
+
+def _train_crash(device) -> None:
+    """18a's crash-restart gate, at ``TRAIN_CUT`` layers, B = ``CRASH_B``,
+    S = ``CRASH_S`` (checkpoints of the full depth's params and moments
+    are ~6 GB): a ``Trainer`` with ``fail_at_step`` raises
+    ``SimulatedFailure``, a new one resumes from its last checkpoint, and
+    the params end within ``CRASH_TOL`` of an uninterrupted run's."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+    from repro_torch.train import trainstep as ts
+    from repro_torch.train.loop import LoopConfig, SimulatedFailure, Trainer
+    cut = dataclasses.replace(_qwen_train_cfg(), num_layers=TRAIN_CUT)
+    toks = _train_batches(cut, CRASH_S, CRASH_B, 20, device)
+    ocfg = ts.opt_config_for(cut, lr=1e-3, warmup_steps=2,
+                             total_steps=CRASH_STEPS)
+
+    def trainer(name, every, fail=-1):
+        return Trainer(LM(cut), ocfg, LoopConfig(
+            total_steps=CRASH_STEPS, ckpt_every=every, keep_last=1,
+            log_every=100, fail_at_step=fail), str(TRAIN_DIR / name),
+            lambda s: {"tokens": toks(s)}, device=device)
+
+    t0 = time.perf_counter()
+    _, p_ref, _, _ = trainer("a", CRASH_STEPS).run()
+    failed = None
+    try:
+        trainer("b", 2, fail=3).run()
+    except SimulatedFailure as e:
+        failed = str(e)
+    check(failed is not None, "18a crash: no SimulatedFailure at step 3")
+    resumed = trainer("b", 2)
+    check(resumed.ckpt.latest_step() == 2,
+          f"18a crash: last checkpoint {resumed.ckpt.latest_step()}")
+    step, p_res, _, _ = resumed.run()
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(_leaves(p_ref), _leaves(p_res)))
+    check(step == CRASH_STEPS and diff <= CRASH_TOL,
+          f"18a crash: resumed to step {step}, params {diff} from the "
+          f"uninterrupted run's (gate {CRASH_TOL})")
+    log(f"18a crash-restart ({TRAIN_CUT} layers, B={CRASH_B}, S={CRASH_S},"
+        f" {CRASH_STEPS} steps): {failed!r}, resumed from step 2, params "
+        f"max |diff| {diff:.3g} from the uninterrupted run (gate "
+        f"{CRASH_TOL}); {time.perf_counter() - t0:.1f} s with 3 "
+        f"checkpoints")
+
+
+def _train_remat(device) -> None:
+    """18b: ``REMAT_LAYERS`` layers (one stacked group), B = 1, S = 4096:
+    the grads with ``remat="full"`` equal ``"none"``'s bit for bit (with
+    deterministic algorithms on, so the embedding's scatter-add does not
+    reorder), and the peak memory of the backward is lower."""
+    import dataclasses
+    import gc
+    import warnings
+
+    from repro_torch.models.lm import LM
+    from repro_torch.train import trainstep as ts
+    base = dataclasses.replace(_qwen_train_cfg(), num_layers=REMAT_LAYERS)
+    p = LM(base).init(torch.Generator(device=device).manual_seed(21),
+                      device=device)
+    batch = {"tokens": _train_batches(base, PREFILL_S, 1, 21, device)(0)}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for remat in ("none", "full"):
+                lm = LM(dataclasses.replace(base, remat=remat))
+                check(lm.groups[0].scanned, "18b: the group is not stacked")
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                g, _ = ts.accumulated_grads(lm, p, batch)
+                torch.cuda.synchronize()
+                out[remat] = (g, _peak_bytes() - before)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in
+               zip(_leaves(out["full"][0]), _leaves(out["none"][0])))
+    full, none = out["full"][1] / 1e9, out["none"][1] / 1e9
+    check(same, "18b: remat='full' grads differ from remat='none'")
+    check(full < none, f"18b: peak {full} GB with remat, {none} without")
+    log(f"18b remat ({REMAT_LAYERS} layers, B=1, S={PREFILL_S}): peak "
+        f"above the params {full:.3f} GB with 'full', {none:.3f} GB with "
+        f"'none'; grads equal bit for bit")
+
+
+def _train_q8(device) -> None:
+    """18c: deepseek-v3's optimizer layout (int8 block moments, no fp32
+    master) on qwen2-0.5b with bf16 params, ``Q8_STEPS`` steps at B =
+    ``Q8_B``, S = 4096: finite losses, int8 ``q`` and fp32 ``scale`` in
+    every moment, and a checkpoint round trip of the state equal bit for
+    bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.models.lm import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    cfg = dataclasses.replace(_qwen_train_cfg(), param_dtype="bfloat16")
+    lm = LM(cfg)
+    p = lm.init(torch.Generator(device=device).manual_seed(22),
+                device=device)
+    ocfg = ts.opt_config_for(cfg, quantized_moments=True, master_fp32=False,
+                             lr=1e-3, warmup_steps=2, total_steps=Q8_STEPS)
+    state = opt.init_opt_state(ocfg, p)
+    toks = _train_batches(cfg, PREFILL_S, Q8_B, 22, device)
+    step = ts.make_train_step(lm, ocfg)
+    losses, ms = [], []
+    for i in range(Q8_STEPS):
+        (p, state, m), t = _synced_ms(step, p, state, {"tokens": toks(i)})
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    check(bool(np.isfinite(losses).all()), f"18c: losses {losses}")
+    check("master" not in state and int(state["step"]) == Q8_STEPS,
+          f"18c: state keys {sorted(state)}, step {int(state['step'])}")
+    kinds = set()
+    for k in ("m", "v"):       # each param's moment is one {"q", "scale"}
+        opt.tree_map(lambda x, mo: kinds.add((mo["q"].dtype,
+                                              mo["scale"].dtype)),
+                     p, state[k])
+    check(kinds == {(torch.int8, torch.float32)},
+          f"18c: moment dtypes {kinds}")
+    cm = CheckpointManager(TRAIN_DIR / "q8")
+    t0 = time.perf_counter()
+    cm.save(Q8_STEPS, {"opt": state})
+    got_step, back = cm.restore(like={"opt": state})
+    rt = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(_leaves(state), _leaves(back["opt"])))
+    check(got_step == Q8_STEPS and same,
+          "18c: the checkpointed state differs from the saved one")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    log(f"18c int8 moments, no master (qwen2-0.5b, bf16 params, B={Q8_B}, "
+        f"S={PREFILL_S}): losses {', '.join(f'{x:.5f}' for x in losses)}, "
+        f"step ms {', '.join(f'{t:.1f}' for t in ms)}; state "
+        f"{nbytes / 1e9:.3f} GB, int8 q and fp32 scale in every moment; "
+        f"checkpoint round trip equal bit for bit ({rt:.1f} s)")
+
+
+def _train_entry_points(device) -> None:
+    """18e: ``python -m repro_torch.launch.train --smoke`` and
+    ``examples/torch_train_lm.py``, a few steps each on the card (their
+    default device), through their ``main``."""
+    import runpy
+
+    from repro_torch.launch import train
+    step, m = train.main(["--arch", "qwen2-0.5b", "--smoke", "--steps",
+                          "3", "--ckpt", str(TRAIN_DIR / "launch")])
+    check(step == 3 and np.isfinite(float(m["loss"])),
+          f"18e launch.train: step {step}, loss {m.get('loss')}")
+    main = runpy.run_path(str(ROOT / "examples" / "torch_train_lm.py"))[
+        "main"]
+    step, m = main(["--steps", "3", "--ckpt", str(TRAIN_DIR / "example")])
+    check(step == 3 and np.isfinite(float(m["loss"])),
+          f"18e torch_train_lm.py: step {step}, loss {m.get('loss')}")
+    log("18e repro_torch.launch.train --smoke and examples/"
+        "torch_train_lm.py: 3 steps each on the card, finished")
+
+
+def phase_train(device) -> int:
+    """Phase 18: the training path. Returns the flash launches (18a's
+    eval step) for the JSON record."""
+    import gc
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def done(part: str) -> None:
+        log(f"[{time.perf_counter() - t0:.1f} s of phase 18] {part} done")
+    try:
+        a = _train_full(device)
+        done("18a")
+        _train_compress(device, a["lm"], a["params"], a["mb"])
+        done("18d")
+        flash = a["flash"]
+        del a
+        for name, part in (("18a accumulation", _train_accum),
+                           ("18a crash-restart", _train_crash),
+                           ("18b", _train_remat), ("18c", _train_q8),
+                           ("18e", _train_entry_points)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            part(device)
+            done(name)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return flash
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -3260,6 +3681,8 @@ def main() -> int:
     done("16")
     fam.update(phase_families_17(device))
     done("17")
+    flash_launches["qwen2-0.5b"] += phase_train(device)
+    done("18")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -3268,8 +3691,9 @@ def main() -> int:
     # (name, timed row, source, TPU kernel's pallas_call); a row per entry
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
-    # flash; phase 16 for qwen2-vl-7b and granite, phase 17 for hymba and
-    # whisper), its error from the bf16 cases at that head dim
+    # flash, plus phase 18's eval step at qwen2-0.5b; phase 16 for
+    # qwen2-vl-7b and granite, phase 17 for hymba and whisper), its error
+    # from the bf16 cases at that head dim
     table = [
         ("paged_attention", "paged_attention", paged_src, f"{paged_tpu}:317"),
         ("paged_attention", ("paged_attention", LONG_CTX), paged_src,

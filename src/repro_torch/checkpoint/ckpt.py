@@ -77,7 +77,8 @@ def from_host(arr: np.ndarray, stamp: str) -> torch.Tensor:
     """A CPU tensor of dtype ``stamp`` from a numpy array of its values or,
     for bfloat16, of its bit pattern in any 16-bit dtype (``int16``,
     ``uint16``, or the ``V2`` records ``np.load`` returns)."""
-    arr = np.ascontiguousarray(arr)
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     dt = torch_dtype(stamp) if stamp in _DTYPES else None
     if dt in _BITS:
         return torch.from_numpy(arr.view(_BITS[dt][1])).view(dt)
@@ -100,7 +101,7 @@ def save_npy(fp, leaf) -> None:
     tensor goes out as ``'<V2'`` records of its bit pattern."""
     arr, stamp = _leaf_array(leaf)
     if stamp == "bfloat16":
-        arr = np.ascontiguousarray(arr)
+        arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
         np.lib.format.write_array_header_1_0(fp, {
             "descr": "<V2", "fortran_order": False, "shape": arr.shape})
         fp.write(arr.tobytes())
@@ -189,6 +190,31 @@ def _unflatten(like, leaves) -> Any:
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)
+
+
+def _placement_leaves(shardings) -> list:
+    """The leaves of a tree of devices or ``(DeviceMesh, placements)``
+    pairs, each pair one leaf, in ``_flatten``'s order."""
+    if isinstance(shardings, tuple) and len(shardings) == 2 \
+            and hasattr(shardings[0], "mesh_dim_names"):
+        return [shardings]
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in _placement_leaves(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [x for v in shardings for x in _placement_leaves(v)]
+    return [] if shardings is None else [shardings]
+
+
+def _place(x: torch.Tensor, where):
+    """``x`` on a device, or distributed by a ``(DeviceMesh, placements)``
+    pair (every rank passes the whole tensor, as restore reads it)."""
+    if isinstance(where, tuple):
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = where
+        return distribute_tensor(x.to(mesh.device_type), mesh,
+                                 list(placements))
+    return x.to(where)
 
 
 def _snapshot(leaf):
@@ -304,7 +330,12 @@ class CheckpointManager:
                 shardings: Any | None = None, strict_hash: bool = True):
         """Returns (step, tree) with CPU tensors as leaves. ``like``
         provides the structure; ``shardings`` places the leaves: one
-        device for all, or a tree of devices with ``like``'s structure."""
+        device for all, or a tree with ``like``'s structure of devices or
+        of ``(DeviceMesh, placements)`` pairs (``sharding.specs``'
+        ``*_shardings``), each leaf then a ``DTensor`` made by
+        ``distribute_tensor`` on its mesh's device type. A checkpoint
+        carries no mesh, so restoring it onto another mesh (another
+        world size) is the re-shard at load that makes it elastic."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -329,6 +360,6 @@ class CheckpointManager:
             if isinstance(shardings, (str, torch.device)):
                 leaves = [x.to(shardings) for x in leaves]
             else:
-                devs = [dev for _, dev in _flatten(shardings)]
-                leaves = [x.to(dev) for x, dev in zip(leaves, devs)]
+                leaves = [_place(x, where) for x, where in
+                          zip(leaves, _placement_leaves(shardings))]
         return step, _unflatten(like, iter(leaves))

@@ -145,21 +145,39 @@ def attn_q_chunks(seq: int, chunk: int = 512) -> int:
     return -(-seq // chunk)
 
 
+#: the reference unrolls up to this many query chunks and runs a
+#: ``lax.scan`` beyond, to bound the compiled program's size; eager torch
+#: has no compile step and loops over every chunk either way
+CHUNK_SCAN_THRESHOLD = 4
+
+
 def chunked_mha(q, k, v, qpos, kpos, window: int, causal: bool,
                 compute_dtype, chunk: int = 512,
                 scores_dtype=torch.float32):
     """Full-sequence attention, chunked over queries: the live score buffer
     is [B, nq, chunk, S_kv] instead of [B, nq, S, S]. q/k/v are head-aligned
-    ([B,S,n,h] with identical head counts)."""
+    ([B,S,n,h] with identical head counts). Past one chunk, each chunk is
+    rematerialised while autograd records, as the reference's
+    ``jax.checkpoint``: the backward recomputes its [c, S] score tile
+    instead of keeping every chunk's scores live."""
     s = q.shape[1]
     nc = attn_q_chunks(s, chunk)
+    if nc == 1:
+        return _chunk_with_bias(q, qpos, k, v, kpos, window, causal,
+                                compute_dtype, scores_dtype)
     outs = []
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
-        bias = _window_bias(qpos[:, sl], kpos, window, causal)
-        outs.append(_mha_one_chunk(q[:, sl], k, v, bias, compute_dtype,
-                                   scores_dtype))
-    return outs[0] if nc == 1 else torch.cat(outs, dim=1)
+        outs.append(layers.checkpointed(
+            _chunk_with_bias, q[:, sl], qpos[:, sl], k, v, kpos, window,
+            causal, compute_dtype, scores_dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _chunk_with_bias(q, qpos, k, v, kpos, window, causal, compute_dtype,
+                     scores_dtype=torch.float32):
+    bias = _window_bias(qpos, kpos, window, causal)
+    return _mha_one_chunk(q, k, v, bias, compute_dtype, scores_dtype)
 
 
 def _mha_one_chunk(q, k, v, bias, compute_dtype,
@@ -216,9 +234,10 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     kv_positions = positions if kv_positions is None else kv_positions
     x = x.to(cdt)
     xkv = xkv.to(cdt)
-    q = x @ p["wq"].to(cdt)
-    k = xkv @ p["wk"].to(cdt)
-    v = xkv @ p["wv"].to(cdt)
+    with layers.checkpoint_name("qkv"):
+        q = x @ p["wq"].to(cdt)
+        k = xkv @ p["wk"].to(cdt)
+        v = xkv @ p["wv"].to(cdt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)

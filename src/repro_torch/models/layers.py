@@ -1,6 +1,8 @@
 """Shared layer primitives on plain tensors (port of ``repro.models.layers``:
 norms, the gated MLP, rotary embeddings (1-D and Qwen2-VL's M-RoPE), the
-initialisers and the cross-entropy losses).
+initialisers and the cross-entropy losses), and ``checkpoint_name``, the
+reference's ``jax.ad_checkpoint.checkpoint_name`` tags on the q/k/v
+projections and the MLP's pre-activations, which ``remat="names"`` saves.
 
 Params are the reference's nested dicts of tensors. Initialisers draw from
 an explicit ``torch.Generator``; they cannot reproduce ``jax.random``, so
@@ -9,13 +11,58 @@ parity tests hand reference params over through ``repro_torch.convert``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import dtype_of
 
 Params = dict  # nested dict of tensors
+
+# the name of the products being computed (``checkpoint_name``), read by
+# ``models/lm.py``'s selective-checkpoint policy under ``remat="names"``
+_CHECKPOINT_NAME: contextvars.ContextVar[str | None] = \
+    contextvars.ContextVar("checkpoint_name", default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the matmuls run inside the block with ``name``, as the
+    reference's ``checkpoint_name`` tags their outputs."""
+    token = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+def current_checkpoint_name() -> str | None:
+    return _CHECKPOINT_NAME.get()
+
+
+def records_grad(*trees) -> bool:
+    """Whether autograd records a call on these args: grad mode is on and
+    some tensor among them (dict values included) requires grad."""
+    def needs(t):
+        if isinstance(t, dict):
+            return any(needs(v) for v in t.values())
+        if isinstance(t, (list, tuple)):
+            return any(needs(v) for v in t)
+        return isinstance(t, torch.Tensor) and t.requires_grad
+    return torch.is_grad_enabled() and needs(trees)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, rematerialised in the backward while autograd records
+    it (the reference's ``jax.checkpoint`` around a chunk body: only the
+    chunk's inputs are kept); a plain call otherwise."""
+    if not records_grad(args):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -94,9 +141,11 @@ def mlp_apply(cfg, p: Params, x):
     when the caller already holds compute-dtype weights)."""
     cdt = dtype_of(cfg.compute_dtype)
     x = x.to(cdt)
-    up = x @ p["w_up"].to(cdt)
+    with checkpoint_name("mlp_pre_up"):
+        up = x @ p["w_up"].to(cdt)
     if "w_gate" in p:
-        gate = x @ p["w_gate"].to(cdt)
+        with checkpoint_name("mlp_pre_gate"):
+            gate = x @ p["w_gate"].to(cdt)
         up = act_fn(cfg.act)(gate) * up
     else:
         up = act_fn(cfg.act)(up)

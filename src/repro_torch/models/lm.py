@@ -7,7 +7,11 @@ every layer) and SSM (xlstm: mLSTM layers with sLSTM at
 ``xlstm.slstm_at``) families. The encoder-decoder family (whisper) is
 ``models.whisper.EncDecLM``, which ``registry.make_model`` builds; ``LM``
 refuses it. The reference's roofline ``fragments``, ``param_specs`` and
-sharding hooks wait for ROADMAP queue 1 items 10 and 11.
+sharding hooks wait for ROADMAP queue 1 items 10 and 11. ``cfg.remat`` is
+honoured as the reference's ``_remat``: while autograd records a layer of a
+stacked group (4 or more layers), it is rematerialised in the backward
+(``torch.utils.checkpoint``, with a selective policy for ``"dots"`` and
+``"names"``); a forward that records nothing runs as before.
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
 (+ ``"head"`` when embeddings are untied, + ``"mtp"`` under MTP), where
@@ -23,6 +27,7 @@ recurrent state.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -68,6 +73,48 @@ def make_groups(cfg: ModelConfig) -> list[LayerGroup]:
             groups.append(LayerGroup(kinds[start], idx, len(idx) >= 4))
             start = i
     return groups
+
+
+# ATen's products with no batch dims: what ``jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable`` keeps (a batched einsum runs as bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# the reference's ``checkpoint_name`` tags that ``remat="names"`` keeps
+_NAMES = ("qkv", "mlp_pre_up", "mlp_pre_gate")
+
+
+def _remat_policy(cfg: ModelConfig):
+    """The selective-checkpoint policy of ``cfg.remat``: ``"dots"`` saves
+    every product with no batch dims, ``"names"`` the products computed
+    under the tags of ``_NAMES`` (``layers.checkpoint_name``); the rest is
+    recomputed in the backward."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, func, *args, **kwargs):
+        keep = func in _DOTS and (
+            cfg.remat == "dots"
+            or layers.current_checkpoint_name() in _NAMES)
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _remat(cfg: ModelConfig, fn):
+    """The reference's ``_remat`` (``jax.checkpoint`` of a stacked group's
+    scan body) for one layer's forward: ``"full"`` keeps only the layer's
+    inputs, ``"dots"`` and ``"names"`` also the products ``_remat_policy``
+    saves, ``"none"`` is a plain call. ``hidden`` applies it only while
+    autograd records the layer."""
+    if cfg.remat not in ("none", "full", "dots", "names"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _remat_policy(cfg))
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def layer_params_of(gp, l: int) -> Params:
@@ -172,9 +219,14 @@ class LM:
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for g, gp in zip(self.groups, params["groups"]):
+            # a stacked group's layers are rematerialised (the reference
+            # checkpoints its scan body), a shorter group's are not
+            fwd = _remat(cfg, blocks.layer_fwd) \
+                if g.scanned and layers.records_grad(x, gp) \
+                else blocks.layer_fwd
             group_cache = []
             for j, li in enumerate(g.indices):
-                x, aux, cache = blocks.layer_fwd(
+                x, aux, cache = fwd(
                     cfg, g.kind, layer_params_of(gp, j), x, positions,
                     int(self.windows[li]), want_cache, self.attn_impl)
                 aux_total = aux_total + aux

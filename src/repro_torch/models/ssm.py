@@ -9,8 +9,9 @@ reference's ``associative_scan``) with the carried state entering as
 ``cumprod(abar) * h0``; the mLSTM runs its stabilised chunkwise-parallel
 form over ``MLSTM_CHUNK``-token chunks; the sLSTM is a loop over the
 sequence (the reference's ``lax.scan``). The chunk loops are Python loops
-(the reference's ``lax.scan``) with no rematerialisation: the reference's
-``jax.checkpoint`` is a training-memory hint (ROADMAP queue 1 item 10).
+(the reference's ``lax.scan``); past one chunk, each Mamba and mLSTM chunk
+body is rematerialised while autograd records, as the reference's
+``jax.checkpoint`` around it (``layers.checkpointed``).
 
 Decode state is written in place (``copy_``) and returned, as the dense
 decode cache is; the reference returns a new tree.
@@ -28,11 +29,14 @@ the decode step's outputs equal ``mlstm_apply``'s at any length.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import dtype_of
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, _randn, dense_init
 
@@ -118,10 +122,15 @@ def mamba_apply(cfg: ModelConfig, p: Params, x):
     ins = [F.pad(t, (0, 0, 0, pad)) for t in (dt_, xin, bmat, cmat)]
     h = torch.zeros((b, inner, s.state_dim), dtype=torch.float32,
                     device=x.device)
+    # past one chunk each chunk body is rematerialised under autograd (the
+    # reference's jax.checkpoint): only the chunk's inputs are kept, not
+    # its [B,c,inner,state] discretised state
+    body = mamba_chunk_body if nc == 1 else functools.partial(
+        layers.checkpointed, mamba_chunk_body)
     ys = []
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
-        h, y = mamba_chunk_body(p, h, *(t[:, sl] for t in ins))
+        h, y = body(p, h, *(t[:, sl] for t in ins))
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :seq]
     y = (y.to(cdt) + xin * p["d_skip"].to(cdt)) * F.silu(res)
@@ -284,11 +293,13 @@ def mlstm_apply(cfg: ModelConfig, p: Params, x):
     carry = (torch.zeros((b, nh, hd, hd), **f32),
              torch.zeros((b, nh, hd), **f32),
              torch.full((b, nh), -1e30, **f32))
+    body = mlstm_chunk_body if nc == 1 else functools.partial(
+        layers.checkpointed, mlstm_chunk_body)     # as Mamba's chunks
     hs = []
     for i in range(nc):
         sl = slice(i * chunk, (i + 1) * chunk)
-        carry, h = mlstm_chunk_body(carry, q[:, sl], k[:, sl], v[:, sl],
-                                    i_raw[:, sl], logf[:, sl])
+        carry, h = body(carry, q[:, sl], k[:, sl], v[:, sl], i_raw[:, sl],
+                        logf[:, sl])
         hs.append(h)
     h = torch.cat(hs, dim=1)[:, :s]
     out = _headwise_norm(h.to(cdt), p["gn"].to(cdt))

@@ -1,1 +1,1 @@
-"""Sharding rules (the KV pool's layout spec so far)."""
+"""Sharding rules and weighted ZeRO placement (port of ``repro.sharding``)."""

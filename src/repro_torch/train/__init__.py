@@ -1,2 +1,2 @@
-"""Training-side entry points (port of ``repro.train``; only the eval step
-so far)."""
+"""Training (port of ``repro.train``): the optimizer, the train and eval
+steps, the crash-safe trainer and the compressed gradient all-reduce."""

@@ -87,7 +87,8 @@ def bits(x) -> np.ndarray:
     ``np.array_equal`` of two ``bits`` is bit-for-bit equality."""
     if isinstance(x, torch.Tensor):
         return host_array(x.cpu())
-    a = np.ascontiguousarray(np.asarray(x))
+    # np.ascontiguousarray makes a 0-d array 1-d: keep the shape
+    a = np.ascontiguousarray(np.asarray(x)).reshape(np.shape(x))
     return a.view(np.int16) if a.dtype.name == "bfloat16" else a
 
 

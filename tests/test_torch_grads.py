@@ -140,10 +140,16 @@ def test_cuda_flash_refuses_backward_and_reference_trains():
         params = tm.init(torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
         fkernel.reset_launch_counts()
+        leaves = jax.tree.leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = tm.loss(params, {"tokens": toks})
+        # the forward's launches: under remat (a stacked group) the
+        # backward recomputes a layer, launching once more, then raises
+        assert fkernel.LAUNCHES["flash_attention_wgmma"] == cfg.num_layers
         with pytest.raises(NotImplementedError,
                            match="no backward kernel.*attn_impl='reference'"):
-            _grads(tm, params, toks)
-        assert fkernel.LAUNCHES["flash_attention_wgmma"] == cfg.num_layers
+            loss.backward()
     tm.attn_impl = "reference"
     params = tm.init(torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")

@@ -1,0 +1,271 @@
+"""repro_torch's optimizer (``train/optimizer.py``) and the train step's
+layout rules (``train/trainstep.py``) against the reference's.
+
+Block quantization is held equal element for element in both layouts (the
+last-dim aligned one and the flat blocks): the same fp32 division and
+round-half-to-even. The schedule is held over every step of both
+schedules (1e-6 relative: the cosine rounds differently in XLA and ATen),
+and ``adamw_update`` over 3 steps from the same params, grads
+and state (fp32 params; bf16 params with an fp32 master; int8 moments;
+clipping on and off) within 1e-6 relative for fp32 values (1e-5 where the
+grads are bf16: the reference's fp32 norm of bf16 grads is 2.1e-6 off the
+float64 norm, the port's 7e-8, and each is held against that norm); bf16
+params and int8 moments within one step where an fp32 rounding moved a
+half-way quotient, counted. ``opt_config_for`` and ``accum_steps_for`` are held
+for every config and every ``SHAPES`` row, exactly. The reference's
+``test_quantized_adam_moments_roundtrip`` runs on the port.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax", reason="parity with the reference needs jax")
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_parity import bits, port_config  # noqa: E402
+from repro.configs import registry as r_registry  # noqa: E402
+from repro.train import optimizer as r_opt  # noqa: E402
+from repro.train import trainstep as r_ts  # noqa: E402
+from repro_torch.convert import (opt_state_from_reference,  # noqa: E402
+                                 params_from_reference)
+from repro_torch.train import optimizer as t_opt  # noqa: E402
+from repro_torch.train import trainstep as t_ts  # noqa: E402
+
+REL = 1e-6                      # fp32 values, relative to the tree's scale
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small CPU ops run on one thread: beside the other test workers,
+    torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a) -> torch.Tensor:
+    return params_from_reference(np.asarray(a), device="cpu")
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# -- quantization ---------------------------------------------------------------
+
+SHAPES_Q = [(1000,), (3, 512), (2, 4, 256), (7, 300), (), (5, 0, 256)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_Q, ids=str)
+def test_quantize_q8_equals_the_reference(shape):
+    x = (np.random.default_rng(3).standard_normal(shape) * 1e-3
+         ).astype(np.float32)
+    if x.size:
+        x.reshape(-1)[:7] = 0.0                 # a zero run: scale 1.0
+    r = r_opt.quantize_q8(jnp.asarray(x), 256)
+    t = t_opt.quantize_q8(_t(x), 256)
+    assert set(t) == {"q", "scale"}
+    assert t["q"].dtype == torch.int8 and t["scale"].dtype == torch.float32
+    np.testing.assert_array_equal(bits(t["q"]), np.asarray(r["q"]))
+    np.testing.assert_array_equal(bits(t["scale"]), np.asarray(r["scale"]))
+    back = t_opt.dequantize_q8(t, shape)
+    np.testing.assert_array_equal(
+        bits(back), np.asarray(r_opt.dequantize_q8(r, shape)))
+    assert tuple(back.shape) == shape
+
+
+def test_quantized_adam_moments_roundtrip():
+    """The reference's case (tests/test_fault_tolerance.py), on the port."""
+    x = _t(np.random.default_rng(1).normal(size=(1000,)).astype(np.float32))
+    q = t_opt.quantize_q8(x, 256)
+    back = t_opt.dequantize_q8(q, x.shape)
+    err = (back - x).abs()
+    # blockwise absmax: error bounded by scale/2 per block
+    assert float(err.max()) < float(x.abs().max()) / 127.0
+
+
+# -- schedule -------------------------------------------------------------------
+
+@pytest.mark.parametrize("schedule", ["cosine", "constant"])
+def test_lr_schedule_equals_the_reference(schedule):
+    cfg = dict(lr=3e-3, warmup_steps=7, total_steps=40, schedule=schedule)
+    rc, tc = r_opt.OptConfig(**cfg), t_opt.OptConfig(**cfg)
+    for step in range(0, 46):
+        want = float(r_opt._lr_at(rc, jnp.int32(step)))
+        got = t_opt._lr_at(tc, torch.tensor(step, dtype=torch.int32))
+        assert got.dtype == torch.float32 and got.dim() == 0
+        # cos rounds differently in XLA and ATen: 2 fp32 ulps seen
+        assert abs(float(got) - want) <= REL * abs(want), (step, want)
+
+
+# -- state and update -----------------------------------------------------------
+
+def _params(dtype):
+    rng = np.random.default_rng(0)
+    tree = {"embed": rng.normal(size=(64, 256)) * 0.02,
+            "groups": [{"w": rng.normal(size=(4, 256, 512)) * 0.05,
+                        "b": np.zeros((7,))},
+                       [{"norm": rng.normal(size=(300,))}]],
+            "final_norm": np.ones((256,))}
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+    return jax.tree.map(lambda a: np.asarray(jnp.asarray(a, dtype)), tree)
+
+
+def _grads(params, seed, scale):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda p: np.asarray(jnp.asarray(
+            rng.normal(size=p.shape).astype(np.float32) * scale, p.dtype)),
+        params)
+
+
+# (param dtype, config overrides, fp32 tolerance). With bf16 grads the
+# reference's fp32 norm (XLA's reduction of the converted squares) lands
+# 2.1e-6 from the float64 norm, the port's 7e-8: the clip scale then moves
+# m and v by up to 5e-6 relative, so those cases hold fp32 values at 1e-5
+# and each package's norm against the float64 one
+CASES = {
+    "fp32": (jnp.float32, {}, REL),
+    "fp32_noclip": (jnp.float32, dict(grad_clip=0.0), REL),
+    "bf16_master": (jnp.bfloat16, {}, 1e-5),
+    "fp32_q8": (jnp.float32, dict(quantized_moments=True), REL),
+    "bf16_q8_nomaster": (jnp.bfloat16, dict(quantized_moments=True,
+                                            master_fp32=False,
+                                            grad_clip=0.0), 1e-5),
+}
+
+
+def _close(got, want, what, rel=REL):
+    """fp32: |got - want| <= rel * (the leaf's largest |want|). bf16: the
+    same bound plus one bf16 step of the value (the fp32 master rounds to
+    bf16 either side of a tie); ints: equal but for one step. Returns the
+    count of bf16 and int elements that differ."""
+    want = np.asarray(want)
+    got = bits(got) if isinstance(got, torch.Tensor) else np.asarray(got)
+    if want.dtype.name == "bfloat16":
+        got = torch.from_numpy(got).view(torch.bfloat16).float().numpy()
+        want = np.asarray(want, np.float32)
+        s = max(np.abs(want).max(initial=0), 1e-30)
+        np.testing.assert_array_less(
+            np.abs(got - want), rel * s + 2.0 ** -7 * np.abs(want) + 1e-30,
+            err_msg=what)
+        return int((got != want).sum())
+    if want.dtype == np.float32:
+        s = max(np.abs(want).max(initial=0), 1e-30)
+        np.testing.assert_allclose(got, want, rtol=0, atol=rel * s,
+                                   err_msg=what)
+        return 0
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert diff.max(initial=0) <= 1, what
+    return int((diff > 0).sum())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_adamw_three_steps_equal_the_reference(case):
+    dtype, over, rel = CASES[case]
+    cfg = dict(lr=1e-2, warmup_steps=2, total_steps=10, **over)
+    rc, tc = r_opt.OptConfig(**cfg), t_opt.OptConfig(**cfg)
+    rp = _params(dtype)
+    tp = params_from_reference(rp, device="cpu")
+    rs = r_opt.init_opt_state(rc, jax.tree.map(jnp.asarray, rp))
+    ts = t_opt.init_opt_state(tc, tp)
+    rp = jax.tree.map(jnp.asarray, rp)
+    moved = 0
+    for step in range(3):
+        # step 1 clips (norm >> 1), the others do not
+        g = _grads(rp, 10 + step, 5.0 if step == 1 else 1e-3)
+        rp, rs, rm = r_opt.adamw_update(rc, rp, jax.tree.map(jnp.asarray, g),
+                                        rs)
+        tp, ts, tm = t_opt.adamw_update(
+            tc, tp, params_from_reference(g, device="cpu"), ts)
+        exact = np.sqrt(sum(np.sum(np.asarray(x, np.float64) ** 2)
+                            for x in jax.tree.leaves(g)))
+        assert abs(float(tm["grad_norm"]) / exact - 1) <= REL, case
+        assert abs(float(rm["grad_norm"]) / exact - 1) <= rel, case
+        _close(tm["lr"], rm["lr"], "lr")
+        for (path, want), got in zip(
+                jax.tree_util.tree_flatten_with_path(_np(rp))[0],
+                t_opt.tree_leaves(tp)):
+            moved += _close(got, want, f"{case} step {step} params{path}",
+                            rel)
+        flat_r = jax.tree_util.tree_flatten_with_path(_np(rs))[0]
+        flat_t = t_opt.tree_leaves(ts)
+        assert len(flat_r) == len(flat_t)
+        for (path, want), got in zip(flat_r, flat_t):
+            assert tuple(got.shape) == want.shape, path
+            moved += _close(got, want, f"{case} step {step} state{path}",
+                            rel)
+    # fp32 rounding differs from XLA's (fused multiply-adds, reduction
+    # order), so a quantized moment or a bf16 param on a rounding edge may
+    # land one step over; never more, and rarely
+    n = sum(np.asarray(x).size for x in jax.tree.leaves(_np(rs)))
+    assert moved <= 1e-3 * n, (case, moved, n)
+
+
+def test_init_opt_state_tree():
+    for case, (dtype, over, _) in CASES.items():
+        rc = r_opt.OptConfig(**over)
+        tc = t_opt.OptConfig(**over)
+        rp = _params(dtype)
+        rs = _np(r_opt.init_opt_state(rc, jax.tree.map(jnp.asarray, rp)))
+        ts = t_opt.init_opt_state(tc, params_from_reference(rp,
+                                                            device="cpu"))
+        assert set(ts) == set(rs), case
+        assert ts["step"].dtype == torch.int32 and ts["step"].dim() == 0
+        assert jax.tree.structure(rs) == jax.tree.structure(
+            jax.tree.map(lambda t: 0, ts)), case
+        for want, got in zip(jax.tree.leaves(rs), t_opt.tree_leaves(ts)):
+            np.testing.assert_array_equal(bits(got), np.asarray(want))
+            assert str(got.dtype).split(".")[-1] == want.dtype.name, case
+        # the meta-device specs: the same shapes and dtypes, no storage
+        specs = t_opt.opt_state_specs(tc, params_from_reference(
+            rp, device="cpu"))
+        for got, want in zip(t_opt.tree_leaves(specs),
+                             t_opt.tree_leaves(ts)):
+            assert got.is_meta and got.shape == want.shape \
+                and got.dtype == want.dtype
+
+
+def test_reference_state_crosses_to_the_port():
+    rc = r_opt.OptConfig(quantized_moments=True, master_fp32=True)
+    rp = jax.tree.map(jnp.asarray, _params(jnp.bfloat16))
+    rs = r_opt.init_opt_state(rc, rp)
+    rp, rs, _ = r_opt.adamw_update(
+        rc, rp, jax.tree.map(jnp.asarray, _grads(rp, 1, 1e-2)), rs)
+    ts = opt_state_from_reference(_np(rs), device="cpu")
+    assert ts["step"].dtype == torch.int32 and ts["step"].shape == ()
+    assert int(ts["step"]) == 1
+    for want, got in zip(jax.tree.leaves(_np(rs)), t_opt.tree_leaves(ts)):
+        np.testing.assert_array_equal(bits(got), np.asarray(want))
+    with pytest.raises(ValueError):
+        opt_state_from_reference({"m": {}, "v": {}}, device="cpu")
+
+
+# -- layout rules ---------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", r_registry.ARCH_IDS)
+def test_opt_config_and_accum_steps_equal_the_reference(arch):
+    rcfg = r_registry.get_config(arch)
+    tcfg = port_config(rcfg)
+    kw = dict(lr=1e-3, total_steps=7)
+    assert dataclasses.asdict(t_ts.opt_config_for(tcfg, **kw)) == \
+        dataclasses.asdict(r_ts.opt_config_for(rcfg, **kw))
+    for shape in r_registry.SHAPES.values():
+        for dp in (1, 16, 32):
+            for mp in (1, 16):
+                args = (shape.global_batch, shape.seq_len, dp, mp)
+                assert t_ts.accum_steps_for(tcfg, *args) == \
+                    r_ts.accum_steps_for(rcfg, *args), (shape.name, dp, mp)
+    over = dataclasses.replace(tcfg, train_accum_override=3)
+    assert t_ts.accum_steps_for(over, 256, 4096, 1) == 3
+
+
+def test_grad_and_microbatch_specs_raise():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_ts.make_train_step(object(), t_opt.OptConfig(), grad_specs={})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_ts.make_train_step(object(), t_opt.OptConfig(), mb_specs={})
