@@ -230,9 +230,25 @@ Phases (each failed check raises; the script then exits non-zero):
    ``compressed_psum_grads`` over a one-rank NCCL group on the full-depth
    gradients: the reference test's error bound and residual identity.
    (e) ``python -m repro_torch.launch.train --smoke`` and
-   ``examples/torch_train_lm.py``, 3 steps each on the card.
+   ``examples/torch_train_lm.py``, 3 steps each on the card;
+19. the dry-run (``repro_torch.launch.dryrun``, fake tensors on the host)
+   held against the card, three cells, each record printed on a line of
+   its own: (a) qwen2-0.5b's train cell on a one-device mesh at phase
+   18a's shape (B = 8 as 2 x 4, S = 4096, ``remat="full"``): its FLOPs
+   equal ``FlopCounterMode`` over one real ``make_train_step`` step on
+   the card exactly, its predicted peak is within 10 % of phase 18a's
+   ``max_memory_allocated`` and of that step's own, and its compute bound
+   is at or below phase 18a's measured step (measured / bound printed,
+   and against the memory term); (b) qwen2-0.5b's ``decode_32k`` cell (B
+   = 128) on a one-device mesh: its argument bytes within 1 % of
+   ``memory_allocated`` after ``init`` and ``init_cache`` on the card,
+   and its FLOPs equal ``FlopCounterMode`` over one real ``decode_step``
+   exactly; (c) xlstm-125m x ``decode_32k`` x the single-pod mesh under
+   the reference test's limits (OK, a memory term, under 16 GiB a
+   device).
 
-The second-to-last lines are the kernels' JSON record (a row per entry
+The lines before the last two are phase 19's records, then the kernels'
+JSON record (a row per entry
 point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
 granite-moe-3b-a800m, hymba-1.5b and whisper-tiny heads, each naming its
 instance and context, and the context-4096 decode rows; the rows at
@@ -3240,6 +3256,7 @@ CRASH_TOL = 2e-4                 # tests/test_fault_tolerance.py:90-92
 REMAT_LAYERS = 8                 # the remat cell (one stacked group)
 Q8_B, Q8_STEPS = 2, 3            # the int8-moment cell
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"   # checkpoints, removed after
+TRAIN_18A: dict = {}             # 18a's steady step (ms) and peak (bytes)
 
 
 def _peak_bytes() -> int:
@@ -3320,6 +3337,7 @@ def _train_full(device) -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = _peak_bytes() / 1e9
+    TRAIN_18A.update(peak=_peak_bytes(), ms=float(np.mean(ms[1:])))
     n_train = dict(fkernel.LAUNCHES)
     check(sum(n_train.values()) == 0,
           f"18a: the train steps launched the flash kernel: {n_train}")
@@ -3613,6 +3631,171 @@ def phase_train(device) -> int:
     return flash
 
 
+# -- phase 19 ------------------------------------------------------------------
+
+DRY_PEAK_TOL = 0.10              # dry-run peak vs max_memory_allocated
+DRY_ARG_TOL = 0.01               # decode argument bytes vs memory_allocated
+DRY_CELL_LIMIT = 16 * 2**30      # tests/test_system.py's small cell
+
+
+def _dry_cell(arch, shape, **kw) -> dict:
+    """One dry-run record with its roofline terms, printed on a line."""
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, verbose=False, **kw)
+    check(rec["status"] == "OK", f"19 {arch} x {shape}: {rec}")
+    rec["roofline"] = dryrun.roofline_record(rec)
+    rec["wall_s"] = time.perf_counter() - t
+    print(json.dumps({"dryrun": rec}, default=float), flush=True)
+    return rec
+
+
+def _flops_of(fn, *a):
+    """(FlopCounterMode's total, fn's result) of one real call."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*a)
+    torch.cuda.synchronize()
+    return fc.get_total_flops(), out
+
+
+def _dry_train(device) -> None:
+    """19a: qwen2-0.5b's train cell on a one-device mesh at 18a's shape
+    against one real step on the card and 18a's measurements."""
+    import gc
+    from repro_torch.launch.dryrun import StandInMesh
+    from repro_torch.models.lm import LM
+    from repro_torch.roofline import analyze
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    rec = _dry_cell("qwen2-0.5b", "train_4k",
+                    mesh=StandInMesh(("data", "model"), (1, 1)),
+                    batch=TRAIN_B, seq=PREFILL_S)
+    rl, mem = rec["roofline"], rec["memory"]
+    cfg = _qwen_train_cfg()
+    accum = ts.accum_steps_for(cfg, TRAIN_B, PREFILL_S, dp_size=1)
+    check(rec["accum_steps"] == accum, f"19a: accum {rec['accum_steps']} "
+          f"vs 18a's {accum}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(19),
+                     device=device)
+    ocfg = ts.opt_config_for(cfg, lr=1e-3, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    state = opt.init_opt_state(ocfg, params)
+    batch = {"tokens": _train_batches(cfg, PREFILL_S, TRAIN_B, 19,
+                                      device)(0)}
+    step = ts.make_train_step(lm, ocfg, accum_steps=accum)
+    flops, (params, state, m) = _flops_of(step, params, state, batch)
+    own_peak = torch.cuda.max_memory_allocated() - base
+    check(bool(np.isfinite(float(m["loss"]))), f"19a: loss {m['loss']}")
+    del lm, params, state, batch, m
+    check(flops == rec["full"]["flops"],
+          f"19a: dry-run FLOPs {rec['full']['flops']:.0f} != the real "
+          f"step's {flops}")
+    pred = mem["peak_bytes_per_device"]
+    for what, real in (("phase 18a's", TRAIN_18A["peak"]),
+                       ("the counted step's", own_peak)):
+        check(abs(pred - real) <= DRY_PEAK_TOL * real,
+              f"19a: predicted peak {pred / 1e9:.2f} GB vs {what} "
+              f"max_memory_allocated {real / 1e9:.2f} GB: more than "
+              f"{DRY_PEAK_TOL:.0%} apart")
+    step_s = TRAIN_18A["ms"] / 1e3
+    check(rl["t_compute"] <= step_s,
+          f"19a: compute bound {rl['t_compute']:.4f} s above 18a's step "
+          f"{step_s:.4f} s")
+    log(f"19a qwen2-0.5b train_4k on a 1x1 mesh (B={TRAIN_B} as {accum} x "
+        f"{TRAIN_B // accum}, S={PREFILL_S}, remat {cfg.remat}): FLOPs "
+        f"{flops} = the real step's (FlopCounterMode on the card); "
+        f"predicted peak {pred / 1e9:.3f} GB vs 18a's "
+        f"{TRAIN_18A['peak'] / 1e9:.3f} GB ({pred / TRAIN_18A['peak']:.4f}x)"
+        f" and the counted step's {own_peak / 1e9:.3f} GB "
+        f"({pred / own_peak:.4f}x); total_bytes_per_device "
+        f"{mem['total_bytes_per_device'] / 1e9:.3f} GB; bound: compute "
+        f"{rl['t_compute'] * 1e3:.1f} ms (at {analyze.H100_PEAK_FLOPS:.3g} "
+        f"FLOP/s), memory {rl['t_memory'] * 1e3:.1f} ms (eager bytes "
+        f"{rl['bytes_hbm'] / 1e12:.3f} TB at {analyze.H100_HBM_BW:.3g} B/s); "
+        f"18a's step {TRAIN_18A['ms']:.1f} ms = "
+        f"{TRAIN_18A['ms'] / (rl['t_compute'] * 1e3):.2f}x the compute "
+        f"bound ({rl['t_compute'] * 1e3 / TRAIN_18A['ms']:.2%} of it), "
+        f"{TRAIN_18A['ms'] / (rl['t_memory'] * 1e3):.2f}x the memory term; "
+        f"trace {rec['lower_compile_s']:.1f} s, cell {rec['wall_s']:.1f} s")
+
+
+def _dry_decode(device) -> None:
+    """19b: qwen2-0.5b's decode_32k cell on a one-device mesh: argument
+    bytes against the card's allocation, FLOPs against one real step."""
+    import gc
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import StandInMesh
+    from repro_torch.models.lm import LM
+    shape = registry.SHAPES["decode_32k"]
+    rec = _dry_cell("qwen2-0.5b", "decode_32k",
+                    mesh=StandInMesh(("data", "model"), (1, 1)))
+    args = rec["memory"]["argument_size_in_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg = registry.get_config("qwen2-0.5b")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(19),
+                     device=device)
+    cache = lm.init_cache(shape.global_batch, shape.seq_len, device=device)
+    tokens = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
+                         device=device)
+    position = torch.zeros((), dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    check(abs(args - alloc) <= DRY_ARG_TOL * alloc,
+          f"19b: argument bytes {args} vs memory_allocated {alloc}: more "
+          f"than {DRY_ARG_TOL:.0%} apart")
+    torch.cuda.reset_peak_memory_stats()
+    flops, (logits, _) = _flops_of(lm.decode_step, params, cache, tokens,
+                                   position)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(logits).all()), "19b: decode logits")
+    del lm, params, cache, tokens, position, logits
+    check(flops == rec["full"]["flops"],
+          f"19b: dry-run FLOPs {rec['full']['flops']:.0f} != the real "
+          f"decode step's {flops}")
+    rl = rec["roofline"]
+    log(f"19b qwen2-0.5b decode_32k on a 1x1 mesh (B={shape.global_batch},"
+        f" cache {shape.seq_len}): argument bytes {args / 1e9:.4f} GB vs "
+        f"memory_allocated after init and init_cache {alloc / 1e9:.4f} GB "
+        f"({args / alloc:.5f}x); FLOPs {flops} = the real step's; "
+        f"predicted peak {rec['memory']['peak_bytes_per_device'] / 1e9:.3f}"
+        f" GB vs the step's {peak / 1e9:.3f} GB; bound: memory "
+        f"{rl['t_memory'] * 1e3:.2f} ms, compute "
+        f"{rl['t_compute'] * 1e3:.3f} ms")
+
+
+def phase_dryrun(device) -> None:
+    """Phase 19: the dry-run against the card."""
+    import gc
+    t0 = time.perf_counter()
+    _dry_train(device)
+    log(f"[{time.perf_counter() - t0:.1f} s of phase 19] 19a done")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dry_decode(device)
+    log(f"[{time.perf_counter() - t0:.1f} s of phase 19] 19b done")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = _dry_cell("xlstm-125m", "decode_32k", multi_pod=False)
+    rl, total = rec["roofline"], rec["memory"]["total_bytes_per_device"]
+    check(rl["t_memory"] > 0 and total < DRY_CELL_LIMIT,
+          f"19c: t_memory {rl['t_memory']}, {total} bytes a device")
+    log(f"19c xlstm-125m decode_32k single: OK, {total / 2**30:.3f} GiB a "
+        f"device (limit 16), t_memory {rl['t_memory'] * 1e6:.2f} us, "
+        f"{rl['bottleneck']}-bound")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -3683,6 +3866,8 @@ def main() -> int:
     done("17")
     flash_launches["qwen2-0.5b"] += phase_train(device)
     done("18")
+    phase_dryrun(device)
+    done("19")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}

@@ -1,0 +1,468 @@
+"""The dry-run (port of ``repro.launch.dryrun``): what a production cell
+(architecture x input shape x mesh) costs on the H100, from shapes alone.
+
+For every cell the step runs on fake tensors (``roofline/counter.py``), so
+nothing is allocated at any width, on the chunked attention path
+(``attn_impl="reference"``), as the reference lowers it; no CUDA kernel
+runs on fake tensors and the counts do not depend on the device. The
+record holds:
+
+- ``memory``: the argument bytes per device, exact: the shard shapes of
+  params, optimizer state, batch and cache under the port's layouts
+  (``sharding/specs.py``). The temporaries: the trace's peak live bytes
+  over one per-device microbatch (global batch / dp / ``accum_steps_for``;
+  a gradient at its layout's share of the param), with the gradient
+  accumulator, and over the optimizer update on the ZeRO-sharded state.
+  ``total_bytes_per_device`` is the reference's sum (arguments + outputs
+  + temporaries - aliases); ``peak_bytes_per_device`` the eager step's
+  own peak (arguments + the larger phase's live bytes).
+- ``full``: FLOPs and bytes per device: the microbatch's counts x accum,
+  divided by the model axis, plus the update's. The port computes on one
+  device (sharded compute is ROADMAP queue 1 item 10a), so the division
+  is a model of tensor parallelism, marked ``"partition": "modelled"``
+  wherever the model axis is wider than 1. The collectives are built from
+  the layouts: ZeRO's reduce-scatters and all-gathers and the
+  data-parallel all-reduces of the grads, per leaf; tensor parallelism's
+  all-reduces of the activations a row-parallel weight leaves as partial
+  sums, per layer, forward and backward and again under remat; the
+  vocab-sharded embedding's and head's; MoE all-to-alls where the experts
+  divide over (data, model) (the reference's ``set_buf_spec`` condition).
+- ``fragments``: each of ``model.fragments`` traced once (train ones with
+  their backward, all-ones cotangents). Eager PyTorch runs every trip of
+  a loop in the full trace, so ``roofline_record`` combines the full part
+  alone (``"trips_in_full": true``).
+- ``roofline``: ``roofline/analyze.py``'s terms on the H100 table.
+
+Meshes are stand-ins (axis names and sizes): single (16, 16) = (data,
+model), multi (2, 16, 16) = (pod, data, model); no process group is built.
+``run_cell`` also takes any stand-in mesh and a batch and sequence.
+
+Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+          --mesh both          # writes build/dryrun_torch/<cell>.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import pathlib
+import time
+import traceback
+
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.device import dtype_of
+from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
+from repro_torch.models import moe
+from repro_torch.models.config import ModelConfig
+from repro_torch.roofline import analyze, counter
+from repro_torch.sharding import specs as sh
+from repro_torch.train import optimizer as opt
+from repro_torch.train.trainstep import (accum_steps_for, accumulated_grads,
+                                         opt_config_for)
+
+RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" \
+    / "dryrun_torch"
+
+
+@dataclasses.dataclass(frozen=True)
+class StandInMesh:
+    """A mesh's axis names and sizes, as ``sharding/specs.py`` reads
+    them."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def production_mesh(multi_pod: bool = False) -> StandInMesh:
+    """Single: (16, 16) = (data, model), 256 devices. Multi: (2, 16, 16) =
+    (pod, data, model), 512 devices."""
+    if multi_pod:
+        return StandInMesh(("pod", "data", "model"), (2, 16, 16))
+    return StandInMesh(("data", "model"), (16, 16))
+
+
+# -- bytes under a layout ------------------------------------------------------
+
+def sharded_bytes(tree, spec_tree, mesh) -> int:
+    """Bytes per device of a tree of tensors (or meta tensors) whose specs
+    are ``spec_tree`` (the same structure, a spec tuple at each leaf)."""
+    if isinstance(tree, dict):
+        return sum(sharded_bytes(tree[k], spec_tree[k], mesh) for k in tree)
+    if isinstance(tree, (list, tuple)):
+        return sum(sharded_bytes(t, s, mesh) for t, s in zip(tree, spec_tree))
+    n = tree.element_size()
+    for dim, entry in zip(tree.shape, spec_tree):
+        n *= dim // sh._axis_size(mesh, entry)
+    return n
+
+
+def _shard_shape(shape, spec, mesh) -> tuple[int, ...]:
+    return tuple(d // sh._axis_size(mesh, e) for d, e in zip(shape, spec))
+
+
+def argument_bytes(cfg: ModelConfig, shape: registry.Shape, mesh, *,
+                   batch: int | None = None, seq: int | None = None,
+                   model=None) -> dict[str, int]:
+    """Per-device bytes of the step's arguments: ``params``, ``opt_state``
+    (train cells) and ``batch`` (tokens, frames, patches, positions; a
+    decode cell's cache, tokens and position)."""
+    model = model or registry.make_model(cfg)
+    pspecs = model.param_specs()
+    bspecs = registry.input_specs(cfg, shape, batch=batch, seq=seq)
+    out = {"params": sharded_bytes(
+               pspecs, sh.param_specs_of(cfg, mesh, pspecs), mesh),
+           "opt_state": 0,
+           "batch": sharded_bytes(
+               bspecs, sh.batch_specs_of(cfg, mesh, bspecs), mesh)}
+    if shape.kind == "train":
+        ospecs = opt.opt_state_specs(opt_config_for(cfg), pspecs)
+        out["opt_state"] = sharded_bytes(
+            ospecs, sh.opt_specs_of(cfg, mesh, ospecs), mesh)
+    return out
+
+
+# -- collectives from the layouts --------------------------------------------
+
+class _Ops:
+    """Collectives of one step, merged by (kind, bytes, group)."""
+
+    def __init__(self, mesh):
+        self.names = axis_names(mesh)
+        self.sizes = tuple(axis_sizes(mesh)[a] for a in self.names)
+        self.counts: dict[tuple, int] = {}
+
+    def add(self, kind: str, nbytes: float, axes, count: int) -> None:
+        dims = tuple(self.names.index(a) for a in axes)
+        gsize, crosses = analyze.group_info(self.sizes, dims)
+        if gsize <= 1 or count <= 0 or nbytes <= 0:
+            return
+        key = (kind, int(nbytes), gsize, crosses)
+        self.counts[key] = self.counts.get(key, 0) + int(count)
+
+    def as_list(self) -> list[dict]:
+        return [dict(kind=k, result_bytes=b, group_size=g, crosses_pod=c,
+                     count=n) for (k, b, g, c), n in self.counts.items()]
+
+
+def _leaves_with_paths(tree) -> list[tuple]:
+    out = []
+    sh.map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def collectives(cfg: ModelConfig, mesh, model, pspecs, kind: str,
+                accum: int, b: int, s: int) -> list[dict]:
+    """The step's collectives per device, from the layouts, at a
+    per-device microbatch ``b`` x ``s`` tokens (s = 1 for decode)."""
+    ops = _Ops(mesh)
+    elt = dtype_of(cfg.compute_dtype).itemsize
+    train = kind == "train"
+    mb = accum if train else 1                 # microbatches a step
+    scanned = {i for i, g in enumerate(getattr(model, "groups", ()))
+               if g.scanned}
+    for path, leaf in _leaves_with_paths(pspecs):
+        shape = tuple(leaf.shape)
+        spec = sh.param_spec_for(cfg, mesh, path, shape)
+        name = sh._leaf_name(path)
+        top = path[0]
+        if top == "enc" and kind == "decode":
+            continue                           # decode runs the decoder only
+        if top == "mtp" and not train:
+            continue                           # the MTP head trains only
+        layers = shape[0] if top == "groups" and path[1] in scanned else 1
+        tokens = b * (cfg.enc_frames if top == "enc" else s)
+        # forward, backward (the conjugate collective), remat's recompute
+        passes = 1 + (2 if train and cfg.remat != "none"
+                      and top == "groups" and path[1] in scanned
+                      else 1 if train else 0)
+        if name == "embed":
+            if spec[0] == "model":             # vocab-sharded lookup
+                ops.add("all-reduce", tokens * shape[1] * elt, ("model",),
+                        mb)
+            continue
+        if sh._in_moe(path) and name in ("w_gate", "w_up", "w_down"):
+            if name != "w_down":
+                continue
+            if spec[-3] == ("data", "model"):  # expert-parallel all-to-alls
+                cap = moe.capacity(s, cfg)
+                ops.add("all-to-all", b * shape[-3] * cap * shape[-1] * elt,
+                        ("data", "model"), 2 * layers * passes * mb)
+                continue
+            if spec[-3] == "model":            # experts over model: sum
+                ops.add("all-reduce", tokens * shape[-1] * elt, ("model",),
+                        layers * passes * mb)
+                continue
+        if len(shape) >= 2 and spec[-2] == "model":    # partial sums
+            ops.add("all-reduce", tokens * shape[-1] * elt, ("model",),
+                    layers * passes * mb)
+    # the vocab-sharded head: the hidden states' gradient (train) or the
+    # gathered last-token logits (prefill, decode)
+    if "head" in pspecs:
+        head = pspecs["head"]
+        vocab_sharded = sh.param_spec_for(cfg, mesh, ("head",),
+                                          head.shape)[1] == "model"
+    else:                                      # tied: the embedding's rows
+        head = pspecs["embed"].T
+        vocab_sharded = sh.param_spec_for(
+            cfg, mesh, ("embed",), pspecs["embed"].shape)[0] == "model"
+
+    if vocab_sharded:
+        if train:
+            ops.add("all-reduce", b * s * head.shape[0] * elt, ("model",),
+                    mb)
+        else:
+            ops.add("all-gather", b * head.shape[1] * elt, ("model",), 1)
+    if train:
+        _grad_collectives(cfg, mesh, pspecs, ops, accum)
+    return ops.as_list()
+
+
+def _grad_collectives(cfg, mesh, pspecs, ops: _Ops, accum: int) -> None:
+    """ZeRO per leaf: the grads reduce-scattered over data (each
+    microbatch), all-reduced over the other data-parallel axes, and the
+    updated shard all-gathered back; a leaf ZeRO cannot split is
+    all-reduced over the data-parallel axes its layout leaves free."""
+    for path, leaf in _leaves_with_paths(pspecs):
+        shape = tuple(leaf.shape)
+        spec = sh.param_spec_for(cfg, mesh, path, shape)
+        used = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        red = [a for a in dp_axes(mesh) if a not in used]
+        local = math.prod(_shard_shape(shape, spec, mesh)) \
+            * leaf.element_size()
+        if sh.zero_spec(mesh, spec, shape) != tuple(spec) + (None,) * (
+                len(shape) - len(spec)):
+            shard = local // axis_sizes(mesh)["data"]
+            ops.add("reduce-scatter", shard, ("data",), accum)
+            ops.add("all-reduce", shard, [a for a in red if a != "data"],
+                    accum)
+            ops.add("all-gather", local, ("data",), 1)
+        elif red:
+            ops.add("all-reduce", local, red, accum)
+
+
+# -- the cell ------------------------------------------------------------------
+
+def _grad_wrap(fn):
+    """``fn`` with its backward: the grads of every float arg under
+    all-ones cotangents (the reference's ``_grad_wrap``)."""
+    def wrapped(*args):
+        ins = [t for t in opt.tree_leaves(args)
+               if isinstance(t, torch.Tensor) and t.requires_grad]
+        outs = [o for o in opt.tree_leaves(fn(*args))
+                if isinstance(o, torch.Tensor) and o.requires_grad]
+        return torch.autograd.grad(outs, ins,
+                                   [torch.ones_like(o) for o in outs],
+                                   allow_unused=True)
+    return wrapped
+
+
+def _part(c: counter.Counts, split: int) -> dict:
+    return {"flops": c.flops / split, "bytes": c.bytes / split}
+
+
+def _grad_share(cfg, mesh, model, pspecs):
+    """scale(t) for the microbatch trace: a storage shaped like a param
+    (a gradient, or one layer's slice of a stacked one) counts at the
+    param layout's share; anything else whole."""
+    share: dict[tuple, float] = {}
+    scanned = {i for i, g in enumerate(getattr(model, "groups", ()))
+               if g.scanned}
+    for path, leaf in _leaves_with_paths(pspecs):
+        shape = tuple(leaf.shape)
+        spec = sh.param_spec_for(cfg, mesh, path, shape)
+        frac = math.prod(_shard_shape(shape, spec, mesh)) / max(
+            math.prod(shape), 1)
+        keys = [(shape, leaf.dtype)]
+        if path[0] == "groups" and path[1] in scanned:
+            keys.append((shape[1:], leaf.dtype))
+        for k in keys:
+            share[k] = max(share.get(k, 0.0), frac)
+    return lambda t: share.get((tuple(t.shape), t.dtype), 1.0)
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+             verbose: bool = True, *, mesh=None, batch: int | None = None,
+             seq: int | None = None) -> dict:
+    """The record of one cell: on a production mesh, or on ``mesh`` (any
+    stand-in) at ``batch`` x ``seq`` (the shape's by default)."""
+    cfg = registry.get_config(arch)
+    shape = registry.SHAPES[shape_name]
+    ok, reason = registry.cell_supported(cfg, shape)
+    mesh_name = ("multi" if multi_pod else "single") if mesh is None \
+        else "x".join(str(n) for n in axis_sizes(mesh).values())
+    rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                 "timestamp": time.time()}
+    if not ok:
+        rec.update(status="SKIP", reason=reason)
+        return rec
+
+    mesh = mesh if mesh is not None else production_mesh(multi_pod)
+    sizes = axis_sizes(mesh)
+    chips = math.prod(sizes.values())
+    dp = math.prod(sizes[a] for a in dp_axes(mesh))
+    mp = sizes["model"]
+    b = batch if batch is not None else shape.global_batch
+    s = seq if seq is not None else shape.seq_len
+    b_local = b // dp if b % dp == 0 else b     # _fit replicates otherwise
+    model = registry.make_model(cfg)
+    model.attn_impl = "reference"
+    pspecs = model.param_specs()
+    args = argument_bytes(cfg, shape, mesh, batch=b, seq=s, model=model)
+    arg_total = sum(args.values())
+
+    t0 = time.time()
+    accum = 1
+    if shape.kind == "train":
+        accum = accum_steps_for(cfg, b, s, dp, mp)
+        rec["accum_steps"] = accum
+        b_mb = max(b_local // accum, 1)
+        mb = registry.input_specs(cfg, shape, batch=b_mb, seq=s)
+        grads = counter.trace(
+            lambda p, m: accumulated_grads(model, p, m)[0], (pspecs, mb),
+            scale=_grad_share(cfg, mesh, model, pspecs))
+        # the update on the ZeRO-sharded state
+        zspecs = sh.grad_specs_of(cfg, mesh, pspecs)
+        shard = opt.tree_map(lambda p, z: torch.empty(
+            _shard_shape(p.shape, z, mesh), dtype=p.dtype, device="meta"),
+            pspecs, zspecs)
+        ocfg = opt_config_for(cfg)
+        sstate = opt.opt_state_specs(ocfg, shard)
+        update = counter.trace(
+            lambda p, g, st: opt.adamw_update(ocfg, p, g, st)[:2],
+            (shard, shard, sstate))
+        acc = sharded_bytes(pspecs, zspecs, mesh)     # grads at ZeRO layout
+        outputs = args["params"] + args["opt_state"]
+        phase_mb = (acc if accum > 1 else 0) + grads.peak
+        phase_u = acc + update.peak
+        mem = {"argument_size_in_bytes": arg_total,
+               "output_size_in_bytes": outputs,
+               "temp_size_in_bytes": int(max(phase_mb,
+                                             phase_u - outputs)),
+               "alias_size_in_bytes": 0}
+        peak = arg_total + max(phase_mb, phase_u)
+        full = {"flops": accum * grads.flops / mp + update.flops,
+                "bytes": accum * grads.bytes / mp + update.bytes}
+        act_b, act_s = b_mb, s
+    else:
+        bspecs = registry.input_specs(cfg, shape, batch=b_local, seq=s)
+        fwd = counter.trace(registry.step_fn(cfg, shape, model),
+                            (pspecs, bspecs))
+        logits = fwd.out[0] if shape.kind == "decode" else fwd.out
+        cache = (sharded_bytes(bspecs["cache"], sh.batch_specs_of(
+            cfg, mesh, {"cache": bspecs["cache"]})["cache"], mesh)
+            if shape.kind == "decode" else 0)
+        new_out = logits.numel() * logits.element_size()
+        mem = {"argument_size_in_bytes": arg_total,
+               "output_size_in_bytes": new_out + cache,
+               "temp_size_in_bytes": int(max(fwd.peak - new_out, 0)),
+               "alias_size_in_bytes": cache}   # written in place
+        peak = arg_total + fwd.peak
+        full = _part(fwd, mp)
+        act_b, act_s = b_local, (1 if shape.kind == "decode" else s)
+    mem["generated_code_size_in_bytes"] = 0
+    mem["total_bytes_per_device"] = (
+        mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+        + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
+    mem["peak_bytes_per_device"] = int(peak)
+    mem["arguments"] = args
+    full["collectives"] = collectives(cfg, mesh, model, pspecs, shape.kind,
+                                      accum, act_b, act_s)
+    full["n_collectives"] = sum(c["count"] for c in full["collectives"])
+    full["partition"] = "modelled" if mp > 1 else "exact"
+    rec["lower_compile_s"] = time.time() - t0      # the trace's seconds
+
+    frag_parts = []
+    for frag in model.fragments(shape.kind, act_b, s):
+        if shape.kind == "train":
+            c = counter.trace(_grad_wrap(frag.fn), frag.args, grad=True)
+        else:
+            c = counter.trace(frag.fn, frag.args)
+        frag_parts.append(dict(_part(c, mp), collectives=[],
+                               n_collectives=0, name=frag.name,
+                               mult=frag.extra_trips * accum))
+    if verbose:
+        print(f"[{arch} x {shape_name} x {mesh_name}] trace "
+              f"{rec['lower_compile_s']:.1f}s  mem/device "
+              f"{mem['total_bytes_per_device'] / 2**30:.2f} GiB "
+              f"flops/device {full['flops']:.3e} "
+              f"colls {full['n_collectives']}", flush=True)
+    rec.update(status="OK", chips=chips, memory=mem, full=full,
+               fragments=frag_parts, trips_in_full=True)
+    return rec
+
+
+def roofline_record(rec: dict) -> dict | None:
+    """Roofline terms of an OK record: its full part alone (every loop
+    trip is in it), each collective counted ``count`` times."""
+    if rec.get("status") != "OK":
+        return None
+    full = rec["full"]
+    ops = [analyze.CollectiveOp(**dict(c, count=1))
+           for c in full["collectives"] for _ in range(c["count"])]
+    part = {"flops": full["flops"], "bytes": full["bytes"],
+            "collectives": ops, "mult": 1}
+    return analyze.terms_from_parts([part], rec["chips"]).as_dict()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="both", choices=["single", "multi",
+                                                       "both"])
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=str(RESULTS))
+    args = ap.parse_args(argv)
+
+    archs = registry.ARCH_IDS if args.arch == "all" else [args.arch]
+    shapes = list(registry.SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    outdir = pathlib.Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    n_ok = n_skip = n_fail = 0
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                name = f"{arch}__{shape}__{'multi' if mp else 'single'}.json"
+                path = outdir / name
+                if path.exists() and not args.force:
+                    old = json.loads(path.read_text())
+                    print(f"[cached] {name}: {old.get('status')}")
+                    n_ok += old.get("status") == "OK"
+                    n_skip += old.get("status") == "SKIP"
+                    n_fail += old.get("status") == "FAIL"
+                    continue
+                try:
+                    rec = run_cell(arch, shape, mp)
+                except Exception as e:
+                    traceback.print_exc()
+                    rec = {"arch": arch, "shape": shape,
+                           "mesh": "multi" if mp else "single",
+                           "status": "FAIL", "error": str(e)[:2000]}
+                rl = roofline_record(rec)
+                if rl:
+                    rec["roofline"] = rl
+                    print(f"  roofline: compute {rl['t_compute']:.4f}s "
+                          f"memory {rl['t_memory']:.4f}s "
+                          f"collective {rl['t_collective']:.4f}s "
+                          f"-> {rl['bottleneck']}-bound", flush=True)
+                path.write_text(json.dumps(rec, indent=1, default=float))
+                n_ok += rec["status"] == "OK"
+                n_skip += rec["status"] == "SKIP"
+                n_fail += rec["status"] == "FAIL"
+    print(f"\nDRY-RUN SUMMARY: {n_ok} OK, {n_skip} SKIP, {n_fail} FAIL")
+    return 0 if n_fail == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

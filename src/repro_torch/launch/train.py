@@ -7,8 +7,9 @@ A reduced config end to end with checkpointing (``--smoke``):
         --smoke --steps 50 [--device cpu]
 
 Without ``--smoke`` the same entry point trains the full config on one
-device. The reference's ``--dry-run`` (lower and compile the production
-cell) waits for the port's dry-run (ROADMAP queue 1 item 11) and raises.
+device. ``--dry-run`` runs the production cell (``train_4k`` on the
+single-pod mesh) through ``launch/dryrun.py`` on fake tensors, on the CPU,
+and prints its status, memory and roofline terms (the H100 table).
 """
 
 from __future__ import annotations
@@ -66,13 +67,18 @@ def main(argv=None):
                                                    "repro_torch_ckpt"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile the production cell (not ported)")
+                    help="trace the production cell on fake tensors "
+                         "instead of executing (see repro_torch.launch."
+                         "dryrun for the full sweep)")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers and compiles the production cell in the "
-            "reference; the port's dry-run is ROADMAP queue 1 item 11")
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, "train_4k", multi_pod=False)
+        rec["roofline"] = dryrun.roofline_record(rec)
+        print(rec.get("status"), rec.get("memory"))
+        print("roofline:", rec["roofline"])
+        return rec
 
     from repro_torch.configs import registry
     from repro_torch.device import resolve

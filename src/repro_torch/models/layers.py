@@ -66,6 +66,8 @@ def checkpointed(fn, *args):
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":    # shapes only: nothing drawn
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device).to(device)
 
 

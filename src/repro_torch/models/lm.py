@@ -6,12 +6,14 @@ stub's patch embeddings), hybrid (hymba: attention and a Mamba head in
 every layer) and SSM (xlstm: mLSTM layers with sLSTM at
 ``xlstm.slstm_at``) families. The encoder-decoder family (whisper) is
 ``models.whisper.EncDecLM``, which ``registry.make_model`` builds; ``LM``
-refuses it. The reference's roofline ``fragments``, ``param_specs`` and
-sharding hooks wait for ROADMAP queue 1 items 10 and 11. ``cfg.remat`` is
-honoured as the reference's ``_remat``: while autograd records a layer of a
-stacked group (4 or more layers), it is rematerialised in the backward
-(``torch.utils.checkpoint``, with a selective policy for ``"dots"`` and
-``"names"``); a forward that records nothing runs as before.
+refuses it. ``param_specs`` and the roofline ``fragments`` serve the
+dry-run (``launch/dryrun.py``); the reference's sharding hooks
+(``act_spec``, ``_constrain``) wait for ROADMAP queue 1 item 10.
+``cfg.remat`` is honoured as the reference's ``_remat``: while autograd
+records a layer of a stacked group (4 or more layers), it is
+rematerialised in the backward (``torch.utils.checkpoint``, with a
+selective policy for ``"dots"`` and ``"names"``); a forward that records
+nothing runs as before.
 
 The param tree is the reference's: ``{"embed", "final_norm", "groups"}``
 (+ ``"head"`` when embeddings are untied, + ``"mtp"`` under MTP), where
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -43,6 +46,29 @@ class LayerGroup:
     kind: str                  # blocks.layer_params kind
     indices: tuple[int, ...]   # absolute layer ids
     scanned: bool              # stacked on axis 0 (>= 4 layers)
+
+    @property
+    def size(self) -> int:
+        return len(self.indices)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fragment:
+    """A loop body for the roofline combiner: the enclosed fn runs
+    ``extra_trips`` more times in the step than once (the reference counts
+    scan bodies once in its compiled step; eager PyTorch runs and counts
+    every trip, so the dry-run records fragments but combines the full
+    step alone).
+
+    ``arg_kinds`` aligns with ``args``: "params" (the param layout
+    rules), "cache" (cache/state rules), or a trailing-dims tail tuple for
+    ``sharding/specs._fit`` (e.g. ("data", None, "model", None))."""
+
+    name: str
+    fn: Callable
+    args: tuple
+    extra_trips: int
+    arg_kinds: tuple = ()
 
 
 def make_groups(cfg: ModelConfig) -> list[LayerGroup]:
@@ -142,6 +168,7 @@ class LM:
         # forces the chunked path (chip_smoke.py compares the two), and is
         # the one that trains on a card: the kernel has no backward
         self.attn_impl: str | None = None
+        self._param_specs = None
 
     # -- parameters ----------------------------------------------------------
 
@@ -173,6 +200,14 @@ class LM:
                 "norm_e": layers.norm_params(cfg, cfg.d_model, dev),
             }
         return params
+
+    def param_specs(self) -> Params:
+        """The param tree of ``init`` as ``meta`` tensors (shapes and
+        dtypes; nothing is drawn or allocated at any width), made once a
+        model."""
+        if self._param_specs is None:
+            self._param_specs = self.init(torch.Generator(), device="meta")
+        return self._param_specs
 
     def _mtp_kind(self) -> str:
         return "moe_dense" if self.cfg.family == "moe" else "dense"
@@ -314,29 +349,34 @@ class LM:
         mixes windowed and global layers holds ``max_len`` slots and
         applies the window through the mask; only an all-windowed group is
         a ring buffer of ``window`` slots."""
-        cfg = self.cfg
         dev = resolve(device)
-
-        def entry(kind: str, cap: int, axes: tuple) -> Params:
-            if kind == "hybrid":
-                return {"attn": attention.init_cache(cfg, batch, cap, axes,
-                                                     device=dev),
-                        "ssm": ssm.mamba_init_state(cfg, batch, axes,
-                                                    device=dev)}
-            if kind == "mlstm":
-                return ssm.mlstm_init_state(cfg, batch, axes, device=dev)
-            if kind == "slstm":
-                return ssm.slstm_init_state(cfg, batch, axes, device=dev)
-            return attention.init_cache(cfg, batch, cap, axes, device=dev)
-
         out = []
         for g in self.groups:
             cap = max(self.cache_capacity(i, max_len) for i in g.indices)
             if g.scanned:
-                out.append(entry(g.kind, cap, (len(g.indices),)))
+                out.append(self._cache_one(g.kind, batch, cap,
+                                           (len(g.indices),), device=dev))
             else:
-                out.append([entry(g.kind, cap, ()) for _ in g.indices])
+                out.append([self._cache_one(g.kind, batch, cap, (),
+                                            device=dev)
+                            for _ in g.indices])
         return out
+
+    def _cache_one(self, kind: str, batch: int, cap: int, axes=(), *,
+                   device) -> Params:
+        """One layer's cache entry (with leading ``axes``) of a ``kind``
+        layer."""
+        cfg = self.cfg
+        if kind == "hybrid":
+            return {"attn": attention.init_cache(cfg, batch, cap, axes,
+                                                 device=device),
+                    "ssm": ssm.mamba_init_state(cfg, batch, axes,
+                                                device=device)}
+        if kind == "mlstm":
+            return ssm.mlstm_init_state(cfg, batch, axes, device=device)
+        if kind == "slstm":
+            return ssm.slstm_init_state(cfg, batch, axes, device=device)
+        return attention.init_cache(cfg, batch, cap, axes, device=device)
 
     def decode_step(self, params: Params, cache, tokens, position):
         """tokens [B,1] at ``position`` (a Python int or a 0-d int tensor on
@@ -354,3 +394,136 @@ class LM:
                     layer_params_of(gc, j), position, int(self.windows[li]))
         x = layers.apply_norm(cfg, params["final_norm"], x)
         return self.logits(params, x), cache
+
+    # -- roofline fragments ----------------------------------------------------
+
+    def fragments(self, mode: str, batch: int, seq: int) -> list[Fragment]:
+        """The reference's loop bodies with their trip counts: stacked
+        layer bodies, attention query-chunk bodies, SSM chunk bodies and
+        sLSTM cells, their args as ``meta`` tensors. mode: train | prefill
+        | decode. The fns are the port's own functions."""
+        cfg = self.cfg
+        cdt = dtype_of(cfg.compute_dtype)
+        f32, i32 = torch.float32, torch.int32
+        frags: list[Fragment] = []
+        pspecs = self.param_specs()
+
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        pos = sds((3, batch, seq) if cfg.mrope else (batch, seq), i32)
+        x_spec = sds((batch, seq, cfg.d_model), cdt)
+        dp = "data"
+
+        for gi, g in enumerate(self.groups):
+            gp = pspecs["groups"][gi]
+            p1 = layer_params_of(gp, 0)     # one layer's specs
+            if mode in ("train", "prefill") and g.scanned:
+                def fwd(p_l, x, positions, _kind=g.kind):
+                    y, aux, _ = blocks.layer_fwd(cfg, _kind, p_l, x,
+                                                 positions, 0,
+                                                 attn_impl="reference")
+                    return y, aux
+                frags.append(Fragment(
+                    f"layer_{g.kind}", _remat(cfg, fwd), (p1, x_spec, pos),
+                    g.size - 1,
+                    ("params", (dp, None, None),
+                     (None, dp, None) if cfg.mrope else (dp, None))))
+            if mode == "decode" and g.scanned:
+                cap = max(self.cache_capacity(i, seq) for i in g.indices)
+                cache1 = self._cache_one(g.kind, batch, cap, device="meta")
+                x1 = sds((batch, 1, cfg.d_model), cdt)
+
+                def dec(p_l, x, c_l, _kind=g.kind):
+                    return blocks.layer_decode(cfg, _kind, p_l, x, c_l, 0, 0)
+                frags.append(Fragment(f"decode_{g.kind}", dec,
+                                      (p1, x1, cache1), g.size - 1,
+                                      ("params", (dp, None, None), "cache")))
+
+        if mode not in ("train", "prefill"):
+            return frags
+
+        # ---- attention q-chunk bodies (inside every attn layer) ----------
+        nc = attention.attn_q_chunks(seq)
+        n_attn = sum(1 for g in self.groups
+                     if g.kind in ("dense", "moe", "moe_dense", "hybrid")
+                     for _ in g.indices)
+        if nc > attention.CHUNK_SCAN_THRESHOLD and n_attn:
+            chunk = -(-seq // nc)
+            nq, hd = cfg.num_heads, cfg.head_dim_
+            if cfg.mla:
+                m = cfg.mla
+                qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                qc = sds((batch, chunk, nq, qd), cdt)
+                kf = sds((batch, seq, nq, qd), cdt)
+                vf = sds((batch, seq, nq, m.v_head_dim), cdt)
+            else:
+                qc = sds((batch, chunk, nq, hd), cdt)
+                kf = sds((batch, seq, nq, hd), cdt)
+                vf = sds((batch, seq, nq, hd), cdt)
+            pc = sds((batch, chunk), i32)
+            kp = sds((batch, seq), i32)
+
+            def attn_chunk(q, p_q, k, v, p_k):
+                bias = attention._window_bias(p_q, p_k, 0, True)
+                return attention._mha_one_chunk(q, k, v, bias, cdt)
+            head_tail = (dp, None, "model", None) if nq % 16 == 0 \
+                else (dp, None, None, None)
+            frags.append(Fragment(
+                "attn_chunk", _remat(cfg, attn_chunk), (qc, pc, kf, vf, kp),
+                (nc - 1) * n_attn,
+                (head_tail, (dp, None), head_tail, head_tail, (dp, None))))
+
+        # ---- mamba chunk bodies -------------------------------------------
+        if cfg.ssm is not None:
+            nc_s = -(-seq // ssm.SSM_CHUNK)
+            n_ssm = cfg.num_layers
+            if nc_s > 1 and n_ssm:
+                inner = cfg.ssm.expand * cfg.d_model
+                pm = {"a_log": sds((inner, cfg.ssm.state_dim),
+                                   dtype_of(cfg.param_dtype))}
+                h0 = sds((batch, inner, cfg.ssm.state_dim), f32)
+                c = min(ssm.SSM_CHUNK, seq)
+                dtc = sds((batch, c, inner), cdt)
+                bc = sds((batch, c, cfg.ssm.state_dim), cdt)
+                frags.append(Fragment(
+                    "mamba_chunk", _remat(cfg, ssm.mamba_chunk_body),
+                    (pm, h0, dtc, dtc, bc, bc), (nc_s - 1) * n_ssm,
+                    ("params", (dp, "model", None), (dp, None, "model"),
+                     (dp, None, "model"), (dp, None, None),
+                     (dp, None, None))))
+
+        # ---- mLSTM chunk bodies -------------------------------------------
+        if cfg.xlstm is not None:
+            n_m = len([i for i in range(cfg.num_layers)
+                       if i not in cfg.xlstm.slstm_at])
+            nc_m = -(-seq // ssm.MLSTM_CHUNK)
+            if nc_m > 1 and n_m:
+                nh, hd = cfg.num_heads, cfg.head_dim_
+                c = min(ssm.MLSTM_CHUNK, seq)
+                carry = (sds((batch, nh, hd, hd), f32),
+                         sds((batch, nh, hd), f32), sds((batch, nh), f32))
+                qkv = sds((batch, c, nh, hd), cdt)
+                gate = sds((batch, c, nh), f32)
+                frags.append(Fragment(
+                    "mlstm_chunk", _remat(cfg, ssm.mlstm_chunk_body),
+                    (carry, qkv, qkv, qkv, gate, gate), (nc_m - 1) * n_m,
+                    ("cache", (dp, None, None, None), (dp, None, None, None),
+                     (dp, None, None, None), (dp, None, None),
+                     (dp, None, None))))
+
+        # ---- sLSTM sequential cells ----------------------------------------
+        if cfg.xlstm is not None:
+            n_slstm = len([i for i in range(cfg.num_layers)
+                           if i in cfg.xlstm.slstm_at])
+            if n_slstm and seq > 1:
+                nh, hd = cfg.num_heads, cfg.head_dim_
+                pl = ssm.slstm_params(torch.Generator(), cfg, "meta")
+                carry = tuple(sds((batch, nh, hd), f32) for _ in range(4))
+                xg = sds((batch, 4, nh, hd), cdt)
+                frags.append(Fragment(
+                    "slstm_cell", ssm.slstm_cell, (pl, carry, xg),
+                    (seq - 1) * n_slstm,
+                    ("params", "cache", (dp, None, None, None))))
+        return frags
+
+

@@ -49,6 +49,8 @@ def _experts_init(gen: torch.Generator, e: int, d_in: int, d_out: int,
     that the fp32 draw of a full-width expert stack (15 GB for deepseek's
     256) never lives at once."""
     out = torch.empty((e, d_in, d_out), dtype=dtype, device=device)
+    if out.is_meta:                  # shapes only: nothing to draw
+        return out
     for i in range(e):
         out[i] = dense_init(gen, d_in, d_out, dtype, device)
     return out

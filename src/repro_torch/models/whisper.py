@@ -17,8 +17,8 @@ writes them: ``decode_step`` attends to whatever the caller put there
 (the encoder's K/V projected through each layer's ``cross`` weights, for a
 decode that matches ``prefill``). ``decode_step`` writes the
 self-attention cache in place; ``position`` is an int or a 0-d tensor on
-the device. The reference's ``param_specs`` and ``fragments`` wait for
-ROADMAP queue 1 item 11, as ``LM``'s do.
+the device. ``param_specs`` and ``fragments`` serve the dry-run, as
+``LM``'s do.
 """
 
 from __future__ import annotations
@@ -71,6 +71,14 @@ class EncDecLM:
             "enc_norm": layers.norm_params(cfg, cfg.d_model, dev),
             "final_norm": layers.norm_params(cfg, cfg.d_model, dev),
         }
+
+    def param_specs(self) -> Params:
+        """The param tree of ``init`` as ``meta`` tensors (nothing drawn
+        or allocated)."""
+        return self.init(torch.Generator(), device="meta")
+
+    def fragments(self, mode: str, batch: int, seq: int) -> list:
+        return []  # 4+4 layers are unrolled: the full count is exact
 
     # -- encoder ------------------------------------------------------------
 

@@ -116,6 +116,11 @@ class PagedDecoder:
         x = L.apply_norm(self.cfg, self.params["final_norm"], x)
         return x @ self.head
 
+    def prefill_chunk(self, token_ids, pages, lo: int, hi: int):
+        """Single-sequence incremental prefill (kept for callers/tests):
+        one-chunk special case of :meth:`forward_chunks`."""
+        self.forward_chunks([(list(token_ids[lo:hi]), pages, lo)])
+
     def forward_chunks(self, chunks, *, want_logits: bool = False):
         """Fused multi-sequence chunk forward: ``chunks`` is a list of
         ``(token_ids, pages, start)`` — one sequence's token chunk at

@@ -11,7 +11,9 @@ clipping on and off) within 1e-6 relative for fp32 values (1e-5 where the
 grads are bf16: the reference's fp32 norm of bf16 grads is 2.1e-6 off the
 float64 norm, the port's 7e-8, and each is held against that norm); bf16
 params and int8 moments within one step where an fp32 rounding moved a
-half-way quotient, counted. ``opt_config_for`` and ``accum_steps_for`` are held
+half-way quotient, counted; a param element whose ``m`` or ``v`` entry so
+moved within the update difference the two packages' states imply for
+that step (``_moment_slack``, summed over the steps), counted too. ``opt_config_for`` and ``accum_steps_for`` are held
 for every config and every ``SHAPES`` row, exactly. The reference's
 ``test_quantized_adam_moments_roundtrip`` runs on the port.
 """
@@ -139,29 +141,75 @@ CASES = {
 }
 
 
-def _close(got, want, what, rel=REL):
+def _close(got, want, what, rel=REL, slack=None):
     """fp32: |got - want| <= rel * (the leaf's largest |want|). bf16: the
     same bound plus one bf16 step of the value (the fp32 master rounds to
-    bf16 either side of a tie); ints: equal but for one step. Returns the
-    count of bf16 and int elements that differ."""
+    bf16 either side of a tie); ints: equal but for one step. ``slack``
+    (float64, the leaf's shape) widens the bound of each element by the
+    update difference its moved int8 moments imply (``_moment_slack``).
+    Returns the count of bf16 and int elements that differ, and of
+    elements held with slack."""
     want = np.asarray(want)
     got = bits(got) if isinstance(got, torch.Tensor) else np.asarray(got)
+    extra = 0.0 if slack is None else slack
+    loose = 0 if slack is None else int((slack > 0).sum())
     if want.dtype.name == "bfloat16":
         got = torch.from_numpy(got).view(torch.bfloat16).float().numpy()
         want = np.asarray(want, np.float32)
         s = max(np.abs(want).max(initial=0), 1e-30)
         np.testing.assert_array_less(
-            np.abs(got - want), rel * s + 2.0 ** -7 * np.abs(want) + 1e-30,
+            np.abs(got - want),
+            rel * s + 2.0 ** -7 * np.abs(want) + 1e-30 + extra,
             err_msg=what)
-        return int((got != want).sum())
+        return int((got != want).sum()) + loose
     if want.dtype == np.float32:
         s = max(np.abs(want).max(initial=0), 1e-30)
-        np.testing.assert_allclose(got, want, rtol=0, atol=rel * s,
-                                   err_msg=what)
-        return 0
+        if slack is None or not loose:
+            np.testing.assert_allclose(got, want, rtol=0, atol=rel * s,
+                                       err_msg=what)
+        else:
+            over = np.abs(got.astype(np.float64) - want) > rel * s + slack
+            assert not over.any(), (what, np.argwhere(over)[:5].tolist())
+        return loose
     diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
     assert diff.max(initial=0) <= 1, what
     return int((diff > 0).sum())
+
+
+def _moment_slack(cfg, params, grads, ref_state, state, lr, clip):
+    """For each param leaf (JAX's order), float64: where an int8 entry of
+    ``m`` or ``v`` differs between the reference's state and the port's
+    as this step starts, the |difference| of this step's update that the
+    two states imply with the same gradient (``adamw_update``'s
+    arithmetic in float64); 0 wherever both moments agree. XLA contracts
+    and rounds the moment arithmetic differently on different CPUs, so a
+    quotient on a rounding edge may quantize one step apart; the param
+    that step feeds moves by this much and no more."""
+    ref = opt_state_from_reference(_np(ref_state), device="cpu")
+    step = float(int(state["step"]) + 1)
+    b1c, b2c = 1.0 - cfg.b1 ** step, 1.0 - cfg.b2 ** step
+
+    def one(p, g, mr, vr, mt, vt):
+        shape = tuple(p.shape)
+
+        def deq(qs):
+            return t_opt.dequantize_q8(qs, shape).double()
+
+        def moved(a, b):
+            flag = {"q": (a["q"] != b["q"]).to(torch.int8),
+                    "scale": torch.ones_like(a["scale"])}
+            return t_opt.dequantize_q8(flag, shape) != 0
+
+        gs = g.double() * clip
+
+        def update(m, v):
+            m = cfg.b1 * deq(m) + (1 - cfg.b1) * gs
+            v = cfg.b2 * deq(v) + (1 - cfg.b2) * gs ** 2
+            return (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        gap = lr * (update(mr, vr) - update(mt, vt)).abs()
+        return torch.where(moved(mr, mt) | moved(vr, vt), gap, 0.0)
+    return [x.numpy() for x in t_opt.tree_leaves(t_opt.tree_map(
+        one, params, grads, ref["m"], ref["v"], state["m"], state["v"]))]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -175,23 +223,32 @@ def test_adamw_three_steps_equal_the_reference(case):
     ts = t_opt.init_opt_state(tc, tp)
     rp = jax.tree.map(jnp.asarray, rp)
     moved = 0
+    slack = None                # per param leaf, summed over the steps
     for step in range(3):
         # step 1 clips (norm >> 1), the others do not
         g = _grads(rp, 10 + step, 5.0 if step == 1 else 1e-3)
+        rs_in, ts_in = rs, ts
         rp, rs, rm = r_opt.adamw_update(rc, rp, jax.tree.map(jnp.asarray, g),
                                         rs)
-        tp, ts, tm = t_opt.adamw_update(
-            tc, tp, params_from_reference(g, device="cpu"), ts)
+        tg = params_from_reference(g, device="cpu")
+        tp, ts, tm = t_opt.adamw_update(tc, tp, tg, ts_in)
         exact = np.sqrt(sum(np.sum(np.asarray(x, np.float64) ** 2)
                             for x in jax.tree.leaves(g)))
         assert abs(float(tm["grad_norm"]) / exact - 1) <= REL, case
         assert abs(float(rm["grad_norm"]) / exact - 1) <= rel, case
         _close(tm["lr"], rm["lr"], "lr")
-        for (path, want), got in zip(
+        if tc.quantized_moments:
+            clip = min(1.0, tc.grad_clip / (exact + 1e-9)) \
+                if tc.grad_clip > 0 else 1.0
+            gap = _moment_slack(tc, tp, tg, rs_in, ts_in, float(rm["lr"]),
+                                clip)
+            slack = gap if slack is None else [
+                a + b for a, b in zip(slack, gap)]
+        for i, ((path, want), got) in enumerate(zip(
                 jax.tree_util.tree_flatten_with_path(_np(rp))[0],
-                t_opt.tree_leaves(tp)):
+                t_opt.tree_leaves(tp))):
             moved += _close(got, want, f"{case} step {step} params{path}",
-                            rel)
+                            rel, None if slack is None else slack[i])
         flat_r = jax.tree_util.tree_flatten_with_path(_np(rs))[0]
         flat_t = t_opt.tree_leaves(ts)
         assert len(flat_r) == len(flat_t)
@@ -201,7 +258,8 @@ def test_adamw_three_steps_equal_the_reference(case):
                             rel)
     # fp32 rounding differs from XLA's (fused multiply-adds, reduction
     # order), so a quantized moment or a bf16 param on a rounding edge may
-    # land one step over; never more, and rarely
+    # land one step over, and a param that such a moment feeds moves by
+    # what the step implies; never more, and rarely
     n = sum(np.asarray(x).size for x in jax.tree.leaves(_np(rs)))
     assert moved <= 1e-3 * n, (case, moved, n)
 

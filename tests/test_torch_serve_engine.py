@@ -182,3 +182,40 @@ def test_dwp_migration_changes_allocation(small_lm):
         assert pool.weights[0] > w0[0]
         return fed, pool.tuner.dwp, np.asarray(pool.weights).tolist()
     both(case)
+
+
+def test_prefill_chunk_writes_the_reference_pages(small_lm):
+    """``PagedDecoder.prefill_chunk``, the one-chunk call of
+    ``forward_chunks``: the 4-token prompt of the dense-decode case (the
+    same B = 1, T = 4 chunk that engine runs, so the reference compiles
+    no new shape) writes K/V pages equal to the reference's, within fp32
+    rounding (2e-5); on the port, the same prompt as two chunks writes the
+    same pages."""
+    prompt = [3, 17, 29, 5]
+    pages_of = {}
+
+    def case(pkg):
+        cfg, params = small_lm[pkg.port]
+        pool = _pool(pkg, cfg, pages=64, page_size=4)
+        eng = _engine(pkg, cfg, params, pool, max_batch=1, max_new=1)
+        pages = [pool.alloc_page()]
+        eng.decoder.prefill_chunk(prompt, pages, 0, len(prompt))
+        view = eng.decoder.view
+        kv = [np.asarray(p[:, pages]) for p in (view.k_pool, view.v_pool)]
+        assert np.abs(kv[0]).max() > 0
+        if pkg.port:
+            split = _engine(pkg, cfg, params,
+                            _pool(pkg, cfg, pages=64, page_size=4),
+                            max_batch=1, max_new=1)
+            spages = [split.decoder.view.pool.alloc_page()]
+            split.decoder.prefill_chunk(prompt, spages, 0, 2)
+            split.decoder.prefill_chunk(prompt, spages, 2, len(prompt))
+            sv = split.decoder.view
+            for got, want in zip((sv.k_pool, sv.v_pool), kv):
+                np.testing.assert_allclose(np.asarray(got[:, spages]),
+                                           want, rtol=0, atol=2e-5)
+        pages_of[pkg.port] = kv
+        return pages
+    both(case)
+    for got, want in zip(pages_of[True], pages_of[False]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)

@@ -313,10 +313,25 @@ def test_launcher_trains_each_batch_kind(tmp_path, arch, capsys):
     assert "finished at step 2: loss=" in capsys.readouterr().out
 
 
-def test_what_the_port_cannot_honour_raises(tmp_path):
+def test_what_the_port_cannot_honour_raises(tmp_path, capsys, monkeypatch):
+    from repro_torch.configs import registry as t_registry
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(["--arch", "qwen2-0.5b", "--dry-run", "--device", "cpu"])
+    # --dry-run traces the production cell on fake tensors (no card) and
+    # prints its record: status, memory, the roofline on the H100 table;
+    # traced here at the smoke width (tests/test_torch_dryrun.py holds
+    # the dry-run itself)
+    monkeypatch.setattr(t_registry, "get_config",
+                        t_registry.get_smoke_config)
+    rec = train.main(["--arch", "qwen2-0.5b", "--dry-run"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[qwen2-0.5b x train_4k x single] trace ")
+    assert out[1].startswith("OK {'argument_size_in_bytes': ")
+    assert out[2].startswith("roofline: {'flops': ")
+    assert rec["status"] == "OK" and rec["shape"] == "train_4k" \
+        and rec["mesh"] == "single" and rec["chips"] == 256
+    rl = rec["roofline"]
+    assert rl["t_compute"] == rl["flops"] / 989e12 > 0
+    assert rl["t_memory"] == rl["bytes_hbm"] / 3.35e12 > 0
     model = TLM(port_config(_tiny()))
     ocfg, loop = t_opt.OptConfig(), t_loop.LoopConfig()
 
