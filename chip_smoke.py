@@ -247,8 +247,29 @@ Phases (each failed check raises; the script then exits non-zero):
    the reference test's limits (OK, a memory term, under 16 GiB a
    device).
 
-The lines before the last two are phase 19's records, then the kernels'
-JSON record (a row per entry
+20. sharded compute (the train and eval steps on DTensor params): (a) a
+   real one-rank NCCL group (its store a TCP store on localhost) and a
+   (1, 1) (data, model) ``DeviceMesh``; qwen2-0.5b at full width and
+   depth, B = 4 as 2 microbatches of 2 at S = 4096, ``remat="full"``: the
+   sharded ``make_train_step`` with ``grad_specs`` and ``mb_specs`` on the
+   params of one one-device step (phase 18a's function): loss within 1e-2,
+   updated params within 2e-2 relative L2 (phase 18's gate), ``grad_norm``
+   within 1e-2 relative; ``make_eval_step`` on the DTensor params launches
+   the flash kernel 24 times on each rank's local heads (``on_shards``),
+   its loss within 1e-2 of the train loss. (b) one rank of the production
+   single-pod mesh: a fake process group of 256 ranks (a ``HashStore``; it
+   moves no data) and a (16, 16) mesh; internlm2-20b at full width and
+   depth (48 layers, ``act_spec`` on), 16 sequences of 4096 (one a data
+   rank), accumulation 1, ``remat="full"``, params and state made shard by
+   shard. The dry-run's traced record of that cell (printed on a line of
+   its own) holds the real step: its peak within 10 % of
+   ``max_memory_allocated``, its FLOPs equal to ``RankFlops`` over the
+   step, its collectives by kind equal to ``CommDebugMode``'s. The loss is
+   not gated (the collectives move no data) and the step time printed is
+   rank 0's compute with collectives that move nothing.
+
+The lines before the last two are phase 19's and 20's records, then the
+kernels' JSON record (a row per entry
 point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
 granite-moe-3b-a800m, hymba-1.5b and whisper-tiny heads, each naming its
 instance and context, and the context-4096 decode rows; the rows at
@@ -3796,6 +3817,243 @@ def phase_dryrun(device) -> None:
     log(f"phase 19: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+SHARD_B, SHARD_ACCUM = 4, 2      # 20a: B = 4 as 2 microbatches of 2
+SHARD_TOL = 2e-2                 # rel. L2 of the updated params (phase 18)
+PROD_MESH = (16, 16)             # 20b: the single-pod (data, model) mesh
+PROD_B = 16                      # 20b: one sequence a data rank
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _scalar(x) -> float:
+    return float(x.full_tensor() if hasattr(x, "full_tensor") else x)
+
+
+def _sharded_one_rank(device) -> int:
+    """20a: the sharded train and eval steps on a one-rank NCCL group
+    against the one-device step. Returns the eval step's flash
+    launches."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    cfg = _qwen_train_cfg()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(20),
+                     device=device)
+    ocfg = ts.opt_config_for(cfg, lr=1e-3, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    tokens = _train_batches(cfg, PREFILL_S, SHARD_B, 20, device)(0)
+    one, one_ms = _synced_ms(ts.make_train_step(lm, ocfg, SHARD_ACCUM),
+                             params, opt.init_opt_state(ocfg, params),
+                             {"tokens": tokens})
+    p1, m1 = one[0], one[2]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        pspecs = lm.param_specs()
+        batch = {"tokens": tokens}
+        bsh = specs.batch_shardings(cfg, mesh, batch)
+        sparams = specs.place(params, specs.param_shardings(cfg, mesh,
+                                                            pspecs))
+        del params
+        state = opt.init_opt_state(ocfg, sparams, specs.opt_shardings(
+            cfg, mesh, opt.opt_state_specs(ocfg, pspecs)))
+        step = ts.make_train_step(lm, ocfg, SHARD_ACCUM,
+                                  specs.grad_shardings(cfg, mesh, pspecs),
+                                  specs.mb_shardings(bsh))
+        fkernel.reset_launch_counts()
+        (p2, _, m2), sharded_ms = _synced_ms(step, sparams, state,
+                                             specs.place(batch, bsh))
+        check(sum(fkernel.LAUNCHES.values()) == 0,
+              f"20a: the sharded train step launched {fkernel.LAUNCHES}")
+        loss1, loss2 = float(m1["loss"]), _scalar(m2["loss"])
+        gn1, gn2 = float(m1["grad_norm"]), _scalar(m2["grad_norm"])
+        check(abs(loss2 - loss1) <= LOSS_TOL,
+              f"20a: sharded loss {loss2} vs one-device {loss1}")
+        check(abs(gn2 / gn1 - 1) <= LOSS_TOL,
+              f"20a: sharded grad_norm {gn2} vs one-device {gn1}")
+        rel = _rel_l2(opt.tree_map(lambda t: t.full_tensor(), p2), p1)
+        check(rel <= SHARD_TOL, f"20a: updated params {rel:.3g} apart "
+              f"(rel. L2) > {SHARD_TOL}")
+        del p1, p2, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the eval step on the DTensor params: the flash kernel on each
+        # rank's local heads, one launch a layer
+        mb = specs.place({"tokens": tokens[SHARD_B - SHARD_B
+                                           // SHARD_ACCUM:]}, bsh)
+        fkernel.reset_launch_counts()
+        with torch.no_grad():
+            ev, eval_ms = _synced_ms(ts.make_eval_step(lm), sparams, mb)
+        flash = dict(fkernel.LAUNCHES)
+        check(flash == {"flash_attention": 0,
+                        "flash_attention_wgmma": cfg.num_layers},
+              f"20a eval: flash launches {flash}, want {cfg.num_layers}")
+        eval_loss = _scalar(ev["loss"])
+        check(abs(eval_loss - loss2) <= LOSS_TOL,
+              f"20a: eval loss through the kernel {eval_loss} vs the "
+              f"sharded train loss {loss2}")
+    finally:
+        dist.destroy_process_group()
+    log(f"20a qwen2-0.5b on a one-rank NCCL group, (1, 1) mesh (B="
+        f"{SHARD_B} as {SHARD_ACCUM} x {SHARD_B // SHARD_ACCUM}, S="
+        f"{PREFILL_S}, remat {cfg.remat}, grad_specs and mb_specs): "
+        f"sharded step {sharded_ms:.1f} ms vs one-device {one_ms:.1f} ms; "
+        f"loss {loss2:.5f} vs {loss1:.5f} (gap {abs(loss2 - loss1):.3g}, "
+        f"gate {LOSS_TOL}); grad_norm {gn2:.5f} vs {gn1:.5f}; params "
+        f"{rel:.3g} apart (rel. L2, gate {SHARD_TOL}); eval on the DTensor "
+        f"params: {flash['flash_attention_wgmma']} flash launches on local "
+        f"heads, loss {eval_loss:.5f} ({eval_ms:.1f} ms)")
+    return flash["flash_attention_wgmma"]
+
+
+def _production_rank(device) -> None:
+    """20b: rank 0 of internlm2-20b's (16, 16) mesh on a fake process
+    group, against the dry-run's traced record of the same cell."""
+    import gc
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import counter
+    from repro_torch.sharding import dtensor, specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    arch = "internlm2-20b"
+    cfg = registry.get_config(arch)
+    shape = registry.SHAPES["train_4k"]
+    world = math.prod(PROD_MESH)
+    dtensor.init_fake_group(world)
+    try:
+        stand_in = dryrun.StandInMesh(("data", "model"), PROD_MESH)
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, "train_4k", verbose=False,
+                              mesh=stand_in, batch=PROD_B, seq=PREFILL_S)
+        check(rec["status"] == "OK" and rec["full"]["partition"]
+              == "traced", f"20b dry-run: {rec.get('status')} "
+              f"{rec.get('full', {}).get('partition')}")
+        rec["roofline"] = dryrun.roofline_record(rec)
+        rec["wall_s"] = time.perf_counter() - t
+        print(json.dumps({"dryrun": rec}, default=float), flush=True)
+        mesh = dryrun.device_mesh(stand_in, "cuda")
+        model = registry.make_model(cfg)
+        model.attn_impl = "reference"
+        accum = rec["accum_steps"]
+        pspecs = model.param_specs()
+        ocfg = ts.opt_config_for(cfg)
+        ospecs = opt.opt_state_specs(ocfg, pspecs)
+        bspecs = registry.input_specs(cfg, shape, batch=PROD_B,
+                                      seq=PREFILL_S)
+        gen = torch.Generator(device=device).manual_seed(21)
+
+        def draw(local_shape, dtype, dev):
+            if dtype.is_floating_point:
+                return (torch.randn(local_shape, generator=gen,
+                                    device=dev) * 0.02).to(dtype)
+            return torch.randint(0, cfg.vocab_size, local_shape,
+                                 generator=gen, device=dev).to(dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        clear = dryrun.launcher_constraints(model, cfg, mesh, "train")
+        try:
+            params = specs.make_leaves(
+                pspecs, specs.param_shardings(cfg, mesh, pspecs), draw)
+            state = opt.init_opt_state(ocfg, params, specs.opt_shardings(
+                cfg, mesh, ospecs))
+            batch = specs.make_leaves(
+                bspecs, specs.batch_shardings(cfg, mesh, bspecs), draw)
+            torch.cuda.synchronize()
+            args = torch.cuda.memory_allocated() - base
+            step = ts.make_train_step(model, ocfg, accum)
+            with CommDebugMode() as comm, counter.RankFlops() as flops:
+                (new_p, new_s, m), counted_ms = _synced_ms(
+                    step, params, state, batch)
+            peak = torch.cuda.max_memory_allocated() - base
+            loss = _scalar(m["loss"])
+            del new_p, new_s, m
+            gc.collect()
+            _, step_ms = _synced_ms(step, params, state, batch)
+        finally:
+            clear()
+        del params, state, batch
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, mem = rec["full"], rec["memory"]
+    pred = mem["peak_bytes_per_device"]
+    check(abs(pred - peak) <= DRY_PEAK_TOL * peak,
+          f"20b: dry-run peak {pred / 1e9:.2f} GB vs max_memory_allocated "
+          f"{peak / 1e9:.2f} GB: more than {DRY_PEAK_TOL:.0%} apart")
+    check(full["flops"] == flops.flops, f"20b: dry-run FLOPs "
+          f"{full['flops']} != RankFlops over the real step {flops.flops}")
+    real = {counter.KINDS[str(op).split(".")[-1]]: n
+            for op, n in comm.get_comm_counts().items()}
+    traced: dict[str, int] = {}
+    for c in full["collectives"]:
+        traced[c["kind"]] = traced.get(c["kind"], 0) + c["count"]
+    check(traced == real, f"20b: dry-run collectives {traced} vs "
+          f"CommDebugMode on the card {real}")
+    nbytes: dict[str, int] = {}
+    for c in full["collectives"]:
+        key = f"{c['kind']} over {'+'.join(c['mesh_dims'])}"
+        nbytes[key] = nbytes.get(key, 0) + c["result_bytes"] * c["count"]
+    print(json.dumps({"phase20b": {
+        "arch": arch, "mesh": list(PROD_MESH), "batch": PROD_B,
+        "seq": PREFILL_S, "accum": accum, "peak_bytes": peak,
+        "dry_peak_bytes": pred, "argument_bytes": args,
+        "dry_argument_bytes": mem["argument_size_in_bytes"],
+        "rank_flops": flops.flops, "collectives": real,
+        "collective_result_bytes": nbytes, "step_ms": step_ms,
+        "counted_step_ms": counted_ms, "loss_not_gated": loss}}),
+        flush=True)
+    log(f"20b internlm2-20b, rank 0 of a {PROD_MESH} mesh on a fake process "
+        f"group of {world} ({cfg.num_layers} layers, act_spec on, B="
+        f"{PROD_B} x S={PREFILL_S}, accum {accum}, remat {cfg.remat}): "
+        f"peak {peak / 1e9:.3f} GB vs the dry-run's {pred / 1e9:.3f} GB "
+        f"({pred / peak:.4f}x); arguments {args / 1e9:.3f} GB vs "
+        f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB; FLOPs {flops.flops}"
+        f" = the dry-run's; collectives {real} = the dry-run's; step "
+        f"{step_ms:.1f} ms of rank 0's compute, collectives not moving "
+        f"data ({counted_ms:.1f} ms under the counters); loss {loss:.4f} "
+        f"not gated (the fake group moves no data)")
+
+
+def phase_sharded(device) -> int:
+    """Phase 20: sharded compute. Returns 20a's flash launches."""
+    t0 = time.perf_counter()
+    flash = _sharded_one_rank(device)
+    log(f"[{time.perf_counter() - t0:.1f} s of phase 20] 20a done")
+    _production_rank(device)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return flash
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -3868,6 +4126,8 @@ def main() -> int:
     done("18")
     phase_dryrun(device)
     done("19")
+    flash_launches["qwen2-0.5b"] += phase_sharded(device)
+    done("20")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -3876,7 +4136,7 @@ def main() -> int:
     # (name, timed row, source, TPU kernel's pallas_call); a row per entry
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
-    # flash, plus phase 18's eval step at qwen2-0.5b; phase 16 for
+    # flash, plus phases 18's and 20's eval steps at qwen2-0.5b; phase 16 for
     # qwen2-vl-7b and granite, phase 17 for hymba and whisper), its error
     # from the bf16 cases at that head dim
     table = [

@@ -219,10 +219,17 @@ def _place(x: torch.Tensor, where):
 
 def _snapshot(leaf):
     """Host copy of a leaf, taken synchronously (a later write to the
-    original never reaches the checkpoint)."""
+    original never reaches the checkpoint). A DTensor is gathered whole
+    first (a collective: every rank of its mesh takes part)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _distributed(tree_leaves) -> bool:
+    return any(hasattr(x, "full_tensor") for x in tree_leaves)
 
 
 def _sha256(b: bytes) -> str:
@@ -248,8 +255,19 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, metadata: dict | None = None):
         """Snapshot (device->host copy) happens synchronously; file I/O is
-        offloaded when async_save=True (training continues during write)."""
-        host = [(p, _snapshot(x)) for p, x in _flatten(tree)]
+        offloaded when async_save=True (training continues during write).
+        A tree of DTensors is saved as the reference saves its global
+        arrays, bytes alike: every rank joins each leaf's gather, rank 0
+        writes (synchronously), and the ranks meet at a barrier after."""
+        flat = _flatten(tree)
+        if _distributed([x for _, x in flat]):
+            import torch.distributed as dist
+            host = [(p, _snapshot(x)) for p, x in flat]
+            if dist.get_rank() == 0:
+                self._write(step, host, metadata or {})
+            dist.barrier()
+            return
+        host = [(p, _snapshot(x)) for p, x in flat]
         if self._pool is None:
             self._write(step, host, metadata or {})
         else:

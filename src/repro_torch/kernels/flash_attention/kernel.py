@@ -115,7 +115,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, grad):
         raise NotImplementedError(
             "the CUDA flash attention has no backward kernel (ROADMAP queue "
-            "1 item 10); train with attn_impl='reference' (the chunked "
+            "1 item 10c); train with attn_impl='reference' (the chunked "
             "branch, the reference's default)")
 
 

@@ -16,12 +16,23 @@ record holds:
   ``total_bytes_per_device`` is the reference's sum (arguments + outputs
   + temporaries - aliases); ``peak_bytes_per_device`` the eager step's
   own peak (arguments + the larger phase's live bytes).
-- ``full``: FLOPs and bytes per device: the microbatch's counts x accum,
-  divided by the model axis, plus the update's. The port computes on one
-  device (sharded compute is ROADMAP queue 1 item 10a), so the division
-  is a model of tensor parallelism, marked ``"partition": "modelled"``
-  wherever the model axis is wider than 1. The collectives are built from
-  the layouts: ZeRO's reduce-scatters and all-gathers and the
+- ``full``, for the train cells of the dense and MoE families (MLA
+  apart): rank 0's sharded step, traced (``"partition": "traced"``). A
+  fake process group of the mesh's size (``sharding/dtensor.
+  init_fake_group``) carries a ``DeviceMesh``; params, optimizer state and
+  batch are DTensors of fake shards placed by ``sharding/specs.py``; the
+  launcher's constraints are set as the reference's (``act_spec`` under
+  ``seq_shard_activations``, the MoE buffer specs when the experts divide
+  over (data, model)); and ``make_train_step`` runs with ``grad_specs``
+  and ``mb_specs`` under accumulation. FLOPs and bytes are the rank's
+  (``roofline/counter.py``: ``RankFlops``, ``ByteCounter``), the peak is
+  the arguments plus the trace's live peak, and the collectives are
+  counted as issued (``CollectiveLog``: kind, result bytes, mesh dims).
+- ``full``, for the other cells: FLOPs and bytes per device: the
+  microbatch's counts x accum, divided by the model axis, plus the
+  update's. The division is a model of tensor parallelism, marked
+  ``"partition": "modelled"`` wherever the model axis is wider than 1. The
+  collectives are built from the layouts: ZeRO's reduce-scatters and all-gathers and the
   data-parallel all-reduces of the grads, per leaf; tensor parallelism's
   all-reduces of the activations a row-parallel weight leaves as partial
   sums, per layer, forward and backward and again under remat; the
@@ -34,8 +45,11 @@ record holds:
 - ``roofline``: ``roofline/analyze.py``'s terms on the H100 table.
 
 Meshes are stand-ins (axis names and sizes): single (16, 16) = (data,
-model), multi (2, 16, 16) = (pod, data, model); no process group is built.
-``run_cell`` also takes any stand-in mesh and a batch and sequence.
+model), multi (2, 16, 16) = (pod, data, model); only a traced cell builds
+a process group, a fake one, and only when none is initialised (else the
+default group must be a fake one of the mesh's size, which it then
+reuses). ``run_cell`` also takes any stand-in mesh (or ``DeviceMesh``) and
+a batch and sequence.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
           --mesh both          # writes build/dryrun_torch/<cell>.json
@@ -59,10 +73,11 @@ from repro_torch.launch.mesh import axis_names, axis_sizes, dp_axes
 from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.roofline import analyze, counter
+from repro_torch.sharding import dtensor as dtn
 from repro_torch.sharding import specs as sh
 from repro_torch.train import optimizer as opt
 from repro_torch.train.trainstep import (accum_steps_for, accumulated_grads,
-                                         opt_config_for)
+                                         make_train_step, opt_config_for)
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "dryrun_torch"
@@ -248,6 +263,145 @@ def _grad_collectives(cfg, mesh, pspecs, ops: _Ops, accum: int) -> None:
             ops.add("all-reduce", local, red, accum)
 
 
+# -- the sharded trace ------------------------------------------------------------
+
+def traced(cfg: ModelConfig, shape: registry.Shape) -> bool:
+    """Whether the cell's record, on a mesh of more than one device, is
+    rank 0's sharded step, traced: the train cells of the dense and MoE
+    families (MLA apart). On one device the step is the plain one."""
+    return (shape.kind == "train" and cfg.family in ("dense", "moe")
+            and not cfg.mla)
+
+
+def launcher_constraints(model, cfg: ModelConfig, mesh, kind: str):
+    """The reference launcher's layout hooks on ``mesh``: ``act_spec``
+    under ``seq_shard_activations`` (train and prefill), the MoE buffer
+    specs when the experts divide over (data, model). Returns a function
+    that clears them."""
+    sizes = axis_sizes(mesh)
+    if cfg.seq_shard_activations and kind in ("train", "prefill"):
+        model.act_spec = sh.act_spec_of(mesh)
+    if cfg.moe and cfg.moe.num_experts % (sizes["data"]
+                                          * sizes["model"]) == 0:
+        moe.set_buf_spec((None, ("data", "model"), None, None),
+                         (dp_axes(mesh), None, None))
+    else:
+        moe.set_buf_spec(None)
+
+    def clear():
+        model.act_spec = None
+        moe.set_buf_spec(None)
+    return clear
+
+
+def device_mesh(mesh, device_type: str | None = None):
+    """A ``DeviceMesh`` with ``mesh``'s axes (``mesh`` itself if it is
+    one) over the default process group."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = device_type or ("cuda" if torch.cuda.is_available()
+                                  else "cpu")
+    return init_device_mesh(device_type, tuple(axis_sizes(mesh).values()),
+                            mesh_dim_names=axis_names(mesh))
+
+
+def sharded_step_trace(cfg: ModelConfig, model, mesh, b: int, s: int,
+                       accum: int) -> counter.Counts:
+    """Rank 0's counts of one ``make_train_step`` step on ``mesh`` (a
+    ``DeviceMesh``) at global batch ``b`` x ``s`` tokens: fake shards,
+    the reference launcher's constraints and train-step specs."""
+    shape = registry.SHAPES["train_4k"]
+    pspecs = model.param_specs()
+    ocfg = opt_config_for(cfg)
+    ospecs = opt.opt_state_specs(ocfg, pspecs)
+    bspecs = registry.input_specs(cfg, shape, batch=b, seq=s)
+    shardings = (sh.param_shardings(cfg, mesh, pspecs),
+                 sh.opt_shardings(cfg, mesh, ospecs),
+                 sh.batch_shardings(cfg, mesh, bspecs))
+    step = make_train_step(
+        model, ocfg, accum,
+        sh.grad_shardings(cfg, mesh, pspecs) if accum > 1 else None,
+        sh.mb_shardings(shardings[2]) if accum > 1 else None)
+    clear = launcher_constraints(model, cfg, mesh, "train")
+    try:
+        return counter.trace_sharded(step, (pspecs, ospecs, bspecs),
+                                     shardings)
+    finally:
+        clear()
+
+
+def group_dims(mesh):
+    """``name -> mesh dim`` of process groups: a group is the mesh dim
+    whose group on this rank has its ranks (DTensor may issue over the
+    groups of another mesh of the same layout, whose names differ)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    by_ranks = {tuple(dist.get_process_group_ranks(mesh.get_group(d))): d
+                for d in range(mesh.ndim)}
+    return lambda name: by_ranks[tuple(dist.get_process_group_ranks(
+        _resolve_process_group(name)))]
+
+
+def issued(mesh, ops) -> list[dict]:
+    """``CollectiveLog`` records as the roofline's collectives: merged by
+    (kind, result bytes, mesh dims), each with its group's size and
+    whether it crosses pods."""
+    names = axis_names(mesh)
+    sizes = tuple(axis_sizes(mesh)[a] for a in names)
+    dim_of = group_dims(mesh)
+    counts: dict[tuple, int] = {}
+    for kind, nbytes, group, _ in ops:
+        key = (kind, nbytes, (dim_of(group),))
+        counts[key] = counts.get(key, 0) + 1
+    out = []
+    for (kind, nbytes, ds), n in counts.items():
+        gsize, crosses = analyze.group_info(sizes, ds)
+        out.append(dict(kind=kind, result_bytes=nbytes, group_size=gsize,
+                        crosses_pod=crosses,
+                        mesh_dims=[names[d] for d in ds], count=n))
+    return out
+
+
+def _traced_cell(cfg, shape, mesh, b, s, model, args, rec) -> tuple:
+    """(memory, full) of a traced cell: rank 0's sharded step on a fake
+    process group of the mesh's size."""
+    import math
+
+    import torch.distributed as dist
+    sizes = axis_sizes(mesh)
+    world = math.prod(sizes.values())
+    own = not dist.is_initialized()
+    if own:
+        dtn.init_fake_group(world)
+    elif not dtn.fake_group_active(world):
+        raise RuntimeError(
+            f"a traced cell needs a fake process group of {world} ranks; "
+            f"the default group is {dist.get_backend()} with "
+            f"{dist.get_world_size()}")
+    try:
+        dmesh = device_mesh(mesh)
+        dp = math.prod(sizes[a] for a in dp_axes(mesh))
+        accum = accum_steps_for(cfg, b, s, dp, sizes["model"])
+        rec["accum_steps"] = accum
+        c = sharded_step_trace(cfg, model, dmesh, b, s, accum)
+        colls = issued(dmesh, c.collectives)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    arg_total = sum(args.values())
+    outputs = args["params"] + args["opt_state"]
+    mem = {"argument_size_in_bytes": arg_total,
+           "output_size_in_bytes": outputs,
+           "temp_size_in_bytes": int(max(c.peak - outputs, 0)),
+           "alias_size_in_bytes": 0,
+           "peak_bytes_per_device": int(arg_total + c.peak)}
+    full = {"flops": c.flops, "bytes": c.bytes, "collectives": colls,
+            "n_collectives": sum(x["count"] for x in colls),
+            "partition": "traced"}
+    return mem, full
+
+
 # -- the cell ------------------------------------------------------------------
 
 def _grad_wrap(fn):
@@ -320,7 +474,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
     t0 = time.time()
     accum = 1
-    if shape.kind == "train":
+    if traced(cfg, shape) and chips > 1:
+        mem, full = _traced_cell(cfg, shape, mesh, b, s, model, args, rec)
+        peak = mem.pop("peak_bytes_per_device")
+    elif shape.kind == "train":
         accum = accum_steps_for(cfg, b, s, dp, mp)
         rec["accum_steps"] = accum
         b_mb = max(b_local // accum, 1)
@@ -373,14 +530,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
     mem["peak_bytes_per_device"] = int(peak)
     mem["arguments"] = args
-    full["collectives"] = collectives(cfg, mesh, model, pspecs, shape.kind,
-                                      accum, act_b, act_s)
-    full["n_collectives"] = sum(c["count"] for c in full["collectives"])
-    full["partition"] = "modelled" if mp > 1 else "exact"
+    if "partition" not in full:
+        full["collectives"] = collectives(cfg, mesh, model, pspecs,
+                                          shape.kind, accum, act_b, act_s)
+        full["n_collectives"] = sum(c["count"] for c in full["collectives"])
+        full["partition"] = "modelled" if mp > 1 else "exact"
     rec["lower_compile_s"] = time.time() - t0      # the trace's seconds
 
     frag_parts = []
-    for frag in model.fragments(shape.kind, act_b, s):
+    # a traced step runs every loop trip; its fragments are the modelled
+    # record's, which a traced cell has no use for
+    for frag in ([] if full["partition"] == "traced"
+                 else model.fragments(shape.kind, act_b, s)):
         if shape.kind == "train":
             c = counter.trace(_grad_wrap(frag.fn), frag.args, grad=True)
         else:
@@ -393,7 +554,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
               f"{rec['lower_compile_s']:.1f}s  mem/device "
               f"{mem['total_bytes_per_device'] / 2**30:.2f} GiB "
               f"flops/device {full['flops']:.3e} "
-              f"colls {full['n_collectives']}", flush=True)
+              f"colls {full['n_collectives']} ({full['partition']})",
+              flush=True)
     rec.update(status="OK", chips=chips, memory=mem, full=full,
                fragments=frag_parts, trips_in_full=True)
     return rec
@@ -405,7 +567,8 @@ def roofline_record(rec: dict) -> dict | None:
     if rec.get("status") != "OK":
         return None
     full = rec["full"]
-    ops = [analyze.CollectiveOp(**dict(c, count=1))
+    ops = [analyze.CollectiveOp(**{k: v for k, v in c.items()
+                                   if k != "mesh_dims"} | {"count": 1})
            for c in full["collectives"] for _ in range(c["count"])]
     part = {"flops": full["flops"], "bytes": full["bytes"],
             "collectives": ops, "mult": 1}

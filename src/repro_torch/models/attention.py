@@ -13,6 +13,16 @@ reference's is plain jnp. Under M-RoPE (qwen2-vl) q and k rotate with
 ``layers.apply_mrope`` over ``[3, B, S]`` positions and the mask reads
 stream 1, as the reference's.
 
+On DTensor params and activations (``sharding/dtensor.py``) attention is
+tensor parallel over the model axis where the reference's rules shard the
+heads (``sharding/specs.py``: ``heads_ok``, ``kv_ok``): q/k/v come out of
+column-parallel products with each rank's heads, the attention itself
+(the chunked path, or the flash kernel on a card) runs on each rank's own
+heads and batch rows (``dtensor.on_shards``), and ``wo``'s partial sums are
+reduced into the input's layout. Where the heads do not divide the model
+axis the weights are replicated and attention is parallel over the batch
+only, as in the reference.
+
 MLA keeps a latent cache (``{"ckv", "kpe", "pos"}``): ``mla_attention``
 materialises per-head K/V and runs ``chunked_mha``, and
 ``mla_decode_attention`` attends in the latent space with the K and V
@@ -31,6 +41,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init
+from repro_torch.sharding import dtensor as dtn
 
 NEG_INF = -2.0e38
 
@@ -232,8 +243,9 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     self_attn = xkv is None or xkv is x
     xkv = x if xkv is None else xkv
     kv_positions = positions if kv_positions is None else kv_positions
-    x = x.to(cdt)
-    xkv = xkv.to(cdt)
+    x_in = x
+    x = dtn.whole_on(x.to(cdt))           # column-parallel inputs
+    xkv = x if self_attn else dtn.whole_on(xkv.to(cdt))
     with layers.checkpoint_name("qkv"):
         q = x @ p["wq"].to(cdt)
         k = xkv @ p["wk"].to(cdt)
@@ -257,17 +269,31 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
             k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
     pos1 = positions[1] if cfg.mrope else positions   # temporal stream masks
     kpos1 = kv_positions[1] if cfg.mrope else kv_positions
-    if flash:
-        out = flash_ops.flash_attention(q, k, v, window=int(window))
-    else:
-        # repeat KV to full query heads, as the reference does
+    scores_dtype = dtype_of(cfg.attn_scores_dtype)
+
+    def attend(q, k, v, pos1, kpos1):
+        """Attention over the heads of ``q`` (all of them, or this rank's
+        block of ``nq // n`` heads: K/V then hold the block's KV heads or
+        all of them)."""
         g = nq // nkv
+        if k.shape[2] * g != q.shape[2]:      # whole K/V, a block of q
+            h0 = dtn.local_rank(x.device_mesh, "model") * q.shape[2]
+            k = torch.repeat_interleave(k, g, dim=2)[:, :, h0:h0 + q.shape[2]]
+            v = torch.repeat_interleave(v, g, dim=2)[:, :, h0:h0 + q.shape[2]]
+            g = 1
+        if flash:
+            return flash_ops.flash_attention(q, k, v, window=int(window))
+        # repeat KV to full query heads, as the reference does
         kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
         vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-        out = chunked_mha(q, kf, vf, pos1, kpos1, int(window), causal, cdt,
-                          scores_dtype=dtype_of(cfg.attn_scores_dtype))
-    out = out.reshape(b, s, nq * hd) @ p["wo"].to(cdt)
-    return out, (k, v)
+        return chunked_mha(q, kf, vf, pos1, kpos1, int(window), causal, cdt,
+                           scores_dtype=scores_dtype)
+    if dtn.is_dt(q):
+        out = dtn.on_shards(attend, q.placements, q, k, v, pos1, kpos1)
+    else:
+        out = attend(q, k, v, pos1, kpos1)
+    out = layers.row_parallel(out.reshape(b, s, nq * hd), p["wo"].to(cdt))
+    return layers.tp_out(out, x_in).to(cdt), (k, v)
 
 
 def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,

@@ -7,8 +7,17 @@ every layer) and SSM (xlstm: mLSTM layers with sLSTM at
 ``xlstm.slstm_at``) families. The encoder-decoder family (whisper) is
 ``models.whisper.EncDecLM``, which ``registry.make_model`` builds; ``LM``
 refuses it. ``param_specs`` and the roofline ``fragments`` serve the
-dry-run (``launch/dryrun.py``); the reference's sharding hooks
-(``act_spec``, ``_constrain``) wait for ROADMAP queue 1 item 10.
+dry-run (``launch/dryrun.py``).
+
+On DTensor params and batches (``sharding/specs.py`` places them) the
+full-sequence forward and the loss run sharded, as GSPMD runs the
+reference's: the embedding lookup and the head are vocab parallel,
+attention and the MLP tensor parallel, MoE expert parallel
+(``models/moe.py``), and ``act_spec`` (the reference's hook, set by the
+launcher under ``seq_shard_activations``) is the residual stream's layout,
+which ``_constrain`` applies before and after each layer body. Without it
+``_constrain`` only reduces pending partial sums (the embedding's), so the
+stream is batch-sharded and whole on the model axis.
 ``cfg.remat`` is honoured as the reference's ``_remat``: while autograd
 records a layer of a stacked group (4 or more layers), it is
 rematerialised in the backward (``torch.utils.checkpoint``, with a
@@ -39,6 +48,7 @@ from repro_torch.device import dtype_of, resolve
 from repro_torch.models import attention, blocks, layers, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
+from repro_torch.sharding import dtensor as dtn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +153,14 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _add_aux(total, aux):
+    """``total + aux``; on DTensors a plain (dense layer's zero) term is
+    skipped, and the first DTensor term replaces the plain zero start."""
+    if dtn.is_dt(aux):
+        return aux if not dtn.is_dt(total) else total + aux
+    return total if dtn.is_dt(total) else total + aux
+
+
 def layer_params_of(gp, l: int) -> Params:
     """Layer ``l`` of a group's params (stacked dict or per-layer list)."""
     if isinstance(gp, list):
@@ -158,6 +176,11 @@ def _stack(trees: list[Params]) -> Params:
 
 
 class LM:
+    #: optional spec tuple for residual-stream activations [B, S, d]
+    #: (``sharding/specs.act_spec_of``: batch over the data axes, sequence
+    #: over model), set by the launcher; None keeps the batch layout
+    act_spec = None
+
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
         self.cfg = cfg
@@ -169,6 +192,16 @@ class LM:
         # the one that trains on a card: the kernel has no backward
         self.attn_impl: str | None = None
         self._param_specs = None
+
+    def _constrain(self, x):
+        """The residual stream in ``act_spec``'s layout (a no-op on plain
+        tensors); without ``act_spec``, pending partial sums reduced."""
+        if not dtn.is_dt(x):
+            return x
+        if self.act_spec is None:
+            return dtn.resolved(x)
+        from repro_torch.sharding.specs import placements
+        return dtn.settle(x, placements(x.device_mesh, self.act_spec))
 
     # -- parameters ----------------------------------------------------------
 
@@ -219,7 +252,7 @@ class LM:
         ``patch_embeds`` [B,P,d] come first ([B,P+S,d])."""
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
-        x = params["embed"][batch["tokens"]].to(cdt)
+        x = layers.embed_lookup(params["embed"], batch["tokens"]).to(cdt)
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
         if cfg.embed_scale:
@@ -230,7 +263,13 @@ class LM:
         """[B, S] int32 positions 0..S-1; under M-RoPE [3, B, S], the
         batch's own ``positions`` if it brings them. The flash branch masks
         by sequence index, so it refuses caller-given M-RoPE positions."""
-        dev = batch["tokens"].device
+        tokens = batch["tokens"]
+        if dtn.is_dt(tokens) and not self.cfg.mrope:
+            # each rank's rows, placed like the tokens
+            return dtn.on_shards(
+                lambda t: self._positions({"tokens": t}, seq, t.shape[0]),
+                tokens.placements, tokens)
+        dev = tokens.device
         p = torch.arange(seq, dtype=torch.int32, device=dev)
         if not self.cfg.mrope:
             return p.expand(batchsz, seq)
@@ -256,15 +295,17 @@ class LM:
         for g, gp in zip(self.groups, params["groups"]):
             # a stacked group's layers are rematerialised (the reference
             # checkpoints its scan body), a shorter group's are not
-            fwd = _remat(cfg, blocks.layer_fwd) \
+            fwd = _remat(cfg, self._layer) \
                 if g.scanned and layers.records_grad(x, gp) \
-                else blocks.layer_fwd
+                else self._layer
             group_cache = []
             for j, li in enumerate(g.indices):
                 x, aux, cache = fwd(
-                    cfg, g.kind, layer_params_of(gp, j), x, positions,
-                    int(self.windows[li]), want_cache, self.attn_impl)
-                aux_total = aux_total + aux
+                    g.kind, layer_params_of(gp, j), x, positions,
+                    int(self.windows[li]), want_cache)
+                # a dense layer's aux is a plain zero: on DTensors only the
+                # MoE layers' (pending sums over the data axes) are added
+                aux_total = _add_aux(aux_total, aux)
                 group_cache.append(cache)
             if want_cache and g.scanned:
                 caches.append(None if group_cache[0] is None else
@@ -274,6 +315,14 @@ class LM:
                 caches.append(group_cache)
         x = layers.apply_norm(cfg, params["final_norm"], x)
         return x, aux_total, (caches if want_cache else None)
+
+    def _layer(self, kind, p, x, positions, window, want_cache=False):
+        """One layer body with the stream's layout constraint on both
+        sides (the reference's scan body)."""
+        x, aux, cache = blocks.layer_fwd(
+            self.cfg, kind, p, self._constrain(x), positions, window,
+            want_cache, self.attn_impl)
+        return self._constrain(x), aux, cache
 
     def head_matrix(self, params: Params):
         return (params["embed"].T if self.cfg.tie_embeddings
@@ -296,10 +345,12 @@ class LM:
         s = x.shape[1]
         positions = self._positions(batch, s, x.shape[0])
         h, aux, _ = self.hidden(params, x, positions)
+        h = dtn.whole_on(h)                # the head takes whole sequences
         vis = s - tokens.shape[1]
         ce = layers.softmax_xent_fused(h[:, vis:-1, :],
                                        self.head_matrix(params),
                                        tokens[:, 1:])
+        ce, aux = dtn.resolved(ce), dtn.resolved(aux)
         total = ce + aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth:
@@ -419,10 +470,12 @@ class LM:
             p1 = layer_params_of(gp, 0)     # one layer's specs
             if mode in ("train", "prefill") and g.scanned:
                 def fwd(p_l, x, positions, _kind=g.kind):
-                    y, aux, _ = blocks.layer_fwd(cfg, _kind, p_l, x,
+                    # the real scan body's layout constraints
+                    y, aux, _ = blocks.layer_fwd(cfg, _kind, p_l,
+                                                 self._constrain(x),
                                                  positions, 0,
                                                  attn_impl="reference")
-                    return y, aux
+                    return self._constrain(y), aux
                 frags.append(Fragment(
                     f"layer_{g.kind}", _remat(cfg, fwd), (p1, x_spec, pos),
                     g.size - 1,

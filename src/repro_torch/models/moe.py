@@ -10,9 +10,17 @@ away. The aux loss is Switch-style. The expert products are plain einsums
 (batched matmuls), as the reference's are plain jnp outside any Pallas
 kernel.
 
-The reference's ``set_buf_spec`` and ``_constrain_*`` are GSPMD sharding
-hints on the dispatch buffers for expert parallelism; they have no
-counterpart until the port shards a model (ROADMAP queue 1 item 10).
+On DTensors (``sharding/dtensor.py``) routing is row-local, so it runs on
+each rank's batch rows (``dtensor.on_shards``), and so do the scatter into
+the batch-major buffer ``[B, slots, d]`` and the gather back. The
+reference's ``set_buf_spec`` hints are layouts here: ``_constrain_b``
+redistributes a buffer to the batch-major spec, ``_constrain_e`` to the
+expert-major spec ``[B, E, C, d]`` (experts over (data, model)), and the
+redistribute between the two is the expert all-to-all. The expert products
+then run on each rank's experts. The launcher sets the specs under the
+reference's condition (``num_experts % (data * model) == 0``); without
+them the buffers keep the batch layout and DTensor partitions the expert
+products by the weights' layout.
 """
 
 from __future__ import annotations
@@ -23,6 +31,82 @@ from repro_torch.device import dtype_of
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init
+from repro_torch.sharding import dtensor as dtn
+
+#: layout specs of the dispatch buffers (spec tuples, as ``sharding/
+#: specs.py`` gives them), set by the launcher when the experts divide over
+#: (data, model): the expert products run expert-major, the scatter and
+#: gather batch-major, and the two constraints around the reshape are the
+#: token all-to-all of production expert parallelism
+_BUF_SPEC_E = None     # [B, E, C, d] expert-major
+_BUF_SPEC_B = None     # [B, slots, d] batch-major
+
+
+def set_buf_spec(spec_e, spec_b=None):
+    global _BUF_SPEC_E, _BUF_SPEC_B
+    _BUF_SPEC_E = spec_e
+    _BUF_SPEC_B = spec_b
+
+
+def _constrain(x, spec):
+    """``x`` in ``spec``'s layout. A mesh dim whose shard moves between
+    the batch dim and the expert (slot) dim is an all-to-all over that
+    dim (``_swap``); the others are gathered before it and split after
+    it, so the experts' shard order is the weights' (data-major)."""
+    if spec is None or not dtn.is_dt(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding.specs import placements
+    target = placements(x.device_mesh, spec)
+    pl = tuple(x.placements)
+    swaps = [d for d, (a, b) in enumerate(zip(pl, target))
+             if a.is_shard() and b.is_shard() and a.dim != b.dim]
+    before = []
+    for d, (a, b) in enumerate(zip(pl, target)):
+        if d in swaps or a == b:
+            before.append(a)
+        elif b.is_shard():                  # split after the swaps
+            before.append(a if a.is_replicate() else Replicate())
+        else:                               # gathered or reduced before
+            before.append(b)
+    x = dtn.settle(x, before)
+    for d in swaps:
+        x = _swap(x, d, target[d].dim)
+    return dtn.settle(x, target)
+
+
+def _swap(x, d: int, dst: int):
+    """``x``'s shard on mesh dim ``d`` moved from its tensor dim to
+    ``dst`` (0 and 1: batch and experts) by one all-to-all over ``d``."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    n, src = mesh.size(d), x.placements[d].dim
+    xl = x.to_local()
+    if (src, dst) == (0, 1):     # send expert block j to rank j
+        b, e = xl.shape[:2]
+        inp = xl.reshape(b, n, e // n, *xl.shape[2:]).transpose(0, 1)
+    elif (src, dst) == (1, 0):   # send row block j to rank j
+        inp = xl.reshape(n, xl.shape[0] // n, *xl.shape[1:])
+    else:
+        raise NotImplementedError(f"a shard moved from dim {src} to {dst}")
+    out = fc.wait_tensor(fc.all_to_all_single_autograd(
+        inp.contiguous().flatten(0, 1), None, None, mesh.get_group(d)))
+    out = out.reshape(n, -1, *out.shape[1:])    # [source rank, ...]
+    if (src, dst) == (0, 1):
+        out = out.flatten(0, 1)                 # rows in rank order
+    else:
+        out = out.transpose(0, 1).flatten(1, 2)  # expert blocks in order
+    return dtn.from_local(out, mesh, dtn.with_dim(x.placements, d,
+                                                  Shard(dst)))
+
+
+def _constrain_e(x):
+    return _constrain(x, _BUF_SPEC_E)
+
+
+def _constrain_b(x):
+    return _constrain(x, _BUF_SPEC_B)
 
 
 def capacity(tokens_per_row: int, cfg: ModelConfig) -> int:
@@ -111,39 +195,80 @@ def moe_apply(cfg: ModelConfig, p: Params, x):
     k, e = m.top_k, m.num_experts
     cap = capacity(s, cfg)
     e_pad = padded_experts(cfg)
-    xf = x.to(cdt)                                               # [B, S, d]
-    routed = [_route_one_row(row, p["router"], cfg, cap) for row in xf]
-    dest, weights, counts, probs = (torch.stack(t) for t in zip(*routed))
-    # dest [B, S*K]; weights [B, S*K]; counts [B, E]; probs [B, S, E]
+    x_in = x
+    xf = dtn.whole_on(x.to(cdt))                                 # [B, S, d]
 
-    copies = xf.repeat_interleave(k, dim=1)                      # [B,S*K,d]
-    # the drop slot is the buffer's last row; every kept destination is
-    # unique, so only that row takes duplicate writes
-    dest = torch.where(dest >= e * cap, torch.full_like(dest, e_pad * cap),
-                       dest)
-    rows = torch.arange(b, device=x.device)[:, None].expand_as(dest)
-    buf = torch.zeros((b, e_pad * cap + 1, d), dtype=cdt, device=x.device)
-    buf = buf.index_put((rows, dest), copies)
-    buf = buf[:, :-1].reshape(b, e_pad, cap, d)
+    def route(xf, router):
+        """Each row's routing, the batch-major buffer [b, E*C, d] and the
+        rows' aux-loss share; ``dest`` points at the drop slot, the
+        buffer's last row (every kept destination is unique, so only that
+        row takes duplicate writes)."""
+        bl = xf.shape[0]
+        routed = [_route_one_row(row, router, cfg, cap) for row in xf]
+        dest, weights, counts, probs = (torch.stack(t) for t in zip(*routed))
+        # dest [b, S*K]; weights [b, S*K]; counts [b, E]; probs [b, S, E]
+        copies = xf.repeat_interleave(k, dim=1)                  # [b,S*K,d]
+        dest = torch.where(dest >= e * cap,
+                           torch.full_like(dest, e_pad * cap), dest)
+        rows = torch.arange(bl, device=xf.device)[:, None].expand_as(dest)
+        buf = torch.zeros((bl, e_pad * cap + 1, d), dtype=cdt,
+                          device=xf.device)
+        buf = buf.index_put((rows, dest), copies)
+        # each row's term of the load-balance aux loss (Switch-style)
+        frac_tokens = counts.float() / max(s * k, 1)
+        mean_prob = probs.mean(dim=1)                            # [b, E]
+        return buf[:, :-1], dest, weights, \
+            (frac_tokens * mean_prob).sum(dim=-1)
+
+    def combine(y_flat, dest, weights):
+        bl = y_flat.shape[0]
+        y_flat = torch.cat([y_flat, torch.zeros((bl, 1, d), dtype=cdt,
+                                                device=y_flat.device)], 1)
+        rows = torch.arange(bl, device=y_flat.device)[:, None].expand_as(
+            dest)
+        out_copies = y_flat[rows, dest]                          # [b,S*K,d]
+        return (out_copies.reshape(bl, s, k, d)
+                * weights.reshape(bl, s, k)[..., None].to(cdt)).sum(dim=2)
+
+    if dtn.is_dt(xf):
+        rows_pl = xf.placements
+        buf, dest, weights, terms = dtn.on_shards(
+            route, (rows_pl,) * 4, xf, p["router"])
+        aux = terms.sum() / b          # the mean over rows, a pending sum
+    else:
+        buf, dest, weights, terms = route(xf, p["router"])
+        aux = terms.mean()
+    aux = e * aux * m.aux_loss_weight
+    buf = _constrain_b(buf)
+    buf = _constrain_e(buf.reshape(b, e_pad, cap, d))
 
     act = layers.act_fn(cfg.act)
-    h = act(torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cdt))) \
-        * torch.einsum("becd,edf->becf", buf, p["w_up"].to(cdt))
-    y = torch.einsum("becf,efd->becd", h, p["w_down"].to(cdt))
+    h = act(_expert_product("becd,edf->becf", buf, p["w_gate"].to(cdt))) \
+        * _expert_product("becd,edf->becf", buf, p["w_up"].to(cdt))
+    y = _constrain_e(_expert_product("becf,efd->becd", h,
+                                     p["w_down"].to(cdt)))
 
-    y_flat = torch.cat([y.reshape(b, e_pad * cap, d),
-                        torch.zeros((b, 1, d), dtype=cdt, device=x.device)],
-                       dim=1)
-    out_copies = y_flat[rows, dest]                              # [B,S*K,d]
-    out = (out_copies.reshape(b, s, k, d)
-           * weights.reshape(b, s, k)[..., None].to(cdt)).sum(dim=2)
+    y_flat = _constrain_b(y.reshape(b, e_pad * cap, d))
+    if dtn.is_dt(y_flat):
+        y_flat = dtn.settle(y_flat, dest.placements)
+        out = dtn.on_shards(combine, dest.placements, y_flat, dest, weights)
+    else:
+        out = combine(y_flat, dest, weights)
 
     if m.num_shared_experts:
         out = out + layers.mlp_apply(cfg, p["shared"], xf)
+    return layers.tp_out(out.reshape(b, s, d), x_in), aux
 
-    # load-balance aux loss (Switch-style), averaged over rows
-    frac_tokens = counts.float() / max(s * k, 1)
-    mean_prob = probs.mean(dim=1)                                # [B, E]
-    aux = e * (frac_tokens * mean_prob).sum(dim=-1).mean() \
-        * m.aux_loss_weight
-    return out.reshape(b, s, d), aux
+
+def _expert_product(eq: str, buf, w):
+    """An expert einsum: on each rank's own experts where the buffer's
+    expert dim (1) and the weights' (0) are split alike and nothing else
+    is (the expert-major layout), else as DTensor partitions it (or a
+    plain einsum)."""
+    if dtn.is_dt(buf) and all(
+            (a.is_replicate() and b.is_replicate())
+            or (a.is_shard() and a.dim == 1 and b.is_shard() and b.dim == 0)
+            for a, b in zip(buf.placements, w.placements)):
+        return dtn.on_shards(lambda a, c: torch.einsum(eq, a, c),
+                             buf.placements, buf, w)
+    return torch.einsum(eq, buf, w)

@@ -21,9 +21,13 @@ expert-parallel to expert-TP over d_ff).
 (``placements``): ``Shard(d)`` on each mesh dim named at tensor dim ``d``,
 ``Replicate()`` on the others. ``checkpoint/ckpt.py``'s ``restore`` places
 leaves by such pairs (``distribute_tensor``), which is the reference's
-re-shard at load. The port computes on one device: these layouts place
-and restore state, they do not shard the model's compute (ROADMAP queue 1
-item 10).
+re-shard at load. The model then computes on those DTensors
+(``sharding/dtensor.py``): these layouts are the reference's
+``in_shardings``/``out_shardings``, and ``act_spec_of``, ``mb_shardings``
+and the launcher's MoE buffer specs are its ``with_sharding_constraint``
+calls. ``place`` distributes a tree of whole tensors by such pairs;
+``make_leaves`` makes each rank's shards directly, so that no rank holds
+a whole leaf.
 """
 
 from __future__ import annotations
@@ -359,3 +363,91 @@ def opt_specs_of(cfg: ModelConfig, mesh, opt_state_specs) -> Any:
 
 def opt_shardings(cfg: ModelConfig, mesh, opt_state_specs) -> Any:
     return _shardings(mesh, opt_specs_of(cfg, mesh, opt_state_specs))
+
+
+# ---------------------------------------------------------------------------
+# activations and microbatches (the reference launcher's constraints)
+# ---------------------------------------------------------------------------
+
+def act_spec_of(mesh) -> tuple:
+    """The residual stream's spec under ``seq_shard_activations``: batch
+    over the data-parallel axes, sequence over model (the reference's
+    ``P(dp_axes, "model", None)``)."""
+    return (dp_axes(mesh), "model", None)
+
+
+def mb_shardings(batch_shardings) -> Any:
+    """Microbatch layouts from a batch's shardings tree, the reference's
+    ``P(None, *batch_spec)``: after the ``[accum, B/accum, ...]`` reshape
+    each ``Shard(d)`` is ``Shard(d + 1)``, behind the microbatch dim."""
+    from torch.distributed.tensor import Shard
+    if _is_pair(batch_shardings):
+        mesh, pl = batch_shardings
+        return mesh, tuple(Shard(p.dim + 1) if p.is_shard() else p
+                           for p in pl)
+    if isinstance(batch_shardings, dict):
+        return {k: mb_shardings(v) for k, v in batch_shardings.items()}
+    return type(batch_shardings)(mb_shardings(v)
+                                 for v in batch_shardings)
+
+
+# ---------------------------------------------------------------------------
+# trees on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def _is_pair(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 \
+        and hasattr(x[0], "mesh_dim_names")
+
+
+def map_pairs(fn, tree, shardings) -> Any:
+    """``fn(leaf, mesh, placements)`` over a tree and its shardings tree
+    (``*_shardings``: the same structure, a ``(mesh, placements)`` pair
+    at each leaf)."""
+    if _is_pair(shardings):
+        return fn(tree, *shardings)
+    if isinstance(tree, dict):
+        return {k: map_pairs(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_pairs(fn, v, s)
+                          for v, s in zip(tree, shardings))
+    raise TypeError(f"no (mesh, placements) pair for a {type(tree)}")
+
+
+def place(tree, shardings) -> Any:
+    """Each whole tensor of ``tree`` distributed by its pair
+    (``distribute_tensor`` on the mesh's device type): every rank holds
+    the same tensor and cuts its own shard from it, so no data moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(t, mesh, placements):
+        import torch
+        t = torch.as_tensor(t).to(mesh.device_type)
+        return distribute_tensor(t, mesh, list(placements),
+                                 src_data_rank=None)
+    return map_pairs(put, tree, shardings)
+
+
+def local_shape(shape, mesh, placements) -> tuple[int, ...]:
+    """This rank's shard shape of a ``shape`` tensor under ``placements``
+    (every sharded dim divides: the rules' divisibility guard)."""
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def make_leaves(specs_tree, shardings, init) -> Any:
+    """DTensors shaped like ``specs_tree``'s leaves (anything with
+    ``shape`` and ``dtype``) placed by ``shardings``, each rank making
+    only its own shard: ``init(local_shape, dtype, device)`` gives the
+    local tensor, so no rank ever holds a whole leaf."""
+    from torch.distributed.tensor import DTensor
+
+    def make(leaf, mesh, placements):
+        local = init(local_shape(tuple(leaf.shape), mesh, placements),
+                     leaf.dtype, mesh.device_type)
+        return DTensor.from_local(local, mesh, list(placements),
+                                  run_check=False)
+    return map_pairs(make, specs_tree, shardings)

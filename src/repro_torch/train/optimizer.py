@@ -16,6 +16,16 @@ correction are device arithmetic. ``torch.round`` rounds half to even, as
 tensors; ``tree_map`` and ``tree_leaves`` walk them in JAX's order (dict
 keys sorted), which the train step, the trainer and the gradient
 all-reduce share.
+
+On DTensors (params, grads and state placed by ``sharding/specs.py``) the
+update is ZeRO's, as GSPMD partitions the reference's: each leaf's grad,
+param and master are brought to its moments' layout (a reduce-scatter of
+the pending gradient sums; the param's shard is cut on the rank), the
+elementwise work runs on the local shards, and the updated param is
+all-gathered back into its own layout. The global norm is one all-reduce
+per layout pattern of partial sums. int8 moments keep the sharding-aligned
+``[*param_lead, nb, block]`` layout, whose block dim is never split: a
+layout that splits it raises (``check_blocks``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import dtensor as dtn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +124,14 @@ def dequantize_q8(qs, shape):
 
 # -- state -------------------------------------------------------------------
 
-def init_opt_state(cfg: OptConfig, params) -> dict:
+def init_opt_state(cfg: OptConfig, params, shardings=None) -> dict:
     """Zero moments (fp32, or int8 blocks), ``step`` 0 on the params'
     device, and an fp32 master copy when some param is not fp32 (unless
-    ``master_fp32`` is off: the 671B layout)."""
+    ``master_fp32`` is off: the 671B layout). ``shardings`` (the state's
+    ``sharding.specs.opt_shardings``) makes every leaf a DTensor created
+    shard by shard, the master cut from the params' own shards."""
+    if shardings is not None:
+        return _init_sharded(cfg, params, shardings)
     def zeros_like_moment(p):
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return quantize_q8(z, cfg.block) if cfg.quantized_moments else z
@@ -129,6 +145,30 @@ def init_opt_state(cfg: OptConfig, params) -> dict:
     if cfg.master_fp32 and any(p.dtype != torch.float32 for p in leaves):
         state["master"] = tree_map(
             lambda p: p.detach().to(torch.float32, copy=True), params)
+    return state
+
+
+def _init_sharded(cfg: OptConfig, params, shardings) -> dict:
+    from repro_torch.sharding import specs as sh
+    meta = opt_state_specs(cfg, params)
+
+    def zeros(shape, dtype, device):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def moment(shape, dtype, device):
+        # an int8 moment's scales are its only fp32 leaves: a zero block's
+        # scale is 1, as ``quantize_q8`` gives it
+        if cfg.quantized_moments and dtype == torch.float32:
+            return torch.ones(shape, dtype=dtype, device=device)
+        return zeros(shape, dtype, device)
+    state = {"step": sh.make_leaves(meta["step"], shardings["step"], zeros),
+             "m": sh.make_leaves(meta["m"], shardings["m"], moment),
+             "v": sh.make_leaves(meta["v"], shardings["v"], moment)}
+    if "master" in meta:
+        state["master"] = sh.map_pairs(
+            lambda p, mesh, pl: dtn.settle(p.detach().to(torch.float32,
+                                                         copy=True), pl),
+            params, shardings["master"])
     return state
 
 
@@ -164,23 +204,59 @@ def _f32(x: float, like) -> torch.Tensor:
 
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+    """The L2 norm of every leaf together. On DTensors each leaf's sum of
+    squares is a partial sum over its sharded mesh dims; equal patterns
+    are added on the rank and each is all-reduced once."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(tree)]
+    if dtn.is_dt(sq[0]):
+        return torch.sqrt(dtn.group_sum(sq))
+    return torch.sqrt(sum(sq))
+
+
+def check_blocks(q) -> None:
+    """Raise unless an int8 moment's ``q`` keeps each quantization block
+    (its last dim) whole on every rank."""
+    if dtn.is_dt(q) and any(pl.is_shard() and pl.dim in (q.ndim - 1, -1)
+                            for pl in q.placements):
+        raise ValueError(
+            f"an int8 moment placed {q.placements} splits its quantization "
+            f"blocks (dim {q.ndim - 1}) across ranks; quantizing per shard "
+            "would change the moments")
+
+
+def _to_work_layout(g, p, m, master):
+    """The grad, param and master of a leaf in its moments' layout (fp32
+    moments: theirs; int8: the dequantized moment's) on DTensors: the
+    grad's pending sums reduce-scattered, the others' shards cut on the
+    rank; plain tensors as they are."""
+    if not dtn.is_dt(p):
+        return g, master
+    if isinstance(m, dict):
+        check_blocks(m["q"])
+        pl = dequantize_q8(m, p.shape).placements
+    else:
+        pl = m.placements
+    return dtn.settle(g, pl), dtn.settle(master, pl)
 
 
 def adamw_update(cfg: OptConfig, params, grads, state):
     """One AdamW step. Returns (new_params, new_state, metrics) with
     metrics ``{"grad_norm", "lr"}`` (0-d device tensors); the inputs are
-    not written."""
+    not written. On DTensors the results are in the inputs' layouts."""
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
+    masters = state.get("master", params)
+    if dtn.any_dt(params):
+        work = tree_map(_to_work_layout, grads, params, state["m"], masters)
+        grads = tree_map(lambda p, w: w[0], params, work)
+        masters = tree_map(lambda p, w: w[1], params, work)
     gnorm = global_norm(grads)
     scale = torch.clamp(_f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0
 
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-    masters = state.get("master", params)
 
     def upd(p, g, m, v, master):
         g = g.to(torch.float32) * scale
@@ -203,10 +279,15 @@ def adamw_update(cfg: OptConfig, params, grads, state):
 
     out = tree_map(upd, params, grads, state["m"], state["v"], masters)
 
-    def part(i):
-        return tree_map(lambda p, t: t[i], params, out)
+    def part(i, like):
+        # on DTensors, each result back in its input's layout (the param's
+        # all-gather over the data axes)
+        return tree_map(lambda p, t, l: tree_map(
+            lambda x, y: dtn.settle(x, y.placements) if dtn.is_dt(y) else x,
+            t[i], l), params, out, like)
 
-    new_state = {"step": step, "m": part(1), "v": part(2)}
+    new_state = {"step": step, "m": part(1, state["m"]),
+                 "v": part(2, state["v"])}
     if "master" in state:
-        new_state["master"] = part(3)
-    return part(0), new_state, {"grad_norm": gnorm, "lr": lr}
+        new_state["master"] = part(3, state["master"])
+    return part(0, params), new_state, {"grad_norm": gnorm, "lr": lr}

@@ -10,19 +10,27 @@ explicit ``"flash"`` is kept, and its backward raises as the kernel's
 does. The eval step runs ``model.loss`` as the model is set: on a card,
 every layer's attention through the flash kernel.
 
-``grad_specs`` / ``mb_specs`` are GSPMD layout constraints on sharded
-compute, which the port does not have (ROADMAP queue 1 item 10): passing
-either raises ``NotImplementedError``.
+On DTensor params and batches the step is sharded (``sharding/
+dtensor.py``). ``grad_specs`` and ``mb_specs`` are the reference's layout
+constraints, as trees of ``(DeviceMesh, placements)`` pairs
+(``sharding/specs.py``'s ``grad_shardings`` and ``mb_shardings``):
+``mb_specs`` re-pins each microbatch's batch layout after the ``[accum,
+B/accum, ...]`` reshape, and ``grad_specs`` keeps the accumulator in the
+ZeRO layout, so each microbatch's gradients are reduce-scattered into it
+instead of summed into a replicated one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor as dtn
+from repro_torch.sharding import specs as sh
 from repro_torch.train import optimizer as opt
 
 
@@ -66,27 +74,63 @@ def _grad_fn(model, params, mb):
     return grads, {**metrics, "loss": loss.detach()}
 
 
-def accumulated_grads(model, params, batch, accum_steps: int = 1):
+def accumulated_grads(model, params, batch, accum_steps: int = 1,
+                      grad_specs=None, mb_specs=None):
     """(grads, metrics) of ``model.loss`` over ``batch`` on the branch the
     reference trains with (``training_branch``). accum_steps > 1 splits the
     batch into microbatches ``[accum, B/accum, ...]`` run one after the
     other, so the per-layer activation stash is sized by the microbatch:
     their grads are summed in the params' dtypes and divided by
     ``accum_steps``, and the metrics are the last microbatch's. This is
-    the gradient half of ``make_train_step``'s step."""
+    the gradient half of ``make_train_step``'s step. On DTensors,
+    ``mb_specs`` re-pins each microbatch's layout and ``grad_specs`` is
+    the accumulator's (both only with accumulation, as the reference's);
+    the grads come back in the layout their products left them in
+    (pending sums over the data axes), which the update settles."""
     with training_branch(model):
         if accum_steps == 1:
             return _grad_fn(model, params, batch)
-        mbs = opt.tree_map(
-            lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps)
-                                + tuple(x.shape[1:])), batch)
-        grads = opt.tree_map(torch.zeros_like, params)
+        mbs = opt.tree_map(lambda x: _microbatches(x, accum_steps), batch)
+        if mb_specs is not None:
+            # the reshape loses the batch dim's layout; re-pin it or every
+            # microbatch is replicated
+            mbs = sh.map_pairs(lambda x, mesh, pl: dtn.settle(x, pl), mbs,
+                               mb_specs)
+        if grad_specs is not None:
+            grads = sh.make_leaves(params, grad_specs, _zeros)
+            pin = functools.partial(sh.map_pairs,
+                                    lambda g, mesh, pl: dtn.settle(g, pl))
+        else:
+            grads = opt.tree_map(torch.zeros_like, params)
+            pin = None
         for i in range(accum_steps):
             g, metrics = _grad_fn(model, params,
                                   opt.tree_map(lambda x: x[i], mbs))
-            opt.tree_map(lambda a, b: a.add_(b), grads, g)
+            if pin is not None:
+                # each microbatch's grads reduce-scattered into the ZeRO
+                # layout
+                g = pin(g, grad_specs)
+                grads = opt.tree_map(lambda a, b: a + b, grads, g)
+            else:
+                opt.tree_map(lambda a, b: a.add_(b), grads, g)
             del g
         return opt.tree_map(lambda g: g / accum_steps, grads), metrics
+
+
+def _microbatches(x, accum_steps: int):
+    """``x`` [B, ...] as ``[accum, B/accum, ...]`` (microbatch i holds rows
+    i*B/accum onwards). A batch-sharded DTensor is gathered first (the
+    batch's leaves are token ids: a small all-gather), since DTensor cannot
+    split a sharded dim that way."""
+    if dtn.is_dt(x):
+        from torch.distributed.tensor import Replicate
+        x = dtn.settle(x, [Replicate()] * len(x.placements))
+    return x.reshape((accum_steps, x.shape[0] // accum_steps)
+                     + tuple(x.shape[1:]))
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def make_train_step(model, opt_cfg: opt.OptConfig, accum_steps: int = 1,
@@ -98,14 +142,9 @@ def make_train_step(model, opt_cfg: opt.OptConfig, accum_steps: int = 1,
     update's ``grad_norm`` and ``lr``. The params and state passed in are
     not written.
     """
-    if grad_specs is not None or mb_specs is not None:
-        raise NotImplementedError(
-            "grad_specs / mb_specs are GSPMD layout constraints on sharded "
-            "compute, which the port does not have (ROADMAP queue 1 item "
-            "10); pass neither")
-
     def train_step(params, opt_state, batch):
-        grads, metrics = accumulated_grads(model, params, batch, accum_steps)
+        grads, metrics = accumulated_grads(model, params, batch, accum_steps,
+                                           grad_specs, mb_specs)
         params, opt_state, om = opt.adamw_update(opt_cfg, params, grads,
                                                  opt_state)
         return params, opt_state, {**metrics, **om}

@@ -323,7 +323,41 @@ def test_opt_config_and_accum_steps_equal_the_reference(arch):
 
 
 def test_grad_and_microbatch_specs_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_ts.make_train_step(object(), t_opt.OptConfig(), grad_specs={})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_ts.make_train_step(object(), t_opt.OptConfig(), mb_specs={})
+    """``make_train_step`` takes ``grad_specs`` and ``mb_specs`` (they used
+    to raise): on a (2, 2) mesh of a fake process group, the accumulated
+    gradients of a fake sharded step carry ``grad_specs``' placements,
+    the ZeRO layout. (The name is the case's from before.)"""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import registry as t_registry
+    from repro_torch.models.lm import LM as TLM
+    from repro_torch.roofline import counter
+    from repro_torch.sharding import dtensor, specs
+    cfg = dataclasses.replace(t_registry.get_smoke_config("qwen2-0.5b"),
+                              num_layers=2, d_ff=64)
+    lm = TLM(cfg)
+    lm.attn_impl = "reference"
+    step = t_ts.make_train_step(lm, t_opt.OptConfig(), 2, grad_specs={},
+                                mb_specs={})
+    assert callable(step)
+    dtensor.init_fake_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        pspecs = lm.param_specs()
+        batch = {"tokens": torch.empty((4, 8), dtype=torch.int32,
+                                       device="meta")}
+        gsh = specs.grad_shardings(cfg, mesh, pspecs)
+        bsh = specs.batch_shardings(cfg, mesh, batch)
+        got = counter.trace_sharded(
+            lambda p, b: t_ts.accumulated_grads(
+                lm, p, b, 2, gsh, specs.mb_shardings(bsh))[0],
+            (pspecs, batch), (specs.param_shardings(cfg, mesh, pspecs), bsh))
+        placed = []
+        specs.map_pairs(lambda g, m, pl: placed.append(
+            (tuple(g.placements), tuple(pl))), got.out, gsh)
+        assert placed and all(a == b for a, b in placed), placed
+        assert any(any(p.is_shard() for p in b) for _, b in placed)
+    finally:
+        dist.destroy_process_group()

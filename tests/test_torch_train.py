@@ -335,19 +335,36 @@ def test_what_the_port_cannot_honour_raises(tmp_path, capsys, monkeypatch):
     model = TLM(port_config(_tiny()))
     ocfg, loop = t_opt.OptConfig(), t_loop.LoopConfig()
 
+    # a (2, 1) mesh and a shardings triple are accepted (they used to
+    # raise): the trainer runs sharded on the mesh, here one of a fake
+    # process group of 2 ranks
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import dtensor, specs
+    dtensor.init_fake_group(2)
+    try:
+        mesh = init_device_mesh("cpu", (2, 1),
+                                mesh_dim_names=("data", "model"))
+        t = t_loop.Trainer(model, ocfg, loop, str(tmp_path), None, mesh=mesh)
+        assert t.mesh is mesh and t.device.type == "cpu"
+        pspecs = model.param_specs()
+        triple = (specs.param_shardings(model.cfg, mesh, pspecs),
+                  specs.opt_shardings(model.cfg, mesh,
+                                      t_opt.opt_state_specs(ocfg, pspecs)),
+                  {"tokens": (mesh, specs.placements(mesh, ("data", None)))})
+        t = t_loop.Trainer(model, ocfg, loop, str(tmp_path), None,
+                           shardings=triple)
+        assert t.mesh is mesh and t.shardings is triple
+    finally:
+        dist.destroy_process_group()
+
     class Mesh:
         axis_names = ("data", "model")
-        shape = {"data": 2, "model": 1}
+        shape = {"data": 1, "model": 1}       # a one-device stand-in
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_loop.Trainer(model, ocfg, loop, str(tmp_path), None, mesh=Mesh(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_loop.Trainer(model, ocfg, loop, str(tmp_path), None,
-                       shardings=({}, {}, {}), device="cpu")
-    Mesh.shape = {"data": 1, "model": 1}        # one device: accepted
     t_loop.Trainer(model, ocfg, loop, str(tmp_path), None, mesh=Mesh(),
-                   shardings="cpu")
+                   device="cpu")
     if not torch.cuda.is_available():
         # the entry points default to the card
         with pytest.raises(RuntimeError, match="cuda"):

@@ -299,13 +299,17 @@ def test_compressed_psum_on_1_rank_equals_the_reference(tmp_path):
 def test_elastic_restore_across_meshes(ranks):
     """The reference's case on the port: a (reference) checkpoint restored
     onto an 8-rank, then a 4-rank (data, model) mesh. Each leaf's full
-    tensor equals the saved bytes, some leaves are sharded, and the
-    reassembled params' loss equals the unsharded port's."""
+    tensor equals the saved bytes, some leaves are sharded, and the loss
+    computed on the restored DTensor params is the unsharded port's within
+    1e-5 relative (the ranks' partial sums are reduced in another order
+    than one device's products)."""
     for world in (8, 4):
         for r in ranks[world]:
             step, sharded, local, leaves, loss = r["elastic"]
             assert step == 3 and sharded > 0, world
-            assert np.isfinite(loss) and loss == ranks["loss"], world
+            assert np.isfinite(loss), world
+            assert abs(loss / ranks["loss"] - 1) <= 1e-5, \
+                (world, loss, ranks["loss"])
             for a, b in zip(ranks["params"], leaves):
                 np.testing.assert_array_equal(b, a)
         # the model axis (2) splits the MLP's d_ff, the data axis nothing
