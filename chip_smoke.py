@@ -4054,6 +4054,330 @@ def phase_sharded(device) -> int:
     return flash
 
 
+# -- phase 21 ------------------------------------------------------------------
+
+INFER_B = 4                      # 21a: prompts of a batch
+INFER_PROMPT, INFER_NEW = 32, 32  # 21a: prompt fed a token a step, greedy
+PROD_DECODE = "deepseek-v3-671b"  # 21b: the production decode cell's model
+
+
+def _infer_one_rank(device) -> int:
+    """21a: sharded prefill and decode of full-width qwen2-0.5b on a
+    one-rank NCCL group, a (1, 1) mesh, against the one-device path on the
+    same params. Returns the sharded prefill's flash launches."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import specs
+    cfg = registry.get_config("qwen2-0.5b")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(21),
+                     device=device)
+    rng = np.random.default_rng(21)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        INFER_B, PREFILL_S))).to(device)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        INFER_PROMPT, INFER_B, 1))).to(device=device, dtype=torch.int32)
+    steps = INFER_PROMPT + INFER_NEW
+    with torch.no_grad():
+        one_prefill = lm.prefill(params, {"tokens": toks})[:, 0].float()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sparams = specs.place(params, specs.param_shardings(
+            cfg, mesh, lm.param_specs()))
+        batch = {"tokens": toks}
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, "prefill")
+        try:
+            batch = specs.place(batch, specs.batch_shardings(cfg, mesh,
+                                                             batch))
+            fkernel.reset_launch_counts()
+            with torch.no_grad():
+                logits, prefill_ms = _synced_ms(lm.prefill, sparams, batch)
+            flash = dict(fkernel.LAUNCHES)
+        finally:
+            clear()
+        check(flash == {"flash_attention": 0,
+                        "flash_attention_wgmma": cfg.num_layers},
+              f"21a prefill: flash launches {flash}, want "
+              f"{cfg.num_layers} on local heads")
+        check(tuple(logits.placements) == tuple(
+            specs.placements(mesh, (("data",), None, "model"))),
+              f"21a prefill: logits placed {logits.placements}")
+        err_p, _ = _logits_gate(logits.full_tensor()[:, 0].float(),
+                                one_prefill, "21a sharded prefill")
+        del logits, batch, one_prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+        bsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
+            cfg, registry.SHAPES["decode_32k"], batch=INFER_B,
+            seq=PREFILL_S))
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, "decode")
+        try:
+            cache = lm.init_cache(INFER_B, PREFILL_S,
+                                  shardings=bsh["cache"])
+            cache1 = lm.init_cache(INFER_B, PREFILL_S, device=device)
+            check(all(leaf.device_mesh is mesh for leaf in _leaves(cache)),
+                  "21a: the cache is not on the mesh")
+            tok, tok1 = prompt[0], prompt[0]
+            out, out1, ms, ms1, errs = [], [], [], [], []
+            fkernel.reset_launch_counts()
+            with torch.no_grad():
+                for t in range(steps):
+                    pos = torch.tensor(t, dtype=torch.int32, device=device)
+                    (lg, cache), m = _synced_ms(
+                        lm.decode_step, sparams, cache,
+                        specs.place(tok, bsh["tokens"]),
+                        specs.place(pos, bsh["position"]))
+                    (lg1, cache1), m1 = _synced_ms(lm.decode_step, params,
+                                                   cache1, tok1, pos)
+                    lg = lg.full_tensor()[:, 0].float()
+                    lg1 = lg1[:, 0].float()
+                    errs.append(_logits_gate(lg, lg1,
+                                             f"21a decode step {t}")[0])
+                    ms.append(m)
+                    ms1.append(m1)
+                    if t + 1 < INFER_PROMPT:
+                        tok = tok1 = prompt[t + 1]
+                    else:
+                        tok = lg.argmax(-1).to(torch.int32)[:, None]
+                        tok1 = lg1.argmax(-1).to(torch.int32)[:, None]
+                        out.append(tok)
+                        out1.append(tok1)
+            decode_flash = dict(fkernel.LAUNCHES)
+        finally:
+            clear()
+        got = torch.cat(out[:INFER_NEW], 1)
+        want = torch.cat(out1[:INFER_NEW], 1)
+        check(torch.equal(got, want), f"21a: sharded decode tokens "
+              f"{got.tolist()} != the one-device decode_step's "
+              f"{want.tolist()}")
+        check(sum(decode_flash.values()) == 0,
+              f"21a decode launched flash {decode_flash}")
+        del cache, cache1, sparams
+    finally:
+        dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50, p50_1 = float(np.median(ms[1:])), float(np.median(ms1[1:]))
+    log(f"21a qwen2-0.5b on a one-rank NCCL group, (1, 1) mesh: prefill B="
+        f"{INFER_B} x S={PREFILL_S} on DTensor params: "
+        f"{flash['flash_attention_wgmma']} flash launches on local heads, "
+        f"{prefill_ms:.1f} ms, last-token logits max |diff| {err_p:.4g} vs "
+        f"the one-device prefill (gate {LOGIT_TOL}); decode B={INFER_B} "
+        f"on a shard-local cache of {PREFILL_S} slots: a {INFER_PROMPT}-"
+        f"token prompt fed a token a step, then {INFER_NEW} greedy tokens "
+        f"equal to the one-device decode_step's; logits max |diff| "
+        f"{max(errs):.4g} over {steps} steps; p50 step {p50:.2f} ms "
+        f"sharded vs {p50_1:.2f} ms one-device (same call, not gated)")
+    return flash["flash_attention_wgmma"]
+
+
+def _storage_ptr(a):
+    """A tensor's storage's data pointer (None for anything else, or for a
+    storage Python cannot reach, as a collective's in-flight output)."""
+    if not isinstance(a, torch.Tensor):
+        return None
+    try:
+        return a.untyped_storage().data_ptr()
+    except RuntimeError:
+        return None
+
+
+def _input_watch(keys):
+    """A dispatch mode that records each collective (on a rank's local
+    tensors) whose input shares a storage whose data pointer is in
+    ``keys`` (in ``hits``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.sharding import dtensor
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.hits = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, dtensor._dtensor()) for t in types):
+                return NotImplemented
+            if func.namespace == "_c10d_functional" and any(
+                    _storage_ptr(a) in keys for a in args):
+                self.hits.append(func._opname)
+            return func(*args, **(kwargs or {}))
+    return Watch()
+
+
+def _production_decode(device) -> None:
+    """21b: rank 0 of deepseek-v3-671b's decode_32k cell on the (16, 16)
+    mesh over a fake process group, against the dry-run's traced record of
+    the same cell. The fake group moves no data, so the logits are not a
+    result."""
+    import gc
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import counter
+    from repro_torch.sharding import dtensor, specs
+    arch = PROD_DECODE
+    cfg = registry.get_config(arch)
+    shape = registry.SHAPES["decode_32k"]
+    world = math.prod(PROD_MESH)
+    dtensor.init_fake_group(world)
+    try:
+        stand_in = dryrun.StandInMesh(("data", "model"), PROD_MESH)
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, "decode_32k", verbose=False,
+                              mesh=stand_in)
+        check(rec["status"] == "OK" and rec["full"]["partition"]
+              == "traced", f"21b dry-run: {rec.get('status')} "
+              f"{rec.get('full', {}).get('partition')}")
+        rec["roofline"] = dryrun.roofline_record(rec)
+        rec["wall_s"] = time.perf_counter() - t
+        print(json.dumps({"dryrun": rec}, default=float), flush=True)
+        mesh = dryrun.device_mesh(stand_in, "cuda")
+        model = registry.make_model(cfg)
+        model.attn_impl = "reference"
+        b, cap = shape.global_batch, shape.seq_len
+        pspecs = model.param_specs()
+        bsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
+            cfg, shape))
+        gen = torch.Generator(device=device).manual_seed(22)
+
+        def draw(local_shape, dtype, dev):
+            if dtype.is_floating_point:
+                return (torch.randn(local_shape, generator=gen,
+                                    device=dev) * 0.02).to(dtype)
+            return torch.randint(0, cfg.vocab_size, local_shape,
+                                 generator=gen, device=dev).to(dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        clear = dryrun.launcher_constraints(model, cfg, mesh, "decode")
+        try:
+            params = specs.make_leaves(
+                pspecs, specs.param_shardings(cfg, mesh, pspecs), draw)
+            batch = {"cache": model.init_cache(b, cap,
+                                               shardings=bsh["cache"]),
+                     "tokens": specs.make_leaves(
+                         torch.empty((b, 1), dtype=torch.int32,
+                                     device="meta"), bsh["tokens"], draw),
+                     "position": specs.place(
+                         torch.tensor(cap // 2, dtype=torch.int32),
+                         bsh["position"])}
+            torch.cuda.synchronize()
+            args = torch.cuda.memory_allocated() - base
+            latent = [leaf for leaf in _leaves(batch["cache"])
+                      if leaf.dtype != torch.int32]      # ckv, kpe
+            slots = {tuple(leaf.to_local().shape) for leaf in latent}
+            # one layer's share of each ([B, C, r] of a stacked leaf or a
+            # layer's own), its last dim, dtype and smallest split
+            shares = {(math.prod(leaf.to_local().shape[-3:])
+                       * leaf.element_size(), leaf.shape[-1], leaf.dtype,
+                       min(mesh.size(d) for d, p in enumerate(
+                           leaf.placements) if p.is_shard()))
+                      for leaf in latent}
+            keys = {leaf.to_local().untyped_storage().data_ptr()
+                    for leaf in latent}
+            torch.cuda.reset_peak_memory_stats()
+            step = registry.step_fn(cfg, shape, model)
+            with torch.no_grad():
+                watch = _input_watch(keys)
+                with CommDebugMode() as comm, counter.RankFlops() as flops, \
+                        counter.CollectiveLog() as log_, watch:
+                    (logits, _), counted_ms = _synced_ms(step, params,
+                                                         batch)
+                peak = torch.cuda.max_memory_allocated() - base
+                finite = bool(torch.isfinite(logits.to_local()).all())
+                del logits
+                _, step_ms = _synced_ms(step, params, batch)
+        finally:
+            clear()
+        del params, batch, latent
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full, mem = rec["full"], rec["memory"]
+    pred = mem["peak_bytes_per_device"]
+    check(abs(pred - peak) <= DRY_PEAK_TOL * peak,
+          f"21b: dry-run peak {pred / 1e9:.3f} GB vs max_memory_allocated "
+          f"{peak / 1e9:.3f} GB: more than {DRY_PEAK_TOL:.0%} apart")
+    darg = mem["argument_size_in_bytes"]
+    check(abs(darg - args) <= DRY_PEAK_TOL * args,
+          f"21b: dry-run arguments {darg / 1e9:.3f} GB vs the allocation "
+          f"{args / 1e9:.3f} GB: more than {DRY_PEAK_TOL:.0%} apart")
+    check(full["flops"] == flops.flops, f"21b: dry-run FLOPs "
+          f"{full['flops']} != RankFlops over the real step {flops.flops}")
+    real = {counter.KINDS[str(op).split(".")[-1]]: n
+            for op, n in comm.get_comm_counts().items()}
+    traced: dict[str, int] = {}
+    for c in full["collectives"]:
+        traced[c["kind"]] = traced.get(c["kind"], 0) + c["count"]
+    check(traced == real, f"21b: dry-run collectives {traced} vs "
+          f"CommDebugMode on the card {real}")
+    # no gather of the latent cache (tests/test_torch_sharded_decode.py's
+    # rule): no collective takes a ckv or kpe shard as its input, and none
+    # of a latent leaf's dtype and last dim reaches one layer's share of it
+    # times its smallest split
+    big = [(k, n, shape_) for k, n, _, shape_, dt in log_.ops
+           for share, last, dtype, split in shares
+           if dt == dtype and shape_[-1] == last and n >= share * split]
+    check(not big, f"21b: collectives as large as a gathered latent leaf: "
+          f"{big}")
+    check(not watch.hits, f"21b: collectives took a latent leaf's shard "
+          f"as input: {watch.hits}")
+    nbytes: dict[str, int] = {}
+    for c in full["collectives"]:
+        key = f"{c['kind']} over {'+'.join(c['mesh_dims'])}"
+        nbytes[key] = nbytes.get(key, 0) + c["result_bytes"] * c["count"]
+    print(json.dumps({"phase21b": {
+        "arch": arch, "mesh": list(PROD_MESH), "batch": b,
+        "capacity": cap, "latent_local_shapes": sorted(slots),
+        "peak_bytes": peak, "dry_peak_bytes": pred, "argument_bytes": args,
+        "dry_argument_bytes": darg, "rank_flops": flops.flops,
+        "collectives": real, "collective_result_bytes": nbytes,
+        "pos_read_bytes": full["pos_read_bytes"], "step_ms": step_ms,
+        "counted_step_ms": counted_ms, "logits_finite_not_gated": finite}}),
+        flush=True)
+    log(f"21b {arch} decode_32k, rank 0 of a {PROD_MESH} mesh on a fake "
+        f"process group of {world} ({cfg.num_layers} layers, B={b}, "
+        f"capacity {cap}; the latent cache's local shapes "
+        f"{sorted(slots)}): peak {peak / 1e9:.3f} GB vs the dry-run's "
+        f"{pred / 1e9:.3f} GB ({pred / peak:.4f}x); arguments "
+        f"{args / 1e9:.3f} GB vs {darg / 1e9:.3f} GB; FLOPs {flops.flops} "
+        f"= the dry-run's; collectives {real} = the dry-run's; no gather "
+        f"of ckv/kpe; pos reads {full['pos_read_bytes']} bytes a step; "
+        f"step {step_ms:.1f} ms of rank 0's compute, collectives not "
+        f"moving data ({counted_ms:.1f} ms under the counters); logits not "
+        f"gated (the fake group moves no data)")
+
+
+def phase_infer_sharded(device) -> int:
+    """Phase 21: sharded prefill and decode. Returns 21a's flash
+    launches."""
+    t0 = time.perf_counter()
+    flash = _infer_one_rank(device)
+    log(f"[{time.perf_counter() - t0:.1f} s of phase 21] 21a done")
+    _production_decode(device)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return flash
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -4128,6 +4452,8 @@ def main() -> int:
     done("19")
     flash_launches["qwen2-0.5b"] += phase_sharded(device)
     done("20")
+    flash_launches["qwen2-0.5b"] += phase_infer_sharded(device)
+    done("21")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -4136,7 +4462,8 @@ def main() -> int:
     # (name, timed row, source, TPU kernel's pallas_call); a row per entry
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
-    # flash, plus phases 18's and 20's eval steps at qwen2-0.5b; phase 16 for
+    # flash, plus phases 18's and 20's eval steps and 21's sharded prefill
+    # at qwen2-0.5b; phase 16 for
     # qwen2-vl-7b and granite, phase 17 for hymba and whisper), its error
     # from the bf16 cases at that head dim
     table = [

@@ -16,19 +16,27 @@ record holds:
   ``total_bytes_per_device`` is the reference's sum (arguments + outputs
   + temporaries - aliases); ``peak_bytes_per_device`` the eager step's
   own peak (arguments + the larger phase's live bytes).
-- ``full``, for the train cells of the dense and MoE families (MLA
-  apart): rank 0's sharded step, traced (``"partition": "traced"``). A
-  fake process group of the mesh's size (``sharding/dtensor.
-  init_fake_group``) carries a ``DeviceMesh``; params, optimizer state and
-  batch are DTensors of fake shards placed by ``sharding/specs.py``; the
-  launcher's constraints are set as the reference's (``act_spec`` under
-  ``seq_shard_activations``, the MoE buffer specs when the experts divide
-  over (data, model)); and ``make_train_step`` runs with ``grad_specs``
-  and ``mb_specs`` under accumulation. FLOPs and bytes are the rank's
-  (``roofline/counter.py``: ``RankFlops``, ``ByteCounter``), the peak is
-  the arguments plus the trace's live peak, and the collectives are
-  counted as issued (``CollectiveLog``: kind, result bytes, mesh dims).
-- ``full``, for the other cells: FLOPs and bytes per device: the
+- ``full``, for the train, prefill and decode cells of the dense and MoE
+  families (MLA included): rank 0's sharded step, traced (``"partition":
+  "traced"``). A fake process group of the mesh's size (``sharding/
+  dtensor.init_fake_group``) carries a ``DeviceMesh``; params, optimizer
+  state and batch (a decode cell's cache, tokens and position) are
+  DTensors of fake shards placed by ``sharding/specs.py``, the cache in
+  the reference's ``cache_leaf_sharding`` layouts; the launcher's
+  constraints are set as the reference's for that kind (``act_spec``
+  under ``seq_shard_activations`` for train and prefill, the MoE buffer
+  specs when the experts divide over (data, model)). A train cell runs
+  ``make_train_step`` with ``grad_specs`` and ``mb_specs`` under
+  accumulation, a prefill or decode cell ``registry.step_fn``, as the
+  reference jits it; a decode step writes its cache in place, which the
+  record counts as the reference's donated cache (an output aliased to
+  its argument). FLOPs and bytes are the rank's (``roofline/counter.py``:
+  ``RankFlops``, ``ByteCounter``), the peak is the arguments plus the
+  trace's live peak, and the collectives are counted as issued
+  (``CollectiveLog``: kind, result bytes, mesh dims); a decode record
+  also gives ``pos_read_bytes``, what its reads of the ``pos`` leaves in
+  the K/V leaves' layout move.
+- ``full``, for the other families' cells: FLOPs and bytes per device: the
   microbatch's counts x accum, divided by the model axis, plus the
   update's. The division is a model of tensor parallelism, marked
   ``"partition": "modelled"`` wherever the model axis is wider than 1. The
@@ -267,10 +275,11 @@ def _grad_collectives(cfg, mesh, pspecs, ops: _Ops, accum: int) -> None:
 
 def traced(cfg: ModelConfig, shape: registry.Shape) -> bool:
     """Whether the cell's record, on a mesh of more than one device, is
-    rank 0's sharded step, traced: the train cells of the dense and MoE
-    families (MLA apart). On one device the step is the plain one."""
-    return (shape.kind == "train" and cfg.family in ("dense", "moe")
-            and not cfg.mla)
+    rank 0's sharded step, traced: the train, prefill and decode cells of
+    the dense and MoE families (MLA included). The VLM, SSM, hybrid and
+    encoder-decoder families stay modelled. On one device the step is the
+    plain one."""
+    return cfg.family in ("dense", "moe") and not cfg.enc_dec
 
 
 def launcher_constraints(model, cfg: ModelConfig, mesh, kind: str):
@@ -331,6 +340,30 @@ def sharded_step_trace(cfg: ModelConfig, model, mesh, b: int, s: int,
         clear()
 
 
+def sharded_infer_trace(cfg: ModelConfig, model, mesh,
+                        shape: registry.Shape, b: int,
+                        s: int) -> counter.Counts:
+    """Rank 0's counts of one ``registry.step_fn`` call of a prefill or
+    decode cell on ``mesh`` (a ``DeviceMesh``) at global batch ``b`` and
+    sequence (a decode cell's cache capacity) ``s``, as the reference
+    jits it: params by ``param_shardings``, the batch (a decode cell's
+    cache, tokens and position) by ``batch_shardings``, the launcher's
+    constraints for that kind; no gradient. A decode step writes its cache
+    in place, so the trace makes no second copy of it."""
+    pspecs = model.param_specs()
+    bspecs = registry.input_specs(cfg, shape, batch=b, seq=s)
+    shardings = (sh.param_shardings(cfg, mesh, pspecs),
+                 sh.batch_shardings(cfg, mesh, bspecs))
+    clear = launcher_constraints(model, cfg, mesh, shape.kind)
+    try:
+        with torch.no_grad():
+            return counter.trace_sharded(
+                registry.step_fn(cfg, shape, model), (pspecs, bspecs),
+                shardings)
+    finally:
+        clear()
+
+
 def group_dims(mesh):
     """``name -> mesh dim`` of process groups: a group is the mesh dim
     whose group on this rank has its ranks (DTensor may issue over the
@@ -351,7 +384,7 @@ def issued(mesh, ops) -> list[dict]:
     sizes = tuple(axis_sizes(mesh)[a] for a in names)
     dim_of = group_dims(mesh)
     counts: dict[tuple, int] = {}
-    for kind, nbytes, group, _ in ops:
+    for kind, nbytes, group, _, _ in ops:
         key = (kind, nbytes, (dim_of(group),))
         counts[key] = counts.get(key, 0) + 1
     out = []
@@ -365,7 +398,9 @@ def issued(mesh, ops) -> list[dict]:
 
 def _traced_cell(cfg, shape, mesh, b, s, model, args, rec) -> tuple:
     """(memory, full) of a traced cell: rank 0's sharded step on a fake
-    process group of the mesh's size."""
+    process group of the mesh's size. A decode cell's cache is the
+    reference's donated argument: written in place, counted once, as an
+    output aliased to it."""
     import math
 
     import torch.distributed as dist
@@ -381,24 +416,43 @@ def _traced_cell(cfg, shape, mesh, b, s, model, args, rec) -> tuple:
             f"{dist.get_world_size()}")
     try:
         dmesh = device_mesh(mesh)
-        dp = math.prod(sizes[a] for a in dp_axes(mesh))
-        accum = accum_steps_for(cfg, b, s, dp, sizes["model"])
-        rec["accum_steps"] = accum
-        c = sharded_step_trace(cfg, model, dmesh, b, s, accum)
+        if shape.kind == "train":
+            dp = math.prod(sizes[a] for a in dp_axes(mesh))
+            accum = accum_steps_for(cfg, b, s, dp, sizes["model"])
+            rec["accum_steps"] = accum
+            c = sharded_step_trace(cfg, model, dmesh, b, s, accum)
+        else:
+            c = sharded_infer_trace(cfg, model, dmesh, shape, b, s)
         colls = issued(dmesh, c.collectives)
     finally:
         if own:
             dist.destroy_process_group()
     arg_total = sum(args.values())
-    outputs = args["params"] + args["opt_state"]
+    alias = 0
+    if shape.kind == "train":
+        outputs = args["params"] + args["opt_state"]
+    else:
+        logits = c.out[0] if shape.kind == "decode" else c.out
+        logits = logits.to_local() if dtn.is_dt(logits) else logits
+        outputs = logits.numel() * logits.element_size()
+        if shape.kind == "decode":
+            bspecs = registry.input_specs(cfg, shape, batch=b, seq=s)
+            alias = sharded_bytes(bspecs["cache"], sh.batch_specs_of(
+                cfg, mesh, {"cache": bspecs["cache"]})["cache"], mesh)
+            outputs += alias
     mem = {"argument_size_in_bytes": arg_total,
            "output_size_in_bytes": outputs,
-           "temp_size_in_bytes": int(max(c.peak - outputs, 0)),
-           "alias_size_in_bytes": 0,
+           "temp_size_in_bytes": int(max(c.peak - (outputs - alias), 0)),
+           "alias_size_in_bytes": alias,
            "peak_bytes_per_device": int(arg_total + c.peak)}
     full = {"flops": c.flops, "bytes": c.bytes, "collectives": colls,
             "n_collectives": sum(x["count"] for x in colls),
             "partition": "traced"}
+    if shape.kind == "decode":
+        # decode reads each layer's pos leaf in its K/V (or latent)
+        # leaf's layout: the int32 collectives are those reads
+        full["pos_read_bytes"] = sum(n for _, n, _, _, dt in c.collectives
+                                     if dt == torch.int32)
     return mem, full
 
 

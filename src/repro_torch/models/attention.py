@@ -21,7 +21,17 @@ column-parallel products with each rank's heads, the attention itself
 heads and batch rows (``dtensor.on_shards``), and ``wo``'s partial sums are
 reduced into the input's layout. Where the heads do not divide the model
 axis the weights are replicated and attention is parallel over the batch
-only, as in the reference.
+only, as in the reference. MLA's prefill runs so on each rank's heads.
+
+Decode on DTensors keeps each cache leaf in the reference's
+``cache_leaf_spec`` layout: K/V split over the batch and the KV heads, or
+over the capacity where the heads do not divide; MLA's latent split over
+the batch and the capacity. The new slot is written on the ranks that own
+it (``dtensor.write_slot``); each rank attends over its own slots, in its
+leaf's layout (the queries and the int32 ``pos`` leaf move to it, never K,
+V or the latent), and where the capacity is split the softmax is merged
+across those ranks (``dtensor.split_softmax``). A ring buffer (capacity =
+window) wraps on a split capacity as on one device.
 
 MLA keeps a latent cache (``{"ckv", "kpe", "pos"}``): ``mla_attention``
 materialises per-head K/V and runs ``chunked_mha``, and
@@ -114,8 +124,9 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, layer_axes=(),
 # Masking
 # ---------------------------------------------------------------------------
 
-def _window_bias(q_pos, k_pos, window: int, causal: bool):
-    """[..., S_q, S_k] additive fp32 bias from absolute positions; window 0
+def _window_ok(q_pos, k_pos, window: int, causal: bool):
+    """[..., S_q, S_k] bool: which keys each query sees, from absolute
+    positions (a key at a negative position is an empty slot); window 0
     means full attention."""
     dq = q_pos[..., :, None]
     dk = k_pos[..., None, :]
@@ -124,6 +135,12 @@ def _window_bias(q_pos, k_pos, window: int, causal: bool):
         ok = ok & (dk <= dq)
     if window > 0:
         ok = ok & (dq - dk < window)
+    return ok
+
+
+def _window_bias(q_pos, k_pos, window: int, causal: bool):
+    """[..., S_q, S_k] additive fp32 bias of ``_window_ok``."""
+    ok = _window_ok(q_pos, k_pos, window, causal)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, neg)
@@ -296,11 +313,73 @@ def full_attention(cfg: ModelConfig, p: Params, x, positions, window: int,
     return layers.tp_out(out, x_in).to(cdt), (k, v)
 
 
+def as_position(position, like):
+    """``position`` as a 0-d int32 tensor on ``like``'s device: a Python
+    int, a 0-d tensor, or a replicated 0-d DTensor (its local tensor);
+    nothing is read back to the host."""
+    if dtn.is_dt(position):
+        position = position.to_local()
+    if dtn.is_dt(like):
+        like = like.to_local()
+    return torch.as_tensor(position, dtype=torch.int32, device=like.device)
+
+
+def _attend_layout(leaf) -> list:
+    """The layout that queries take to attend over the cache leaf ``leaf``
+    ([B, C, ...], a DTensor) on each rank's own slots: on a mesh dim that
+    splits the batch (dim 0) or the KV heads (dim 2) the queries are split
+    alike; on one that splits the capacity (dim 1), or leaves the leaf
+    whole, each rank takes every query head of its rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(p.dim) if p.is_shard() and p.dim in (0, 2) else Replicate()
+            for p in leaf.placements]
+
+
+def _pos_layout(leaf) -> list:
+    """The layout of a ``pos`` leaf [B, C] in the cache leaf ``leaf``'s
+    layout (its batch and capacity splits; whole elsewhere)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(p.dim) if p.is_shard() and p.dim in (0, 1) else Replicate()
+            for p in leaf.placements]
+
+
+def _local_view(cache, q, leaf_name):
+    """(mesh, the layout ``q`` attends in, its local tensor, the local
+    ``pos`` in ``cache[leaf_name]``'s layout, the mesh dims that split the
+    capacity) for attention on each rank's shards. ``pos`` keeps its own
+    layout in the cache; reading it in the leaf's is a redistribute of the
+    int32 [B, C] leaf."""
+    leaf = cache[leaf_name]
+    tgt = _attend_layout(leaf)
+    ql = dtn.settle(q, tgt).to_local()
+    pos = dtn.regroup(cache["pos"], _pos_layout(leaf)).to_local()
+    return leaf.device_mesh, tgt, ql, pos, dtn.split_dims(leaf, 1)
+
+
+def _gqa_split(q, k, v, q_pos, k_pos, window: int, compute_dtype, mesh,
+               dims):
+    """``gqa_attention`` with the keys split over the mesh dims ``dims``
+    (each rank holds its own cache slots), merged by
+    ``dtensor.split_softmax``: q [b,1,nq,h], k/v [b,t,nkv,h], q_pos [b,1],
+    k_pos [b,t] -> [b,1,nq,h] on every rank."""
+    b, sq, nq, h = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, sq, nkv, nq // nkv, h)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(),
+                          k.float()) / np.sqrt(h)
+    ok = _window_ok(q_pos, k_pos, window, causal=True)[:, None, None]
+    o, l = dtn.split_softmax(
+        scores, ok, lambda p: torch.einsum("bngst,btnh->bsngh", p,
+                                           v.float()), mesh, dims)
+    out = o / l.permute(0, 3, 1, 2)[..., None]
+    return out.to(compute_dtype).reshape(b, sq, nq, h)
+
+
 def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
                      window: int):
     """One-token decode with cache append. x [B,1,d]; ``position`` a Python
-    int or a 0-d integer tensor on the cache's device (nothing here reads
-    it back to the host).
+    int, a 0-d integer tensor on the cache's device or a replicated 0-d
+    DTensor (nothing here reads it back to the host).
 
     The new K/V and its position are written in place at slot ``position
     % capacity`` (``index_copy_``), and ``cache`` itself is returned. The
@@ -308,17 +387,24 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     cache and a ring buffer share one path. Under M-RoPE the position is
     broadcast to all three streams, as the reference's. Returns (out
     [B,1,d], cache).
+
+    On DTensors the cache leaves keep the layouts of
+    ``sharding/specs.cache_leaf_spec``: each rank writes the slot into its
+    own shard where it owns it (``dtensor.write_slot``) and attends over
+    its own slots; where the capacity is split the softmax is merged
+    across those ranks (``dtensor.split_softmax``). Only queries, the
+    ``pos`` leaf and the merge's statistics move, never K or V.
     """
     cdt = dtype_of(cfg.compute_dtype)
     b = x.shape[0]
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     cpos = cache["pos"]
-    position = torch.as_tensor(position, dtype=torch.int32,
-                               device=cpos.device)
+    position = as_position(position, cpos)
     slot = (position % cpos.shape[-1]).reshape(1).long()
     pos_b = position.reshape(1, 1).expand(b, 1)
 
-    x = x.to(cdt)
+    x_in = x
+    x = dtn.whole_on(x.to(cdt))           # column-parallel inputs
     q = x @ p["wq"].to(cdt)
     k = x @ p["wk"].to(cdt)
     v = x @ p["wv"].to(cdt)
@@ -334,16 +420,29 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
         q = layers.apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
         k = layers.apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
     elif cfg.use_rope:
-        q = layers.apply_rope(q, pos_b, cfg.rope_theta)
-        k = layers.apply_rope(k, pos_b, cfg.rope_theta)
+        rows = dtn.rows_of(pos_b, q) if dtn.is_dt(q) else pos_b
+        q = layers.apply_rope(q, rows, cfg.rope_theta)
+        k = layers.apply_rope(k, rows, cfg.rope_theta)
 
-    cache["k"].index_copy_(1, slot, k)
-    cache["v"].index_copy_(1, slot, v)
-    cpos.index_copy_(1, slot, pos_b)
-    bias = _window_bias(pos_b, cpos, int(window), causal=True)
-    out = gqa_attention(q, cache["k"], cache["v"], bias, cdt)
-    out = out.reshape(b, 1, nq * hd) @ p["wo"].to(cdt)
-    return out, cache
+    dtn.write_slot(cache["k"], slot, k)
+    dtn.write_slot(cache["v"], slot, v)
+    dtn.write_slot(cpos, slot, position.reshape(1, 1))
+    if dtn.is_dt(cache["k"]):
+        mesh, tgt, ql, pos, dims = _local_view(cache, q, "k")
+        kl, vl = cache["k"].to_local(), cache["v"].to_local()
+        q_pos = position.reshape(1, 1).expand(ql.shape[0], 1)
+        if dims:
+            out = _gqa_split(ql, kl, vl, q_pos, pos, int(window), cdt, mesh,
+                             dims)
+        else:
+            out = gqa_attention(ql, kl, vl, _window_bias(
+                q_pos, pos, int(window), causal=True), cdt)
+        out = dtn.settle(dtn.from_local(out, mesh, tgt), q.placements)
+    else:
+        bias = _window_bias(pos_b, cpos, int(window), causal=True)
+        out = gqa_attention(q, cache["k"], cache["v"], bias, cdt)
+    out = layers.row_parallel(out.reshape(b, 1, nq * hd), p["wo"].to(cdt))
+    return layers.tp_out(out, x_in).to(cdt), cache
 
 
 # ---------------------------------------------------------------------------
@@ -352,12 +451,14 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
 
 def _mla_qkv(cfg: ModelConfig, p: Params, x, positions):
     """(q_nope, q_pe [B,S,nq,*], ckv [B,S,r], k_pe [B,S,rope]): q and the
-    latent K/V from x [B,S,d], the rope parts rotated at ``positions``."""
+    latent K/V from x [B,S,d], the rope parts rotated at ``positions``. On
+    DTensors x is whole on the model axis first (the column-parallel
+    input); q comes out with each rank's heads."""
     m = cfg.mla
     cdt = dtype_of(cfg.compute_dtype)
     b, s, _ = x.shape
     nq = cfg.num_heads
-    x = x.to(cdt)
+    x = dtn.whole_on(x.to(cdt))
     cq = layers.rmsnorm(x @ p["wq_a"].to(cdt), p["q_norm"], cfg.rms_eps)
     q = (cq @ p["wq_b"].to(cdt)).reshape(
         b, s, nq, m.qk_nope_head_dim + m.qk_rope_head_dim)
@@ -375,24 +476,61 @@ def _mla_qkv(cfg: ModelConfig, p: Params, x, positions):
 def mla_attention(cfg: ModelConfig, p: Params, x, positions, window: int):
     """Training / prefill MLA: per-head K/V materialised from the latent,
     then the q-chunked reference path (its scale is the concatenated
-    [nope ; rope] head dim's). Returns (out [B,S,d], (ckv, k_pe)) for cache
-    priming."""
+    [nope ; rope] head dim's). On DTensors the per-head part runs on each
+    rank's heads and rows (``dtensor.on_shards``) and ``wo``'s partial
+    sums are reduced into the input's layout, as ``full_attention``'s.
+    Returns (out [B,S,d], (ckv, k_pe)) for cache priming."""
     m = cfg.mla
     cdt = dtype_of(cfg.compute_dtype)
     b, s, _ = x.shape
     nq = cfg.num_heads
     q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, positions)
-    kvb = (ckv @ p["wkv_b"].to(cdt)).reshape(
-        b, s, nq, m.qk_nope_head_dim + m.v_head_dim)
-    k_nope, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
-    q_full = torch.cat([q_nope, q_pe], dim=-1)
-    k_full = torch.cat(
-        [k_nope, k_pe[:, :, None, :].expand(b, s, nq, m.qk_rope_head_dim)],
-        dim=-1)
-    out = chunked_mha(q_full, k_full, v, positions, positions, int(window),
-                      True, cdt, scores_dtype=dtype_of(cfg.attn_scores_dtype))
-    out = out.reshape(b, s, nq * m.v_head_dim) @ p["wo"].to(cdt)
-    return out, (ckv, k_pe)
+    scores_dtype = dtype_of(cfg.attn_scores_dtype)
+
+    def attend(q_nope, q_pe, ckv, k_pe, wkv_b, positions):
+        """Attention over the heads of ``q_nope`` (all, or this rank's
+        block, with ``wkv_b``'s columns of the same heads)."""
+        bl, n = q_nope.shape[0], q_nope.shape[2]
+        kvb = (ckv @ wkv_b).reshape(bl, s, n,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+        k_nope = kvb[..., :m.qk_nope_head_dim]
+        v = kvb[..., m.qk_nope_head_dim:]
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        k_full = torch.cat(
+            [k_nope, k_pe[:, :, None, :].expand(bl, s, n,
+                                                m.qk_rope_head_dim)],
+            dim=-1)
+        return chunked_mha(q_full, k_full, v, positions, positions,
+                           int(window), True, cdt, scores_dtype=scores_dtype)
+    args = (q_nope, q_pe, ckv, k_pe, p["wkv_b"].to(cdt), positions)
+    if dtn.is_dt(q_nope):
+        out = dtn.on_shards(attend, q_nope.placements, *args)
+    else:
+        out = attend(*args)
+    out = layers.row_parallel(out.reshape(b, s, nq * m.v_head_dim),
+                              p["wo"].to(cdt))
+    return layers.tp_out(out, x).to(cdt), (ckv, k_pe)
+
+
+def _mla_latent(q_lat, q_pe, ckv, kpe, q_pos, k_pos, window: int, scale,
+                compute_dtype, mesh=None, dims=()):
+    """MLA decode's attention in the latent space: q_lat [b,1,n,r], q_pe
+    [b,1,n,rope] over ckv [b,t,r], kpe [b,t,rope] at k_pos [b,t] ->
+    out_lat [b,1,n,r]. With ``dims`` the slots are split over those mesh
+    dims and the softmax is merged (``dtensor.split_softmax``)."""
+    scores = (torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv.float())
+              + torch.einsum("bsnh,bth->bnst", q_pe.float(),
+                             kpe.float())) * scale
+    if not dims:
+        bias = _window_bias(q_pos, k_pos, window, causal=True)
+        probs = torch.softmax(scores + bias[:, None], dim=-1).to(
+            compute_dtype)
+        return torch.einsum("bnst,btr->bsnr", probs, ckv)
+    ok = _window_ok(q_pos, k_pos, window, causal=True)[:, None]
+    o, l = dtn.split_softmax(
+        scores, ok, lambda p: torch.einsum("bnst,btr->bsnr", p, ckv.float()),
+        mesh, dims)
+    return (o / l.permute(0, 2, 1)[..., None]).to(compute_dtype)
 
 
 def mla_decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
@@ -402,36 +540,58 @@ def mla_decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     (arXiv:2412.19437 §2.1). x [B,1,d]; ``position`` as in
     ``decode_attention``; the new latent, rope key and position are written
     in place at slot ``position % capacity``. Returns (out [B,1,d],
-    cache)."""
+    cache).
+
+    On DTensors the latent leaves keep ``cache_leaf_spec``'s layout (batch
+    over the data axes, capacity over model): each rank writes the slot
+    where it owns it and attends over its own slots. The absorbed queries
+    (``q_lat``, ``q_pe``: one token, every head) move to the cache's
+    layout, the softmax is merged across the ranks that split the
+    capacity, and ``out_lat`` returns to the rank's heads; ``ckv`` and
+    ``kpe`` never move."""
     m = cfg.mla
     cdt = dtype_of(cfg.compute_dtype)
     b = x.shape[0]
     nq = cfg.num_heads
+    hk, hv, r = m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
     cpos = cache["pos"]
-    position = torch.as_tensor(position, dtype=torch.int32,
-                               device=cpos.device)
+    position = as_position(position, cpos)
     slot = (position % cpos.shape[-1]).reshape(1).long()
     pos_b = position.reshape(1, 1).expand(b, 1)
 
-    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(cfg, p, x, pos_b)
-    cache["ckv"].index_copy_(1, slot, ckv_new)
-    cache["kpe"].index_copy_(1, slot, kpe_new)
-    cpos.index_copy_(1, slot, pos_b)
-    ckv, kpe = cache["ckv"], cache["kpe"]
-
-    wkv_b = p["wkv_b"].to(cdt).reshape(
-        m.kv_lora_rank, nq, m.qk_nope_head_dim + m.v_head_dim)
-    w_uk = wkv_b[:, :, :m.qk_nope_head_dim]          # [r, n, hk]
-    w_uv = wkv_b[:, :, m.qk_nope_head_dim:]          # [r, n, hv]
-    # the K up-projection absorbed into the query
-    q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, w_uk)       # [b,1,n,r]
+    rows = dtn.rows_of(pos_b, x) if dtn.is_dt(x) else pos_b
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(cfg, p, x, rows)
+    dtn.write_slot(cache["ckv"], slot, ckv_new)
+    dtn.write_slot(cache["kpe"], slot, kpe_new)
+    dtn.write_slot(cpos, slot, position.reshape(1, 1))
     scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    scores = (torch.einsum("bsnr,btr->bnst", q_lat.float(), ckv.float())
-              + torch.einsum("bsnh,bth->bnst", q_pe.float(),
-                             kpe.float())) * scale
-    bias = _window_bias(pos_b, cpos, int(window), causal=True)
-    probs = torch.softmax(scores + bias[:, None], dim=-1).to(cdt)
-    out_lat = torch.einsum("bnst,btr->bsnr", probs, ckv)       # [b,1,n,r]
-    out = torch.einsum("bsnr,rnh->bsnh", out_lat, w_uv)
-    out = out.reshape(b, 1, nq * m.v_head_dim) @ p["wo"].to(cdt)
-    return out, cache
+    wkv_b = p["wkv_b"].to(cdt)
+
+    if dtn.is_dt(q_nope):
+        mesh = q_nope.device_mesh
+        qn = q_nope.to_local()
+        w = wkv_b.to_local().reshape(r, qn.shape[2], hk + hv)
+        # the K up-projection absorbed into the rank's heads of the query
+        q_lat = dtn.from_local(torch.einsum("bsnh,rnh->bsnr", qn,
+                                            w[:, :, :hk]),
+                               mesh, q_nope.placements)
+        _, tgt, q_lat, pos, dims = _local_view(cache, q_lat, "ckv")
+        q_pe = dtn.settle(q_pe, tgt).to_local()
+        q_pos = position.reshape(1, 1).expand(q_lat.shape[0], 1)
+        out_lat = _mla_latent(q_lat, q_pe, cache["ckv"].to_local(),
+                              cache["kpe"].to_local(), q_pos, pos,
+                              int(window), scale, cdt, mesh, dims)
+        out_lat = dtn.settle(dtn.from_local(out_lat, mesh, tgt),
+                             q_nope.placements).to_local()
+        out = torch.einsum("bsnr,rnh->bsnh", out_lat, w[:, :, hk:])
+        out = dtn.from_local(out.reshape(out.shape[0], 1, -1), mesh,
+                             q_nope.placements)
+    else:
+        w = wkv_b.reshape(r, nq, hk + hv)
+        q_lat = torch.einsum("bsnh,rnh->bsnr", q_nope, w[:, :, :hk])
+        out_lat = _mla_latent(q_lat, q_pe, cache["ckv"], cache["kpe"],
+                              pos_b, cpos, int(window), scale, cdt)
+        out = torch.einsum("bsnr,rnh->bsnh", out_lat,
+                           w[:, :, hk:]).reshape(b, 1, nq * hv)
+    out = layers.row_parallel(out, p["wo"].to(cdt))
+    return layers.tp_out(out, x).to(cdt), cache

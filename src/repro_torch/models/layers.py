@@ -7,9 +7,10 @@ projections and the MLP's pre-activations, which ``remat="names"`` saves.
 On DTensor params and activations (``sharding/dtensor.py``) the MLP is
 tensor parallel (its input replicated on the model axis, the partial sums
 of the row-parallel product reduced into the input's layout), RoPE runs
-on each rank's shards, the embedding lookup and the fused cross-entropy
-are vocab parallel; on plain tensors every function is the one-device
-arithmetic.
+on each rank's shards (at decode, on the positions of each rank's own
+rows: ``dtensor.rows_of``), the embedding lookup and the fused
+cross-entropy are vocab parallel; on plain tensors every function is the
+one-device arithmetic.
 
 Params are the reference's nested dicts of tensors. Initialisers draw from
 an explicit ``torch.Generator``; they cannot reproduce ``jax.random``, so
@@ -165,15 +166,17 @@ def mlp_apply(cfg, p: Params, x):
 
 def row_parallel(a, w):
     """``a @ w``. Where the contraction dim is split over the model axis
-    (a row-parallel product on DTensors) and the operands are 16-bit, each
-    rank's partial sum is kept in fp32 (its own product accumulates in
-    fp32), so the reduced sum rounds once, as one device's product does;
-    else the plain product (partial sums in ``a``'s dtype)."""
+    of more than one rank (a row-parallel product on DTensors) and the
+    operands are 16-bit, each rank's partial sum is kept in fp32 (its own
+    product accumulates in fp32), so the reduced sum rounds once, as one
+    device's product does; else the plain product (partial sums in
+    ``a``'s dtype; on one rank, one device's product)."""
     if not dtn.is_dt(a) or a.dtype not in (torch.bfloat16, torch.float16):
         return a @ w
     from torch.distributed.tensor import Partial, Shard
     md = dtn.mesh_dim(a.device_mesh, "model")
-    if md is None or a.placements[md] != Shard(a.ndim - 1) \
+    if md is None or a.device_mesh.size(md) == 1 \
+            or a.placements[md] != Shard(a.ndim - 1) \
             or w.placements[md] != Shard(0):
         return a @ w
     return dtn.on_shards(lambda x, y: x.float() @ y.float(),

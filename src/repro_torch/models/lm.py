@@ -10,14 +10,21 @@ refuses it. ``param_specs`` and the roofline ``fragments`` serve the
 dry-run (``launch/dryrun.py``).
 
 On DTensor params and batches (``sharding/specs.py`` places them) the
-full-sequence forward and the loss run sharded, as GSPMD runs the
-reference's: the embedding lookup and the head are vocab parallel,
-attention and the MLP tensor parallel, MoE expert parallel
-(``models/moe.py``), and ``act_spec`` (the reference's hook, set by the
-launcher under ``seq_shard_activations``) is the residual stream's layout,
-which ``_constrain`` applies before and after each layer body. Without it
-``_constrain`` only reduces pending partial sums (the embedding's), so the
-stream is batch-sharded and whole on the model axis.
+dense and MoE families run sharded, MLA included, as GSPMD runs the
+reference's jitted steps: the full-sequence forward, the loss (with the
+MTP head), ``prefill`` and ``decode_step``. The embedding lookup and the
+head are vocab parallel, attention and the MLP tensor parallel, MoE
+expert parallel (``models/moe.py``), and ``act_spec`` (the reference's
+hook, set by the launcher under ``seq_shard_activations`` for train and
+prefill) is the residual stream's layout, which ``_constrain`` applies
+before and after each layer body. Without it ``_constrain`` only reduces
+pending partial sums (the embedding's), so the stream is batch-sharded
+and whole on the model axis; a decode step's stream always is. The decode
+cache is made shard by shard (``init_cache(shardings=...)``) in the
+reference's ``cache_leaf_sharding`` layouts, and attention decodes over
+each rank's own slots, merging the softmax where the capacity is split
+(``models/attention.py``). The VLM, SSM, hybrid and encoder-decoder
+families run on one device.
 ``cfg.remat`` is honoured as the reference's ``_remat``: while autograd
 records a layer of a stacked group (4 or more layers), it is
 rematerialised in the backward (``torch.utils.checkpoint``, with a
@@ -361,14 +368,21 @@ class LM:
 
     def _mtp_loss(self, params: Params, h, tokens, positions):
         """DeepSeek-V3 multi-token prediction (depth 1): one extra layer
-        predicts t+2 from [h_t ; embed(token_{t+1})]."""
+        predicts t+2 from [h_t ; embed(token_{t+1})]. On DTensors ``h`` is
+        whole on the model axis; the embedding is looked up vocab parallel
+        and the projection's output brought back to ``h``'s layout, so the
+        layer runs on the stream's layout (the reference constrains
+        nothing here)."""
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         p = params["mtp"]
         h_in = layers.apply_norm(cfg, p["norm_h"], h[:, :-1])
-        e_in = layers.apply_norm(cfg, p["norm_e"],
-                                 params["embed"][tokens[:, 1:]].to(cdt))
+        emb = dtn.resolved(layers.embed_lookup(params["embed"],
+                                               tokens[:, 1:]))
+        e_in = layers.apply_norm(cfg, p["norm_e"], emb.to(cdt))
         x = torch.cat([h_in, e_in], dim=-1) @ p["proj"].to(cdt)
+        if dtn.is_dt(x):
+            x = dtn.settle(x, h_in.placements)
         x, _, _ = blocks.layer_fwd(cfg, self._mtp_kind(), p["layer"], x,
                                    positions[..., :-1], 0,
                                    attn_impl=self.attn_impl)
@@ -378,11 +392,14 @@ class LM:
 
     def prefill(self, params: Params, batch: dict):
         """Full-sequence forward; returns the last token's logits
-        [B,1,V]."""
+        [B,1,V]. On DTensors the stream is in ``act_spec``'s layout
+        between layers; the last token is taken from the rank that holds
+        it (``dtensor.last_along``) and the head is vocab parallel, so the
+        logits are split over the model axis."""
         x = self.embed(params, batch)
         positions = self._positions(batch, x.shape[1], x.shape[0])
         h, _, _ = self.hidden(params, x, positions)
-        return self.logits(params, h[:, -1:, :])
+        return self.logits(params, dtn.resolved(dtn.last_along(h, 1)))
 
     # -- decode ----------------------------------------------------------------
 
@@ -390,7 +407,8 @@ class LM:
         w = self.cfg.layer_window(layer_idx)
         return min(max_len, w) if w else max_len
 
-    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
+    def init_cache(self, batch: int, max_len: int, *, device="cuda",
+                   shardings=None):
         """Decode cache grouped like ``params["groups"]``: one dict with a
         leading layer axis for a stacked group, else a list of per-layer
         dicts (``attention.init_cache``: K/V, or MLA's latent
@@ -399,7 +417,23 @@ class LM:
         A group's capacity is the largest of its layers', so a group that
         mixes windowed and global layers holds ``max_len`` slots and
         applies the window through the mask; only an all-windowed group is
-        a ring buffer of ``window`` slots."""
+        a ring buffer of ``window`` slots.
+
+        With ``shardings`` (``sharding/specs.batch_shardings`` of this
+        cache: ``(mesh, placements)`` pairs in its structure) the leaves
+        are DTensors and each rank makes only its own shard, on the
+        mesh's device: no rank allocates a whole leaf. Positions start at
+        -1 (empty), everything else at zero, as in ``attention.
+        init_cache``."""
+        if shardings is not None:
+            from repro_torch.sharding import specs
+
+            def empty(shape, dtype, dev):
+                fill = -1 if dtype == torch.int32 else 0
+                return torch.full(shape, fill, dtype=dtype, device=dev)
+            return specs.make_leaves(
+                self.init_cache(batch, max_len, device="meta"), shardings,
+                empty)
         dev = resolve(device)
         out = []
         for g in self.groups:
@@ -430,14 +464,22 @@ class LM:
         return attention.init_cache(cfg, batch, cap, axes, device=device)
 
     def decode_step(self, params: Params, cache, tokens, position):
-        """tokens [B,1] at ``position`` (a Python int or a 0-d int tensor on
-        the cache's device) -> (logits [B,1,V], cache). The cache is written
-        in place and returned."""
+        """tokens [B,1] at ``position`` (a Python int, a 0-d int tensor on
+        the cache's device, or a replicated 0-d DTensor) -> (logits
+        [B,1,V], cache). The cache is written in place and returned.
+
+        On DTensor params, cache and tokens (``sharding/specs.py``'s
+        layouts: the cache's are ``cache_leaf_spec``'s) the step runs
+        sharded, as GSPMD runs the reference's donated-cache step: the
+        stream is batch-sharded and whole on the model axis (``act_spec``
+        does not apply to one token), each layer's cache is written on the
+        ranks that own the slot and attended on each rank's own slots
+        (``models/attention.py``), and the logits come back split over the
+        model axis (the vocab-parallel head)."""
         cfg = self.cfg
-        x = self.embed(params, {"tokens": tokens})
+        x = dtn.resolved(self.embed(params, {"tokens": tokens}))
         # one tensor for every layer (a no-op for a tensor already there)
-        position = torch.as_tensor(position, dtype=torch.int32,
-                                   device=x.device)
+        position = attention.as_position(position, x)
         for g, gp, gc in zip(self.groups, params["groups"], cache):
             for j, li in enumerate(g.indices):
                 x, _ = blocks.layer_decode(

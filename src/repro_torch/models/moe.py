@@ -51,7 +51,7 @@ def set_buf_spec(spec_e, spec_b=None):
 def _constrain(x, spec):
     """``x`` in ``spec``'s layout. A mesh dim whose shard moves between
     the batch dim and the expert (slot) dim is an all-to-all over that
-    dim (``_swap``); the others are gathered before it and split after
+    dim (``dtensor.swap``); the others are gathered before it and split after
     it, so the experts' shard order is the weights' (data-major)."""
     if spec is None or not dtn.is_dt(x):
         return x
@@ -71,34 +71,8 @@ def _constrain(x, spec):
             before.append(b)
     x = dtn.settle(x, before)
     for d in swaps:
-        x = _swap(x, d, target[d].dim)
+        x = dtn.swap(x, d, target[d].dim)
     return dtn.settle(x, target)
-
-
-def _swap(x, d: int, dst: int):
-    """``x``'s shard on mesh dim ``d`` moved from its tensor dim to
-    ``dst`` (0 and 1: batch and experts) by one all-to-all over ``d``."""
-    import torch.distributed._functional_collectives as fc
-    from torch.distributed.tensor import Shard
-    mesh = x.device_mesh
-    n, src = mesh.size(d), x.placements[d].dim
-    xl = x.to_local()
-    if (src, dst) == (0, 1):     # send expert block j to rank j
-        b, e = xl.shape[:2]
-        inp = xl.reshape(b, n, e // n, *xl.shape[2:]).transpose(0, 1)
-    elif (src, dst) == (1, 0):   # send row block j to rank j
-        inp = xl.reshape(n, xl.shape[0] // n, *xl.shape[1:])
-    else:
-        raise NotImplementedError(f"a shard moved from dim {src} to {dst}")
-    out = fc.wait_tensor(fc.all_to_all_single_autograd(
-        inp.contiguous().flatten(0, 1), None, None, mesh.get_group(d)))
-    out = out.reshape(n, -1, *out.shape[1:])    # [source rank, ...]
-    if (src, dst) == (0, 1):
-        out = out.flatten(0, 1)                 # rows in rank order
-    else:
-        out = out.transpose(0, 1).flatten(1, 2)  # expert blocks in order
-    return dtn.from_local(out, mesh, dtn.with_dim(x.placements, d,
-                                                  Shard(dst)))
 
 
 def _constrain_e(x):

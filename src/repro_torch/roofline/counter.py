@@ -144,11 +144,11 @@ KINDS = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
 class CollectiveLog(_RankMode):
     """Every collective issued under it (``torch.distributed``'s functional
     collectives, which DTensor and the port issue), as
-    ``(kind, result bytes, process group name, result shape)``."""
+    ``(kind, result bytes, process group name, result shape, dtype)``."""
 
     def __init__(self):
         super().__init__()
-        self.ops: list[tuple[str, int, str, tuple]] = []
+        self.ops: list[tuple[str, int, str, tuple, torch.dtype]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _has_dtensor(types):
@@ -161,7 +161,8 @@ class CollectiveLog(_RankMode):
             if func.namespace == "_c10d_functional" else None
         if kind is not None:
             group = [a for a in args if isinstance(a, str)][-1]
-            self.ops.append((kind, _nbytes(out), group, tuple(out.shape)))
+            self.ops.append((kind, _nbytes(out), group, tuple(out.shape),
+                             out.dtype))
         return out
 
 

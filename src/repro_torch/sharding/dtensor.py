@@ -17,6 +17,19 @@ shards:
   shards (``local_map``), the outputs wrapped with ``out_placements``;
 - ``group_sum(parts)``: scalars that hold partial sums over different
   mesh dims, reduced with one all-reduce per pattern;
+- ``rows_of(t, like)``: each rank's batch rows of a whole tensor, placed
+  as ``like``'s rows (the positions of a rank's own rows at decode);
+- ``write_slot(leaf, slot, new)``: one slot of a cache leaf written in
+  place, on the rank that owns it where the slot dim is split (an
+  owner-masked write: no host read, no branch on the data);
+- ``split_softmax(scores, ok, pv, mesh, dims)``: a softmax over a key
+  axis split over mesh dims, merged from each rank's max, sum and
+  unnormalised output (the capacity-split decode);
+- ``last_along(x, dim)``: the last entry of a dim that may be split (the
+  last token of a sequence-sharded stream), as a pending partial sum;
+- ``swap(x, d, dst)``, ``regroup(x, target)``: a shard moved between two
+  tensor dims by one all-to-all over its mesh dim (the MoE's expert
+  all-to-all; the ``pos`` leaf read in K's layout);
 - ``init_fake_group(world)``: a process group of ``world`` ranks that moves
   no data (``FakeProcessGroup``), so one process can run, or trace, one
   rank of a production mesh.
@@ -172,6 +185,189 @@ def group_sum(parts):
         s = resolved(s)
         total = s if total is None else total + s
     return total
+
+
+def shard_range(x, dim: int) -> tuple[int, int]:
+    """(start, length) of this rank's slice of tensor dim ``dim`` of the
+    DTensor ``x``: the mesh dims that split ``dim`` split it in mesh order
+    (the outer one first), evenly (the layout rules' divisibility
+    guard)."""
+    mesh = x.device_mesh
+    start, length = 0, x.shape[dim]
+    for d, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            length //= mesh.size(d)
+            start += mesh.get_local_rank(d) * length
+    return start, length
+
+
+def split_dims(x, dim: int) -> tuple[int, ...]:
+    """The mesh dims that split tensor dim ``dim`` of the DTensor ``x``."""
+    return tuple(d for d, p in enumerate(x.placements) if p.is_shard(dim))
+
+
+def rows_of(t, like):
+    """The rows of the whole tensor ``t`` (batch on dim 0) that this rank
+    holds of ``like`` (a DTensor whose dim 0 is the same batch), as a
+    DTensor placed like ``like``'s rows (whole on the mesh dims that do
+    not split them). ``t`` may live on the device; nothing is read
+    back."""
+    from torch.distributed.tensor import Replicate, Shard
+    start, length = shard_range(like, 0)
+    pl = [Shard(0) if p.is_shard(0) else Replicate() for p in like.placements]
+    return from_local(t[start:start + length], like.device_mesh, pl)
+
+
+def write_slot(leaf, slot, new, dim: int = 1) -> None:
+    """``leaf[:, slot] = new`` in place, along ``dim``. ``slot`` is a
+    one-element long tensor on the device. On a plain tensor it is
+    ``index_copy_``. On a DTensor each rank writes through its local
+    shard: where ``dim`` is split, only the rank whose range holds the
+    slot changes it (the others write back what they hold, chosen on the
+    device). ``new`` is a DTensor, brought to ``leaf``'s layout with
+    ``dim`` whole, or a plain tensor that broadcasts to the local
+    slice."""
+    if is_dt(new):
+        from torch.distributed.tensor import Replicate
+        new = settle(new, [Replicate() if p.is_shard(dim) else p
+                           for p in leaf.placements]).to_local()
+    local = leaf.to_local() if is_dt(leaf) else leaf
+    shape = list(local.shape)
+    shape[dim] = 1
+    new = new.to(local.dtype).expand(shape)
+    start, length = (shard_range(leaf, dim) if is_dt(leaf)
+                     else (0, leaf.shape[dim]))
+    if length == leaf.shape[dim]:           # the whole dim on this rank
+        local.index_copy_(dim, slot, new)
+        return
+    import torch
+    j = slot - start
+    mine = ((j >= 0) & (j < length)).reshape(())
+    j = j.clamp(0, length - 1)
+    local.index_copy_(dim, j, torch.where(mine, new,
+                                          local.index_select(dim, j)))
+
+
+def all_reduce(t, mesh, dims, op: str = "sum"):
+    """The plain tensor ``t``, each rank's part, reduced by ``op`` over the
+    mesh dims ``dims`` (one all-reduce a dim; none when ``dims`` is
+    empty)."""
+    if not dims:
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+    part = [Partial(op) if d in dims else Replicate()
+            for d in range(mesh.ndim)]
+    return from_local(t, mesh, part).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def split_softmax(scores, ok, pv, mesh, dims):
+    """``softmax(scores)`` over the last axis where ``ok`` (bool, like
+    ``scores``) holds, applied by ``pv`` (``p -> p @ values``, linear in
+    ``p``), when that axis is split over the mesh dims ``dims``: each rank
+    holds its own keys. Its max is all-reduced, each rank weights its keys
+    by ``exp(s - max)`` (0 where masked, so a rank with no valid key adds
+    exactly nothing), and the sums and unnormalised outputs are
+    all-reduced together. Returns (``pv(p)`` summed, the sums ``l``,
+    ``scores``' shape without its last axis); the caller divides. fp32
+    throughout; on one device (no ``dims``) no collective is issued."""
+    import torch
+    neg = torch.full((), float("-inf"), dtype=scores.dtype,
+                     device=scores.device)
+    m = torch.where(ok, scores, neg).amax(dim=-1, keepdim=True)
+    m = all_reduce(m, mesh, dims, "max")
+    p = torch.exp(torch.where(ok, scores - m, neg))
+    l = p.sum(dim=-1)
+    o = pv(p)
+    both = all_reduce(torch.cat([l.reshape(-1), o.reshape(-1)]), mesh, dims)
+    return both[l.numel():].reshape(o.shape), both[:l.numel()].reshape(
+        l.shape)
+
+
+def last_along(x, dim: int):
+    """``x`` narrowed to the last entry of ``dim``. Where ``dim`` is split
+    (a sequence-sharded stream) the rank that holds the last entry gives
+    it and the others zeros, so the result is a partial sum over those
+    mesh dims: one small all-reduce reduces it, where slicing the DTensor
+    would gather the whole dim."""
+    if not is_dt(x) or not split_dims(x, dim):
+        return x.narrow(dim, x.shape[dim] - 1, 1)
+    import torch
+    from torch.distributed.tensor import Partial
+    mesh = x.device_mesh
+    dims = split_dims(x, dim)
+    local = x.to_local()
+    last = local.narrow(dim, local.shape[dim] - 1, 1)
+    owner = all(mesh.get_local_rank(d) == mesh.size(d) - 1 for d in dims)
+    if not owner:
+        last = torch.zeros_like(last)
+    return from_local(last, mesh, [Partial() if d in dims else p
+                                   for d, p in enumerate(x.placements)])
+
+
+def swap(x, d: int, dst: int, outer: tuple[int, ...] = ()):
+    """``x``'s shard on mesh dim ``d`` moved from its tensor dim to
+    ``dst`` (0 and 1: a batch dim and the dim behind it, as the MoE
+    buffers' experts or a cache leaf's slots) by one all-to-all over
+    ``d``. No other mesh dim may split the two tensor dims (``regroup``
+    gathers them first). Moving slots to rows, ``outer`` gives the sizes
+    of the mesh dims (outer first) whose own moves follow this one: the
+    rows are sent grouped by their coordinate on ``d`` within each of
+    theirs, so that after the last move each rank holds its rows in
+    DTensor's order."""
+    import math
+
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    n, src = mesh.size(d), x.placements[d].dim
+    xl = x.to_local()
+    if (src, dst) == (0, 1) and not outer:   # send expert block j to rank j
+        b, e = xl.shape[:2]
+        inp = xl.reshape(b, n, e // n, *xl.shape[2:]).transpose(0, 1)
+    elif (src, dst) == (1, 0):   # send row block j to rank j
+        rows, rest = xl.shape[0], xl.shape[1:]
+        inp = xl.reshape(*outer, n, rows // (math.prod(outer) * n), *rest)
+        inp = inp.movedim(len(outer), 0).reshape(n, rows // n, *rest)
+    else:
+        raise NotImplementedError(f"a shard moved from dim {src} to {dst}")
+    out = fc.wait_tensor(fc.all_to_all_single_autograd(
+        inp.contiguous().flatten(0, 1), None, None, mesh.get_group(d)))
+    out = out.reshape(n, -1, *out.shape[1:])    # [source rank, ...]
+    if (src, dst) == (0, 1):
+        out = out.flatten(0, 1)                 # rows in rank order
+    else:
+        out = out.transpose(0, 1).flatten(1, 2)  # expert blocks in order
+    return from_local(out, mesh, with_dim(x.placements, d, Shard(dst)))
+
+
+def regroup(x, target):
+    """``x`` redistributed to ``target`` where mesh dims move their shards
+    from one tensor dim to another (slots to rows: 1 to 0): the other
+    mesh dims that split either of those dims are gathered first, each
+    moving shard takes one all-to-all over its mesh dim (``swap``, the
+    inner mesh dim first), and the result is split locally into
+    ``target``. DTensor's own redistribute would gather the whole tensor
+    for such a move where another mesh dim splits the same tensor dim (the
+    ``pos`` leaf's capacity over (data, model), read in K's layout with the
+    batch over data)."""
+    from torch.distributed.tensor import Replicate
+    pl, target = tuple(x.placements), tuple(target)
+    swaps = [d for d, (a, b) in enumerate(zip(pl, target))
+             if a.is_shard() and b.is_shard() and a.dim != b.dim]
+    if not swaps:
+        return settle(x, target)
+    moves = {(pl[d].dim, target[d].dim) for d in swaps}
+    if len(moves) > 1:
+        raise NotImplementedError(f"a regroup of {pl} to {target} moves "
+                                  "shards between more than two dims")
+    (src, dst), = moves
+    x = settle(x, [Replicate() if e not in swaps and p.is_shard()
+                   and p.dim in (src, dst) else p for e, p in enumerate(pl)])
+    sizes = [x.device_mesh.size(d) for d in swaps]
+    for i in reversed(range(len(swaps))):
+        x = swap(x, swaps[i], dst, tuple(sizes[:i]))
+    return settle(x, target)
 
 
 def init_fake_group(world: int, rank: int = 0) -> None:

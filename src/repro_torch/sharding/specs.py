@@ -22,12 +22,15 @@ expert-parallel to expert-TP over d_ff).
 ``Replicate()`` on the others. ``checkpoint/ckpt.py``'s ``restore`` places
 leaves by such pairs (``distribute_tensor``), which is the reference's
 re-shard at load. The model then computes on those DTensors
-(``sharding/dtensor.py``): these layouts are the reference's
-``in_shardings``/``out_shardings``, and ``act_spec_of``, ``mb_shardings``
-and the launcher's MoE buffer specs are its ``with_sharding_constraint``
-calls. ``place`` distributes a tree of whole tensors by such pairs;
-``make_leaves`` makes each rank's shards directly, so that no rank holds
-a whole leaf.
+(``sharding/dtensor.py``): the train and eval steps, prefill, and decode
+on a cache in ``cache_leaf_spec``'s layouts (``batch_shardings`` serves a
+bare cache too: its leaves are named ``k``/``v``/``ckv``/``kpe``/``pos``).
+These layouts are the reference's ``in_shardings``/``out_shardings``, and
+``act_spec_of``, ``mb_shardings`` and the launcher's MoE buffer specs are
+its ``with_sharding_constraint`` calls. ``place`` distributes a tree of
+whole tensors by such pairs; ``make_leaves`` makes each rank's shards
+directly, so that no rank holds a whole leaf (``LM.init_cache`` with
+``shardings`` makes a decode cache so).
 """
 
 from __future__ import annotations

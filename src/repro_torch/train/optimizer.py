@@ -24,8 +24,14 @@ the pending gradient sums; the param's shard is cut on the rank), the
 elementwise work runs on the local shards, and the updated param is
 all-gathered back into its own layout. The global norm is one all-reduce
 per layout pattern of partial sums. int8 moments keep the sharding-aligned
-``[*param_lead, nb, block]`` layout, whose block dim is never split: a
-layout that splits it raises (``check_blocks``).
+``[*param_lead, nb, block]`` layout. Where that layout splits the block
+dim (ZeRO's data axis lands on it in some of deepseek-v3's leaves), the
+update first gathers ``q``'s blocks whole (``whole_blocks``: int8, a
+quarter of the fp32 moment's bytes), so each block is quantized with its
+own absmax over the whole block, as on one device, and the new ``q`` is
+cut back into its layout on each rank. A moment in the flat layout (a
+last dim that does not divide into blocks: deepseek's ``wkv_a``) is
+gathered whole for the update.
 """
 
 from __future__ import annotations
@@ -110,13 +116,19 @@ def quantize_q8(x, block: int):
     return {"q": q, "scale": scale[:, 0]}
 
 
+def _aligned(q, shape) -> bool:
+    """Whether ``q`` has the sharding-aligned layout of a ``shape`` param
+    (``[*shape[:-1], nb, block]``), not the flat one."""
+    shape = tuple(shape)
+    return (q.dim() == len(shape) + 1
+            and tuple(q.shape[:len(shape) - 1]) == shape[:-1]
+            and q.shape[-2] * q.shape[-1] == shape[-1])
+
+
 def dequantize_q8(qs, shape):
     q, scale = qs["q"], qs["scale"]
     shape = tuple(shape)
-    aligned = (q.dim() == len(shape) + 1
-               and tuple(q.shape[:len(shape) - 1]) == shape[:-1]
-               and q.shape[-2] * q.shape[-1] == shape[-1])
-    if aligned:                       # sharding-aligned layout
+    if _aligned(q, shape):            # sharding-aligned layout
         return (q.to(torch.float32) * scale[..., None]).reshape(shape)
     vals = q.to(torch.float32) * scale[:, None]
     return vals.reshape(-1)[:math.prod(shape)].reshape(shape)
@@ -214,30 +226,39 @@ def global_norm(tree):
     return torch.sqrt(sum(sq))
 
 
-def check_blocks(q) -> None:
-    """Raise unless an int8 moment's ``q`` keeps each quantization block
-    (its last dim) whole on every rank."""
-    if dtn.is_dt(q) and any(pl.is_shard() and pl.dim in (q.ndim - 1, -1)
-                            for pl in q.placements):
-        raise ValueError(
-            f"an int8 moment placed {q.placements} splits its quantization "
-            f"blocks (dim {q.ndim - 1}) across ranks; quantizing per shard "
-            "would change the moments")
+def whole_blocks(qs, shape) -> dict:
+    """An int8 moment of a ``shape`` param with ``q``'s quantization blocks
+    (its last dim) whole on every rank: gathered over the mesh dims that
+    split them (a no-op where none does). A moment in the flat layout
+    (the param's last dim does not divide into blocks) is gathered whole,
+    ``scale`` too: its flat blocks do not follow the param's dims."""
+    q = qs["q"]
+    if not dtn.is_dt(q):
+        return qs
+    from torch.distributed.tensor import Replicate
+    if not _aligned(q, shape):
+        whole = [Replicate()] * q.device_mesh.ndim
+        return {"q": dtn.settle(q, whole),
+                "scale": dtn.settle(qs["scale"], whole)}
+    last = q.ndim - 1
+    return {"q": dtn.settle(q, [Replicate() if pl.is_shard(last) else pl
+                                for pl in q.placements]),
+            "scale": qs["scale"]}
 
 
-def _to_work_layout(g, p, m, master):
-    """The grad, param and master of a leaf in its moments' layout (fp32
-    moments: theirs; int8: the dequantized moment's) on DTensors: the
-    grad's pending sums reduce-scattered, the others' shards cut on the
-    rank; plain tensors as they are."""
+def _to_work_layout(g, p, m, v, master):
+    """The grad, moments, param and master of a leaf in its moments'
+    layout (fp32 moments: theirs; int8: the dequantized moment's, its
+    blocks whole) on DTensors: the grad's pending sums reduce-scattered,
+    the others' shards cut on the rank; plain tensors as they are."""
     if not dtn.is_dt(p):
-        return g, master
+        return g, m, v, master
     if isinstance(m, dict):
-        check_blocks(m["q"])
+        m, v = whole_blocks(m, p.shape), whole_blocks(v, p.shape)
         pl = dequantize_q8(m, p.shape).placements
     else:
         pl = m.placements
-    return dtn.settle(g, pl), dtn.settle(master, pl)
+    return dtn.settle(g, pl), m, v, dtn.settle(master, pl)
 
 
 def adamw_update(cfg: OptConfig, params, grads, state):
@@ -247,10 +268,11 @@ def adamw_update(cfg: OptConfig, params, grads, state):
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
     masters = state.get("master", params)
+    ms, vs = state["m"], state["v"]
     if dtn.any_dt(params):
-        work = tree_map(_to_work_layout, grads, params, state["m"], masters)
-        grads = tree_map(lambda p, w: w[0], params, work)
-        masters = tree_map(lambda p, w: w[1], params, work)
+        work = tree_map(_to_work_layout, grads, params, ms, vs, masters)
+        grads, ms, vs, masters = (tree_map(lambda p, w, _i=i: w[_i], params,
+                                           work) for i in range(4))
     gnorm = global_norm(grads)
     scale = torch.clamp(_f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0
@@ -277,7 +299,7 @@ def adamw_update(cfg: OptConfig, params, grads, state):
             m_o, v_o = m_f, v_f
         return master.to(p.dtype), m_o, v_o, master
 
-    out = tree_map(upd, params, grads, state["m"], state["v"], masters)
+    out = tree_map(upd, params, grads, ms, vs, masters)
 
     def part(i, like):
         # on DTensors, each result back in its input's layout (the param's

@@ -16,6 +16,7 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _free_port() -> int:
@@ -240,7 +241,8 @@ def sharded_counts(rank, world, cfg, model_size, tokens):
     (the dry-run's), the params drawn from a seeded generator: the
     collectives ``CommDebugMode`` counts by kind and ``RankFlops``' FLOPs;
     and, under ``CollectiveLog``, the forward and backward of layer 0's
-    body and of the whole loss (kind, mesh dim, result shape each)."""
+    body and of the whole loss (kind, mesh dim, result bytes and result
+    shape each)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.models.lm import layer_params_of
@@ -272,8 +274,8 @@ def sharded_counts(rank, world, cfg, model_size, tokens):
     def logged(fn):
         with counter.CollectiveLog() as log:
             fn()
-        return [(k, mesh.mesh_dim_names[dim_of(g)], nbytes)
-                for k, nbytes, g, _ in log.ops]
+        return [(k, mesh.mesh_dim_names[dim_of(g)], nbytes, shape)
+                for k, nbytes, g, shape, _ in log.ops]
     try:
         with CommDebugMode() as comm, counter.RankFlops() as flops:
             step(params, state, batch)
@@ -326,3 +328,236 @@ def trainer_batch(step):
     generator (the smoke configs' 256-token vocabulary)."""
     rng = np.random.default_rng(100 + step)
     return {"tokens": rng.integers(0, 256, (8, 16)).astype(np.int32)}
+
+
+# -- sharded prefill and decode (tests/test_torch_sharded_decode.py) ---------
+
+class _InputsOf(TorchDispatchMode):
+    """A dispatch mode that records each collective (a functional
+    collective on a rank's local tensors) whose input shares a storage
+    with one of ``watched``'s local tensors (DTensors)."""
+
+    def __init__(self, watched):
+        super().__init__()
+        self.keys = {t.to_local().untyped_storage().data_ptr()
+                     for t in watched}
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from repro_torch.sharding import dtensor
+        if any(issubclass(t, dtensor._dtensor()) for t in types):
+            return NotImplemented
+        if func.namespace == "_c10d_functional" and any(
+                _storage_ptr(a) in self.keys for a in args):
+            self.hits.append(func._opname)
+        return func(*args, **(kwargs or {}))
+
+
+def _storage_ptr(a):
+    """The data pointer of a tensor's storage (None for anything else, or
+    a tensor whose storage Python cannot reach, as a collective's
+    in-flight output: not a cache leaf's)."""
+    if not isinstance(a, torch.Tensor):
+        return None
+    try:
+        return a.untyped_storage().data_ptr()
+    except RuntimeError:
+        return None
+
+
+def _counted(fn, mesh, watched=()):
+    """(``CommDebugMode``'s counts by kind, ``RankFlops``' FLOPs,
+    ``CollectiveLog``'s records as (kind, mesh dim, result bytes, dtype,
+    result shape), and the collectives whose input is one of
+    ``watched``'s shards) of one call of ``fn``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.dryrun import group_dims
+    from repro_torch.roofline import counter
+    dim_of = group_dims(mesh)
+    inputs = _InputsOf(watched)
+    with CommDebugMode() as comm, counter.RankFlops() as flops, \
+            counter.CollectiveLog() as log, inputs:
+        fn()
+    counts = {counter.KINDS[str(op).split(".")[-1]]: n
+              for op, n in comm.get_comm_counts().items()}
+    ops = [(k, mesh.mesh_dim_names[dim_of(g)], nbytes, str(dt), shape)
+           for k, nbytes, g, shape, dt in log.ops]
+    return counts, flops.flops, ops, inputs.hits
+
+
+def _cache_shares(cache, lm):
+    """Per K/V or latent leaf (``k``, ``v``, ``ckv``, ``kpe``): its name,
+    one layer's share on this rank in bytes, the sizes of the mesh dims
+    that split it (of more than one rank), its dtype and its last dim."""
+    from repro_torch.sharding import specs
+    out = []
+
+    def f(path, leaf):
+        name = specs._leaf_name(path)
+        if name not in ("k", "v", "ckv", "kpe"):
+            return
+        local = leaf.to_local()
+        if lm.groups[path[0]].scanned:       # one layer of a stacked leaf
+            local = local[0]
+        mesh = leaf.device_mesh
+        out.append((name, local.numel() * local.element_size(),
+                    [mesh.size(d) for d, p in enumerate(leaf.placements)
+                     if p.is_shard() and mesh.size(d) > 1],
+                    str(leaf.dtype), local.shape[-1]))
+    specs.map_with_path(f, cache)
+    return out
+
+
+def _kv_leaves(cache):
+    """The ``k``, ``v``, ``ckv`` and ``kpe`` leaves of a cache."""
+    from repro_torch.sharding import specs
+    out = []
+    specs.map_with_path(
+        lambda path, leaf: out.append(leaf) if specs._leaf_name(path) in (
+            "k", "v", "ckv", "kpe") else None, cache)
+    return out
+
+
+def sharded_infer(rank, world, params_path, cfg, model_size, tokens,
+                  steps):
+    """The prefill and decode cells as the reference jits them, on the
+    (world/model, model) mesh from the params pickled at ``params_path``:
+    the prefill's last-token logits under the launcher's prefill
+    constraints; then a cache made shard by shard in
+    ``cache_leaf_spec``'s layouts and ``len(steps)`` decode steps at
+    positions 0, 1, ... (each step's logits, and every cache leaf after
+    the last); and one more prefill and one more decode step
+    (``registry.step_fn``, the dry-run's function) counted by
+    ``_counted``, with the cache's shares. Rank 0 returns it all."""
+    import pickle
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import specs
+    from repro_torch.train.optimizer import tree_leaves
+    cfg, lm, mesh, clear = _sharded_model(cfg, model_size, world)
+    clear()
+    with open(params_path, "rb") as f:
+        params = params_from_reference(pickle.load(f), device="cpu")
+    params = specs.place(params, specs.param_shardings(cfg, mesh,
+                                                       lm.param_specs()))
+    b, s = tokens.shape
+    out = {}
+    with torch.no_grad():
+        shape = registry.SHAPES["prefill_32k"]
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, shape.kind)
+        try:
+            batch = {"tokens": torch.from_numpy(tokens)}
+            batch = specs.place(batch, specs.batch_shardings(cfg, mesh,
+                                                             batch))
+            out["prefill"] = lm.prefill(params, batch).full_tensor().numpy()
+            fn = registry.step_fn(cfg, shape, lm)
+            out["prefill_counted"] = _counted(lambda: fn(params, batch),
+                                              mesh)
+        finally:
+            clear()
+        shape = registry.SHAPES["decode_32k"]
+        bsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
+            cfg, shape, batch=b, seq=s))
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, shape.kind)
+        try:
+            cache = lm.init_cache(b, s, shardings=bsh["cache"])
+            logits = []
+            for t, toks in enumerate(steps):
+                tk = specs.place(torch.from_numpy(toks), bsh["tokens"])
+                lg, cache = lm.decode_step(params, cache, tk, t)
+                logits.append(lg.full_tensor().numpy())
+            out["decode"] = logits
+            out["cache"] = [c.full_tensor().numpy()
+                            for c in tree_leaves(cache)]
+            fn = registry.step_fn(cfg, shape, lm)
+            batch = {"cache": cache,
+                     "tokens": specs.place(torch.from_numpy(steps[0]),
+                                           bsh["tokens"]),
+                     "position": specs.place(
+                         torch.tensor(len(steps), dtype=torch.int32),
+                         bsh["position"])}
+            out["decode_counted"] = _counted(lambda: fn(params, batch),
+                                             mesh, _kv_leaves(cache))
+            out["shares"] = _cache_shares(cache, lm)
+        finally:
+            clear()
+    return out if rank == 0 else None
+
+
+def regroup_cases(rank, world):
+    """``sharding.dtensor.regroup`` of a [16, 32] int32 tensor on a (2, 2,
+    2) (pod, data, model) mesh, for the layouts a ``pos`` leaf takes (its
+    capacity over some mesh dims, read with the batch over the data-
+    parallel ones): whether this rank's shard and placements equal
+    ``distribute_tensor``'s of the target layout, a case each."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.sharding import dtensor
+    mesh = init_device_mesh("cpu", (2, 2, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    full = torch.arange(16 * 32, dtype=torch.int32).reshape(16, 32)
+    s0, s1, r = Shard(0), Shard(1), Replicate()
+    cases = [((s1, s1, s1), (s0, s0, s1)), ((s1, s1, s1), (s0, s0, r)),
+             ((r, s1, s1), (r, s0, s1)), ((s1, s1, r), (s0, s0, r)),
+             ((s1, r, s1), (s0, r, r)), ((s1, s1, s1), (s1, s1, s1))]
+    out = []
+    for src, tgt in cases:
+        x = distribute_tensor(full, mesh, list(src), src_data_rank=None)
+        y = dtensor.regroup(x, tgt)
+        want = distribute_tensor(full, mesh, list(tgt), src_data_rank=None)
+        out.append(tuple(y.placements) == tgt
+                   and torch.equal(y.to_local(), want.to_local()))
+    return out
+
+
+def split_block_inputs():
+    """Params, grads and an int8 optimizer state (block 256, step 3, nonzero
+    moments) from a seeded generator: the ``split_block_update`` case."""
+    from repro_torch.train import optimizer as opt
+    g = torch.Generator().manual_seed(3)
+    p = {"w": torch.randn(8, 512, generator=g)}
+    grads = {"w": torch.randn(8, 512, generator=g)}
+    m = opt.quantize_q8(torch.randn(8, 512, generator=g) * 0.1, 256)
+    v = opt.quantize_q8(torch.rand(8, 512, generator=g) * 0.01, 256)
+    state = {"step": torch.tensor(3, dtype=torch.int32), "m": {"w": m},
+             "v": {"w": v}}
+    return p, grads, state
+
+
+def split_block_update(rank, world):
+    """``adamw_update`` with int8 moments whose quantization blocks are
+    split over the data axis of a (world/2, 2) mesh (``q`` [8, 2, 256]
+    placed ``Shard(2)`` on data, the params and grads whole): rank 0
+    returns the full new params, ``q`` and ``scale``, and the moments'
+    placements after the step."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import dtensor
+    from repro_torch.train import optimizer as opt
+    mesh = make_debug_mesh(world, 2, device_type="cpu")
+    p, grads, state = split_block_inputs()
+    whole = [Replicate(), Replicate()]
+    split = [Shard(2), Replicate()]
+
+    def place(t, pl):
+        return dtensor.from_local(t, mesh, whole).redistribute(mesh, pl)
+    moment = {k: {"w": {"q": place(state[k]["w"]["q"], split),
+                        "scale": place(state[k]["w"]["scale"], whole)}}
+              for k in ("m", "v")}
+    sstate = {"step": state["step"], **moment}
+    new_p, new_s, _ = opt.adamw_update(
+        opt.OptConfig(quantized_moments=True),
+        {"w": place(p["w"], whole)}, {"w": place(grads["w"], whole)},
+        sstate)
+    out = {"w": new_p["w"].full_tensor().numpy()}
+    for k in ("m", "v"):
+        for part in ("q", "scale"):
+            leaf = new_s[k]["w"][part]
+            out[f"{k}.{part}"] = leaf.full_tensor().numpy()
+            out[f"{k}.{part}.placements"] = str(tuple(leaf.placements))
+    return out if rank == 0 else None

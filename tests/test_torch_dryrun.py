@@ -327,6 +327,22 @@ def test_dryrun_driver_small_cell():
     assert rec["chips"] == 256 and rl["chips"] == 256
 
 
+DENSE_AND_MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-0.5b",
+                 "internlm2-20b", "gemma3-27b", "gemma-2b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_traced_cells_are_the_dense_and_moe_families(arch):
+    """A cell on a mesh wider than one device is traced on shards for the
+    dense and MoE families (MLA included: deepseek's train, prefill and
+    decode) and modelled for the VLM, SSM, hybrid and encoder-decoder
+    ones."""
+    cfg = t_registry.get_config(arch)
+    for name, shape in t_registry.SHAPES.items():
+        want = arch in DENSE_AND_MOE
+        assert dryrun.traced(cfg, shape) == want, (arch, name)
+
+
 def test_dryrun_cli_writes_records(tmp_path, capsys):
     """The CLI writes one record a cell (a skipped cell too), reads a
     record back instead of tracing again unless ``--force``, and exits 0

@@ -15,9 +15,10 @@ params (``convert``).
 Configs are fp32-compute smoke variants: qwen2 at 2 layers (heads divide
 the model axis, 2), internlm2 with ``seq_shard_activations`` (``act_spec``
 live, 4 stacked layers under remat), granite-moe at 2 layers (8 experts
-over (4, 2): ``set_buf_spec`` live, the expert all-to-all), and qwen2 with
-6 heads on a (2, 4) mesh, where the heads do not divide the model axis and
-attention is replicated. On each:
+over (4, 2): ``set_buf_spec`` live, the expert all-to-all), deepseek-v3
+(MLA on each rank's heads, its MoE layers' all-to-all, the MTP head), and
+qwen2 with 6 heads on a (2, 4) mesh, where the heads do not divide the
+model axis and attention is replicated. On each:
 
 1. two steps at accumulation 2 with ``grad_specs`` and ``mb_specs``: every
    param and moment within ``FP32_TOL`` of the reference's GSPMD step,
@@ -26,13 +27,14 @@ attention is replicated. On each:
 3. (qwen2) int8 moments on shards against the one-device step, ``q``
    within one step, a param element fed by a moved int8 entry within the
    update difference the two states imply (``test_torch_optimizer.py``'s
-   F5 rule), under the same budget; a layout that would split a
-   quantization block raises;
+   F5 rule), under the same budget; a layout that splits a quantization
+   block updates as one device does (the blocks are gathered whole);
 4. the collectives of one step, counted by ``CommDebugMode`` on the ranks,
    equal by kind to the dry-run's fake-group trace of the same cell; a
-   layer body issues only model-axis collectives (granite: and its
-   all-to-all pair over data), and no forward or backward all-gathers a
-   tensor-parallel weight;
+   layer body issues only model-axis collectives (an MoE layer: and its
+   all-to-all pair over data, forward and backward, in every MoE layer,
+   and in a stacked group's recompute under remat), and no forward or
+   backward all-gathers a tensor-parallel weight;
 5. the dry-run's traced rank FLOPs equal ``RankFlops`` over that real
    step on rank 0, exactly;
 6. the port's ``Trainer``: two steps on a (2, 2) mesh with a checkpoint,
@@ -41,6 +43,7 @@ attention is replicated. On each:
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import pathlib
@@ -76,6 +79,7 @@ CASES = {
     "qwen2": ("qwen2-0.5b", dict(num_layers=2, d_ff=64), 2),
     "internlm2": ("internlm2-20b", dict(seq_shard_activations=True), 2),
     "granite": ("granite-moe-3b-a800m", dict(num_layers=2), 2),
+    "deepseek": ("deepseek-v3-671b", {}, 2),
     "replicated": ("qwen2-0.5b", dict(num_layers=2, d_ff=64, num_heads=6,
                                       num_kv_heads=2, head_dim=16), 4),
 }
@@ -211,6 +215,7 @@ def runs(tmp_path_factory):
         tasks.append(("sharded_update", (
             str(d / f"{Q8}.pkl"), port_config(_cfg(Q8)),
             CASES[Q8][2], q8, ACCUM, toks), "q8"))
+        tasks.append(("split_block_update", ()))
         eight = _torch_dist.run(WORLD, tasks, timeout=240)[0]
         tiny = port_config(_cfg("qwen2"))
         four = _torch_dist.run(4, [("sharded_trainer", (
@@ -218,6 +223,7 @@ def runs(tmp_path_factory):
         out = {"sharded": {n: eight[n] for n in CASES},
                "counts": {n: eight[f"counts {n}"] for n in CASES},
                "sharded_q8": eight["q8"],
+               "split_block": eight["split_block_update"],
                "trainer": four["sharded_trainer"], "dry": {}, "one": {}}
         for name, (arch, _, model) in CASES.items():
             with pytest.MonkeyPatch.context() as mp:
@@ -379,55 +385,70 @@ def test_int8_moments_on_shards_hold_the_one_device_step(runs):
     assert moved <= 1e-3 * n, (moved, n)
 
 
-def test_an_int8_layout_that_splits_a_block_raises():
-    """``adamw_update`` refuses int8 moments whose quantization blocks
-    (``q``'s last dim) are split across ranks, rather than quantizing per
-    shard (``optimizer.check_blocks``); a fake process group of 2 ranks in
-    the test process."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, Shard
-
-    from repro_torch.sharding import dtensor
-    dtensor.init_fake_group(2)
-    try:
-        mesh = init_device_mesh("cpu", (2, 1),
-                                mesh_dim_names=("data", "model"))
-        whole = [Replicate(), Replicate()]
-        p = dtensor.from_local(torch.zeros(4, 8), mesh, whole)
-        q = dtensor.from_local(torch.zeros(4, 2, 2, dtype=torch.int8), mesh,
-                               [Shard(2), Replicate()])     # [4, 2, 4]
-        scale = dtensor.from_local(torch.ones(4, 2), mesh, whole)
-        moment = {"w": {"q": q, "scale": scale}}
-        state = {"step": torch.zeros((), dtype=torch.int32), "m": moment,
-                 "v": moment}
-        with pytest.raises(ValueError, match="splits its quantization"):
-            t_opt.adamw_update(
-                t_opt.OptConfig(quantized_moments=True, block=4),
-                {"w": p}, {"w": p}, state)
-    finally:
-        dist.destroy_process_group()
+def test_an_int8_layout_that_splits_a_block_raises(runs):
+    """An int8 moment whose quantization blocks (``q``'s last dim) are
+    split across ranks (ZeRO's data axis lands there in some of
+    deepseek-v3's leaves) no longer raises: ``adamw_update`` gathers the
+    blocks whole first (``optimizer.whole_blocks``), so each block is
+    quantized with its own absmax over the whole block. On 8 gloo ranks,
+    ``q`` [8, 2, 256] split over data on its block dim: the new params,
+    ``q`` and ``scale`` equal the one-device update's, and the moments
+    keep their layouts."""
+    got = runs["split_block"]
+    p, grads, state = _torch_dist.split_block_inputs()
+    new_p, new_s, _ = t_opt.adamw_update(
+        t_opt.OptConfig(quantized_moments=True), p, grads, state)
+    np.testing.assert_allclose(got["w"], new_p["w"].numpy(), rtol=0,
+                               atol=1e-7)
+    for k in ("m", "v"):
+        np.testing.assert_array_equal(got[f"{k}.q"],
+                                      new_s[k]["w"]["q"].numpy())
+        np.testing.assert_allclose(got[f"{k}.scale"],
+                                   new_s[k]["w"]["scale"].numpy(),
+                                   rtol=1e-7, atol=0)
+        assert got[f"{k}.q.placements"] == \
+            "(Shard(dim=2), Replicate())", got[f"{k}.q.placements"]
+        assert got[f"{k}.scale.placements"] == \
+            "(Replicate(), Replicate())", got[f"{k}.scale.placements"]
 
 
 # -- 4 and 5. the dry-run's traced cells against the ranks -------------------------
 
-def _tp_weight_bytes(name) -> set[int]:
-    """Bytes of each tensor-parallel weight (a layer's slice of a stacked
-    leaf) whole on the model axis."""
+def _tp_weight_gathers(name) -> set[tuple]:
+    """(bytes, trailing dims) of each tensor-parallel weight (a layer's
+    slice of a stacked leaf) whole on the model axis, as a gather of its
+    shard over the model axis would give them: the collective gathers
+    along its input's first dim, so its result ends in the shard's other
+    dims (in any order of the shard's dims)."""
     from repro_torch.sharding import specs
     cfg = port_config(_cfg(name))
     lm = TLM(cfg)
     mesh = dryrun.StandInMesh(("data", "model"),
                               (WORLD // CASES[name][2], CASES[name][2]))
+    sizes = dict(zip(mesh.axis_names, mesh.sizes))
     out = set()
 
     def f(path, leaf):
-        spec = specs.param_spec_for(cfg, mesh, path, tuple(leaf.shape))
+        shape = tuple(leaf.shape)
+        spec = specs.param_spec_for(cfg, mesh, path, shape)
         if any(e == "model" or (isinstance(e, tuple) and "model" in e)
                for e in spec):
-            n = leaf.numel() * leaf.element_size()
             stacked = path[0] == "groups" and lm.groups[path[1]].scanned
-            out.add(n // leaf.shape[0] if stacked else n)
+            if stacked:
+                shape, spec = shape[1:], spec[1:]
+            n = int(np.prod(shape)) * leaf.element_size()
+            # the shard whole on model, split as its spec says elsewhere
+            shard = [d // (sizes["data"] if e == "data" or (
+                isinstance(e, tuple) and "data" in e) else 1)
+                for d, e in zip(shape, spec)]
+            model = [i for i, e in enumerate(spec) if e == "model" or (
+                isinstance(e, tuple) and "model" in e)][0]
+            shard[model] //= sizes["model"]
+            k = sizes["data"] if any(e == "data" or (
+                isinstance(e, tuple) and "data" in e) for e in spec) else 1
+            # any order of its dims (a transposed use, as the tied head)
+            for perm in itertools.permutations(shard):
+                out.add((n // k, perm[1:]))
     specs.map_with_path(f, lm.param_specs())
     return out
 
@@ -446,21 +467,25 @@ def test_collectives_as_issued_equal_the_dry_run(runs, name):
     assert by_kind == counts, (by_kind, counts)
     # a layer body's collectives are the model axis's; an MoE layer's
     # expert all-to-all pair (and its backward pair) is over data
-    moe = CASES[name][0].startswith("granite")
-    for kind, dim, _ in layer_ops:
+    groups = TLM(port_config(_cfg(name))).groups
+    moe = groups[0].kind == "moe"            # layer 0's kind
+    for kind, dim, _, _ in layer_ops:
         assert dim == "model" or (moe and kind == "all-to-all"
                                   and dim == "data"), (kind, dim)
-    n_a2a = sum(kind == "all-to-all" for kind, _, _ in layer_ops)
+    n_a2a = sum(kind == "all-to-all" for kind, _, _, _ in layer_ops)
     assert n_a2a == (4 if moe else 0), n_a2a
-    if moe:                                  # the pair, in every MoE layer
-        layers = _cfg(name).num_layers
-        assert sum(kind == "all-to-all" for kind, _, _ in loss_ops) \
-            == 4 * layers
-    # no forward or backward gathers a tensor-parallel weight
-    weights = _tp_weight_bytes(name)
-    gathered = [n for kind, dim, n in loss_ops
-                if kind == "all-gather" and dim == "model"]
-    assert not set(gathered) & weights, (sorted(set(gathered) & weights))
+    # the pair, in every MoE layer (deepseek's MTP layer is dense), and
+    # once more in the backward's recompute of a stacked group under remat
+    remat = _cfg(name).remat != "none"
+    want = sum(g.size * (6 if g.scanned and remat else 4) for g in groups
+               if g.kind == "moe")
+    assert sum(kind == "all-to-all" for kind, _, _, _ in loss_ops) == want
+    # no forward or backward gathers a tensor-parallel weight: no model-axis
+    # all-gather has a weight's whole-on-model bytes and its shard's dims
+    weights = _tp_weight_gathers(name)
+    gathered = {(n, tuple(shape[1:])) for kind, dim, n, shape in loss_ops
+                if kind == "all-gather" and dim == "model"}
+    assert not gathered & weights, sorted(gathered & weights)
 
 
 @pytest.mark.parametrize("name", list(CASES))
