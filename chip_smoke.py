@@ -267,8 +267,29 @@ Phases (each failed check raises; the script then exits non-zero):
    step, its collectives by kind equal to ``CommDebugMode``'s. The loss is
    not gated (the collectives move no data) and the step time printed is
    rank 0's compute with collectives that move nothing.
+21. sharded prefill and decode: (a) qwen2-0.5b on phase 20's one-rank
+   group: the sharded prefill (24 flash launches on local heads) and 64
+   decode steps over a shard-local cache against the one-device path
+   (``_logits_gate``, equal greedy tokens); (b) rank 0 of
+   deepseek-v3-671b's ``decode_32k`` cell on a fake group of 256
+   (``_production_cell``): peak and arguments within 10 % of the
+   dry-run's traced record, FLOPs and collectives by kind equal, no
+   collective takes or gathers a ``ckv``/``kpe`` shard.
+22. the VLM, hybrid, SSM and encoder-decoder families on shards: (a) on a
+   one-rank NCCL group and a (1, 1) mesh, hymba-1.5b, qwen2-vl-7b (1024
+   stub patches, ``act_spec`` on), whisper-tiny and xlstm-125m at full
+   width and depth: the sharded prefill at B 2 x S 4096 against the
+   one-device prefill (flash launches on local heads exactly 32, 28, 4
+   and 0; ``_logits_gate``), 2 prompt and 16 greedy decode tokens over a
+   shard-local cache equal to the one-device path's; one sharded hymba
+   train step (B 2 x S 1024) against the one-device step (phase 20a's
+   gates); (b) rank 0 of qwen2-vl-7b's ``prefill_32k`` and hymba-1.5b's
+   ``decode_32k`` cells on a fake group of 256, nothing cut, against
+   their dry-run records (traced by two processes while (a) runs): 21b's
+   gates, no collective taking or gathering a ``k``/``v``/``h``/``conv``
+   shard.
 
-The lines before the last two are phase 19's and 20's records, then the
+The lines before the last two are phases 19-22's records, then the
 kernels' JSON record (a row per entry
 point at qwen2-0.5b, gemma-2b and qwen2-vl-7b heads and flash at
 granite-moe-3b-a800m, hymba-1.5b and whisper-tiny heads, each naming its
@@ -4216,11 +4237,19 @@ def _input_watch(keys):
     return Watch()
 
 
-def _production_decode(device) -> None:
-    """21b: rank 0 of deepseek-v3-671b's decode_32k cell on the (16, 16)
-    mesh over a fake process group, against the dry-run's traced record of
-    the same cell. The fake group moves no data, so the logits are not a
-    result."""
+def _production_cell(device, tag, arch, shape_name, watch=(),
+                     rec=None) -> None:
+    """Rank 0 of ``arch``'s ``shape_name`` cell on the ``PROD_MESH`` mesh
+    over a fake process group (21b: deepseek-v3-671b ``decode_32k``; 22b:
+    qwen2-vl-7b ``prefill_32k`` and hymba-1.5b ``decode_32k``), at full
+    width and depth, params, batch and cache made shard by shard, against
+    the dry-run's traced record of the same cell: peak and argument bytes
+    within ``DRY_PEAK_TOL``, FLOPs and collectives by kind exact, and no
+    collective takes a shard of a cache leaf named in ``watch`` as its
+    input, or is as large as one layer's share of it times its smallest
+    split (a gather of it). ``rec`` is the cell's record if it was traced
+    already (``_dry_in_background``). The fake group moves no data, so the
+    logits are not a result."""
     import gc
     import math
 
@@ -4231,29 +4260,29 @@ def _production_decode(device) -> None:
     from repro_torch.launch import dryrun
     from repro_torch.roofline import counter
     from repro_torch.sharding import dtensor, specs
-    arch = PROD_DECODE
     cfg = registry.get_config(arch)
-    shape = registry.SHAPES["decode_32k"]
+    shape = registry.SHAPES[shape_name]
     world = math.prod(PROD_MESH)
     dtensor.init_fake_group(world)
     try:
         stand_in = dryrun.StandInMesh(("data", "model"), PROD_MESH)
-        t = time.perf_counter()
-        rec = dryrun.run_cell(arch, "decode_32k", verbose=False,
-                              mesh=stand_in)
+        if rec is None:
+            t = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape_name, verbose=False,
+                                  mesh=stand_in)
+            rec["roofline"] = dryrun.roofline_record(rec)
+            rec["wall_s"] = time.perf_counter() - t
         check(rec["status"] == "OK" and rec["full"]["partition"]
-              == "traced", f"21b dry-run: {rec.get('status')} "
+              == "traced", f"{tag} dry-run: {rec.get('status')} "
               f"{rec.get('full', {}).get('partition')}")
-        rec["roofline"] = dryrun.roofline_record(rec)
-        rec["wall_s"] = time.perf_counter() - t
         print(json.dumps({"dryrun": rec}, default=float), flush=True)
         mesh = dryrun.device_mesh(stand_in, "cuda")
         model = registry.make_model(cfg)
         model.attn_impl = "reference"
-        b, cap = shape.global_batch, shape.seq_len
+        b, seq = shape.global_batch, shape.seq_len
         pspecs = model.param_specs()
-        bsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
-            cfg, shape))
+        bspecs = registry.input_specs(cfg, shape)
+        bsh = specs.batch_shardings(cfg, mesh, bspecs)
         gen = torch.Generator(device=device).manual_seed(22)
 
         def draw(local_shape, dtype, dev):
@@ -4267,47 +4296,53 @@ def _production_decode(device) -> None:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        clear = dryrun.launcher_constraints(model, cfg, mesh, "decode")
+        clear = dryrun.launcher_constraints(model, cfg, mesh, shape.kind)
         try:
             params = specs.make_leaves(
                 pspecs, specs.param_shardings(cfg, mesh, pspecs), draw)
-            batch = {"cache": model.init_cache(b, cap,
-                                               shardings=bsh["cache"]),
-                     "tokens": specs.make_leaves(
-                         torch.empty((b, 1), dtype=torch.int32,
-                                     device="meta"), bsh["tokens"], draw),
-                     "position": specs.place(
-                         torch.tensor(cap // 2, dtype=torch.int32),
-                         bsh["position"])}
+            batch = {k: specs.make_leaves(v, bsh[k], draw)
+                     for k, v in bspecs.items()
+                     if k not in ("cache", "position")}
+            if shape.kind == "decode":
+                batch["cache"] = model.init_cache(b, seq,
+                                                  shardings=bsh["cache"])
+                batch["position"] = specs.place(
+                    torch.tensor(seq // 2, dtype=torch.int32),
+                    bsh["position"])
             torch.cuda.synchronize()
             args = torch.cuda.memory_allocated() - base
-            latent = [leaf for leaf in _leaves(batch["cache"])
-                      if leaf.dtype != torch.int32]      # ckv, kpe
-            slots = {tuple(leaf.to_local().shape) for leaf in latent}
-            # one layer's share of each ([B, C, r] of a stacked leaf or a
-            # layer's own), its last dim, dtype and smallest split
-            shares = {(math.prod(leaf.to_local().shape[-3:])
-                       * leaf.element_size(), leaf.shape[-1], leaf.dtype,
-                       min(mesh.size(d) for d, p in enumerate(
-                           leaf.placements) if p.is_shard()))
-                      for leaf in latent}
+            # each watched leaf: its local shape, one layer's share in
+            # bytes, its last dim, dtype and smallest split
+            watched, shares, slots = [], set(), set()
+
+            def see(path, leaf):
+                if specs._leaf_name(path) not in watch:
+                    return
+                local = leaf.to_local()
+                one = local[0] if model.groups[path[0]].scanned else local
+                watched.append(leaf)
+                slots.add(tuple(local.shape))
+                shares.add((one.numel() * one.element_size(),
+                            leaf.shape[-1], leaf.dtype,
+                            min(mesh.size(d) for d, p in enumerate(
+                                leaf.placements) if p.is_shard())))
+            specs.map_with_path(see, batch.get("cache", {}))
             keys = {leaf.to_local().untyped_storage().data_ptr()
-                    for leaf in latent}
+                    for leaf in watched}
             torch.cuda.reset_peak_memory_stats()
             step = registry.step_fn(cfg, shape, model)
             with torch.no_grad():
-                watch = _input_watch(keys)
+                watch_ = _input_watch(keys)
                 with CommDebugMode() as comm, counter.RankFlops() as flops, \
-                        counter.CollectiveLog() as log_, watch:
-                    (logits, _), counted_ms = _synced_ms(step, params,
-                                                         batch)
+                        counter.CollectiveLog() as log_, watch_:
+                    out, counted_ms = _synced_ms(step, params, batch)
                 peak = torch.cuda.max_memory_allocated() - base
+                logits = out[0] if shape.kind == "decode" else out
                 finite = bool(torch.isfinite(logits.to_local()).all())
-                del logits
-                _, step_ms = _synced_ms(step, params, batch)
+                del out, logits
         finally:
             clear()
-        del params, batch, latent
+        del params, batch, watched
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -4315,56 +4350,56 @@ def _production_decode(device) -> None:
     full, mem = rec["full"], rec["memory"]
     pred = mem["peak_bytes_per_device"]
     check(abs(pred - peak) <= DRY_PEAK_TOL * peak,
-          f"21b: dry-run peak {pred / 1e9:.3f} GB vs max_memory_allocated "
-          f"{peak / 1e9:.3f} GB: more than {DRY_PEAK_TOL:.0%} apart")
+          f"{tag}: dry-run peak {pred / 1e9:.3f} GB vs max_memory_allocated"
+          f" {peak / 1e9:.3f} GB: more than {DRY_PEAK_TOL:.0%} apart")
     darg = mem["argument_size_in_bytes"]
     check(abs(darg - args) <= DRY_PEAK_TOL * args,
-          f"21b: dry-run arguments {darg / 1e9:.3f} GB vs the allocation "
+          f"{tag}: dry-run arguments {darg / 1e9:.3f} GB vs the allocation "
           f"{args / 1e9:.3f} GB: more than {DRY_PEAK_TOL:.0%} apart")
-    check(full["flops"] == flops.flops, f"21b: dry-run FLOPs "
+    check(full["flops"] == flops.flops, f"{tag}: dry-run FLOPs "
           f"{full['flops']} != RankFlops over the real step {flops.flops}")
     real = {counter.KINDS[str(op).split(".")[-1]]: n
             for op, n in comm.get_comm_counts().items()}
     traced: dict[str, int] = {}
     for c in full["collectives"]:
         traced[c["kind"]] = traced.get(c["kind"], 0) + c["count"]
-    check(traced == real, f"21b: dry-run collectives {traced} vs "
+    check(traced == real, f"{tag}: dry-run collectives {traced} vs "
           f"CommDebugMode on the card {real}")
-    # no gather of the latent cache (tests/test_torch_sharded_decode.py's
-    # rule): no collective takes a ckv or kpe shard as its input, and none
-    # of a latent leaf's dtype and last dim reaches one layer's share of it
-    # times its smallest split
+    # no gather of a watched leaf (tests/test_torch_sharded_decode.py's
+    # rule): no collective takes its shard as input, and none of its dtype
+    # and last dim reaches one layer's share of it times its smallest split
     big = [(k, n, shape_) for k, n, _, shape_, dt in log_.ops
            for share, last, dtype, split in shares
            if dt == dtype and shape_[-1] == last and n >= share * split]
-    check(not big, f"21b: collectives as large as a gathered latent leaf: "
-          f"{big}")
-    check(not watch.hits, f"21b: collectives took a latent leaf's shard "
-          f"as input: {watch.hits}")
+    check(not big, f"{tag}: collectives as large as a gathered "
+          f"{'/'.join(watch)} leaf: {big}")
+    check(not watch_.hits, f"{tag}: collectives took a "
+          f"{'/'.join(watch)} shard as input: {watch_.hits}")
     nbytes: dict[str, int] = {}
     for c in full["collectives"]:
         key = f"{c['kind']} over {'+'.join(c['mesh_dims'])}"
         nbytes[key] = nbytes.get(key, 0) + c["result_bytes"] * c["count"]
-    print(json.dumps({"phase21b": {
-        "arch": arch, "mesh": list(PROD_MESH), "batch": b,
-        "capacity": cap, "latent_local_shapes": sorted(slots),
+    extra = ({"pos_read_bytes": full["pos_read_bytes"]}
+             if shape.kind == "decode" else {})
+    print(json.dumps({f"phase{tag}": {
+        "arch": arch, "shape": shape_name, "mesh": list(PROD_MESH),
+        "batch": b, "seq": seq, "watched_local_shapes": sorted(slots),
         "peak_bytes": peak, "dry_peak_bytes": pred, "argument_bytes": args,
         "dry_argument_bytes": darg, "rank_flops": flops.flops,
-        "collectives": real, "collective_result_bytes": nbytes,
-        "pos_read_bytes": full["pos_read_bytes"], "step_ms": step_ms,
+        "collectives": real, "collective_result_bytes": nbytes, **extra,
         "counted_step_ms": counted_ms, "logits_finite_not_gated": finite}}),
         flush=True)
-    log(f"21b {arch} decode_32k, rank 0 of a {PROD_MESH} mesh on a fake "
-        f"process group of {world} ({cfg.num_layers} layers, B={b}, "
-        f"capacity {cap}; the latent cache's local shapes "
-        f"{sorted(slots)}): peak {peak / 1e9:.3f} GB vs the dry-run's "
-        f"{pred / 1e9:.3f} GB ({pred / peak:.4f}x); arguments "
-        f"{args / 1e9:.3f} GB vs {darg / 1e9:.3f} GB; FLOPs {flops.flops} "
-        f"= the dry-run's; collectives {real} = the dry-run's; no gather "
-        f"of ckv/kpe; pos reads {full['pos_read_bytes']} bytes a step; "
-        f"step {step_ms:.1f} ms of rank 0's compute, collectives not "
-        f"moving data ({counted_ms:.1f} ms under the counters); logits not "
-        f"gated (the fake group moves no data)")
+    log(f"{tag} {arch} {shape_name}, rank 0 of a {PROD_MESH} mesh on a fake"
+        f" process group of {world} ({cfg.num_layers} layers, B={b}, "
+        f"sequence {seq}; watched {'/'.join(watch) or 'nothing'}, local "
+        f"shapes {sorted(slots)}): peak {peak / 1e9:.3f} GB vs the "
+        f"dry-run's {pred / 1e9:.3f} GB ({pred / peak:.4f}x); arguments "
+        f"{args / 1e9:.3f} GB vs {darg / 1e9:.3f} GB; FLOPs {flops.flops} = "
+        f"the dry-run's; collectives {real} = the dry-run's; no gather of "
+        f"a watched leaf; step {counted_ms:.1f} ms of rank 0's compute "
+        f"under the counters, collectives not moving data; dry-run trace "
+        f"{rec['wall_s']:.1f} s; logits not gated (the fake group moves no "
+        f"data)")
 
 
 def phase_infer_sharded(device) -> int:
@@ -4373,9 +4408,292 @@ def phase_infer_sharded(device) -> int:
     t0 = time.perf_counter()
     flash = _infer_one_rank(device)
     log(f"[{time.perf_counter() - t0:.1f} s of phase 21] 21a done")
-    _production_decode(device)
+    _production_cell(device, "21b", PROD_DECODE, "decode_32k",
+                     ("ckv", "kpe"))
     log(f"phase 21: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
     return flash
+
+
+# -- phase 22 -----------------------------------------------------------------
+
+FAMILY_B = 2                     # 22a: prompts of a batch (S = PREFILL_S)
+FAMILY_PROMPT, FAMILY_NEW = 2, 16  # 22a decode: prompt a token a step, greedy
+# 22a: flash launches of one forward, on local heads (an attention layer
+# each: hymba's 32, qwen2-vl's 28, whisper's 4 decoder self-attentions;
+# xlstm has none)
+FAMILY_FLASH = {"hymba-1.5b": 32, "qwen2-vl-7b": 28, "whisper-tiny": 4,
+                "xlstm-125m": 0}
+PROD_FAMILY = (("22b", "qwen2-vl-7b", "prefill_32k", ()),
+               ("22b", "hymba-1.5b", "decode_32k", ("k", "v", "h", "conv")))
+
+
+def _family_batch(cfg, device, rng) -> dict:
+    """22a's batch of ``FAMILY_B`` rows of ``PREFILL_S``: tokens; whisper's
+    frame embeddings ahead of its tokens' decoder; qwen2-vl's
+    ``VL_PATCHES`` stub patches ahead of its tokens (its M-RoPE positions
+    the model's own: the flash branch refuses caller-given ones, F3)."""
+    from repro_torch.device import dtype_of
+    cdt = dtype_of(cfg.compute_dtype)
+    s = PREFILL_S
+    batch = {}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (FAMILY_B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+            ).to(device=device, dtype=cdt)
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = (0.02 * torch.from_numpy(
+            rng.standard_normal((FAMILY_B, VL_PATCHES, cfg.d_model)).astype(
+                np.float32))).to(device=device, dtype=cdt)
+        s -= VL_PATCHES
+    batch["tokens"] = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (FAMILY_B, s))).to(device=device,
+                                              dtype=torch.int32)
+    return batch
+
+
+def _family_cache(lm, params, batch, cap, **kw):
+    """A decode cache of ``cap`` slots for ``batch``'s rows (``kw``:
+    ``device`` or ``shardings``); an encoder-decoder's cross K/V written
+    from the batch's frames."""
+    b = batch["tokens"].shape[0]
+    if lm.cfg.enc_dec:
+        cache = lm.init_cache(None, b, cap, lm.cfg.enc_frames, **kw)
+        return lm.write_cross(params, cache, batch["frames"])
+    return lm.init_cache(b, cap, **kw)
+
+
+def _family_infer(device, mesh, arch) -> int:
+    """22a for one model: its sharded prefill and greedy decode on the
+    one-rank mesh against the one-device path on the same params. Returns
+    the sharded prefill's flash launches."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import specs
+    cfg = registry.get_config(arch)
+    lm = registry.make_model(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(22),
+                     device=device)
+    rng = np.random.default_rng(22)
+    batch = _family_batch(cfg, device, rng)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+        FAMILY_PROMPT, FAMILY_B, 1))).to(device=device, dtype=torch.int32)
+    fkernel.reset_launch_counts()
+    with torch.no_grad():
+        one, one_ms = _synced_ms(lm.prefill, params, batch)
+    one_flash = sum(fkernel.LAUNCHES.values())
+    one = one[:, 0].float()
+    sparams = specs.place(params, specs.param_shardings(
+        cfg, mesh, lm.param_specs()))
+    clear = dryrun.launcher_constraints(lm, cfg, mesh, "prefill")
+    try:
+        sbatch = specs.place(batch, specs.batch_shardings(cfg, mesh, batch))
+        fkernel.reset_launch_counts()
+        with torch.no_grad():
+            logits, ms = _synced_ms(lm.prefill, sparams, sbatch)
+        flash = dict(fkernel.LAUNCHES)
+    finally:
+        clear()
+    want = FAMILY_FLASH[arch]
+    check(flash.get("flash_attention_wgmma", 0) == want == one_flash
+          and flash.get("flash_attention", 0) == 0,
+          f"22a {arch} prefill: flash launches {flash} (one device "
+          f"{one_flash}), want {want} on local heads")
+    got = logits.full_tensor()[:, 0].float()
+    err_p = float((got - one).abs().max())
+    _logits_gate(got, one, f"22a {arch} sharded prefill")
+    del logits, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = FAMILY_PROMPT + FAMILY_NEW
+    dsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
+        cfg, registry.SHAPES["decode_32k"], batch=FAMILY_B, seq=cap))
+    with torch.no_grad():
+        cache = _family_cache(lm, sparams, sbatch, cap,
+                              shardings=dsh["cache"])
+        cache1 = _family_cache(lm, params, batch, cap, device=device)
+    check(all(leaf.device_mesh is mesh for leaf in _leaves(cache)),
+          f"22a {arch}: the cache is not on the mesh")
+    tok = tok1 = prompt[0]
+    out, out1, errs, ms_d = [], [], [], []
+    fkernel.reset_launch_counts()
+    with torch.no_grad():
+        for t in range(cap):
+            pos = torch.tensor(t, dtype=torch.int32, device=device)
+            (lg, cache), m = _synced_ms(
+                lm.decode_step, sparams, cache,
+                specs.place(tok, dsh["tokens"]),
+                specs.place(pos, dsh["position"]))
+            lg1, cache1 = lm.decode_step(params, cache1, tok1, pos)
+            lg = lg.full_tensor()[:, 0].float()
+            lg1 = lg1[:, 0].float()
+            errs.append(float((lg - lg1).abs().max()))
+            _logits_gate(lg, lg1, f"22a {arch} decode step {t}")
+            ms_d.append(m)
+            if t + 1 < FAMILY_PROMPT:
+                tok = tok1 = prompt[t + 1]
+            else:
+                tok = lg.argmax(-1).to(torch.int32)[:, None]
+                tok1 = lg1.argmax(-1).to(torch.int32)[:, None]
+                out.append(tok)
+                out1.append(tok1)
+    decode_flash = sum(fkernel.LAUNCHES.values())
+    got, want_t = torch.cat(out[:FAMILY_NEW], 1), torch.cat(
+        out1[:FAMILY_NEW], 1)
+    check(torch.equal(got, want_t), f"22a {arch}: sharded decode tokens "
+          f"{got.tolist()} != the one-device decode_step's "
+          f"{want_t.tolist()}")
+    check(decode_flash == 0, f"22a {arch} decode launched flash")
+    del cache, cache1, sparams, params, sbatch, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"22a {arch} (full width and depth, {cfg.num_layers} layers, "
+        f"{cfg.param_dtype} params, {cfg.compute_dtype} compute) on the "
+        f"one-rank mesh: prefill B={FAMILY_B} x "
+        f"S={PREFILL_S} on DTensor params: {want} flash launches on local "
+        f"heads, {ms:.1f} ms (one device {one_ms:.1f} ms), last-token "
+        f"logits max |diff| {err_p:.4g} vs the one-device prefill; decode "
+        f"on a shard-local cache of {cap} slots: {FAMILY_PROMPT} prompt "
+        f"tokens, then {FAMILY_NEW} greedy tokens equal to the one-device "
+        f"path's, logits max |diff| {max(errs):.4g}, p50 step "
+        f"{float(np.median(ms_d[1:])):.2f} ms")
+    return want
+
+
+# 22a: hymba's train step, B x S. S 4096 fits (19.3 s a step on one device,
+# 20.6 s sharded), but phase 22's 120 s does not hold both steps at it
+# beside 22b; at S 2048 (9.4 and 14.1 s) the phase took 118.5 s
+HY_TRAIN_B, HY_TRAIN_S = 2, 1024
+DRY_DIR = ROOT / "build" / "chip_smoke_dry"   # 22b's records, removed after
+
+
+def _family_train(device, mesh) -> None:
+    """22a: one sharded train step of full-width hymba-1.5b on the
+    one-rank mesh against the one-device step (phase 20a's gates)."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.sharding import specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    arch = "hymba-1.5b"
+    cfg = registry.get_config(arch)
+    lm = registry.make_model(cfg)
+    params = lm.init(torch.Generator(device=device).manual_seed(23),
+                     device=device)
+    ocfg = ts.opt_config_for(cfg, lr=1e-3, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    tokens = _train_batches(cfg, HY_TRAIN_S, HY_TRAIN_B, 23, device)(0)
+    one, one_ms = _synced_ms(ts.make_train_step(lm, ocfg), params,
+                             opt.init_opt_state(ocfg, params),
+                             {"tokens": tokens})
+    p1, m1 = one[0], one[2]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    pspecs = lm.param_specs()
+    batch = {"tokens": tokens}
+    bsh = specs.batch_shardings(cfg, mesh, batch)
+    sparams = specs.place(params, specs.param_shardings(cfg, mesh, pspecs))
+    del params
+    state = opt.init_opt_state(ocfg, sparams, specs.opt_shardings(
+        cfg, mesh, opt.opt_state_specs(ocfg, pspecs)))
+    fkernel.reset_launch_counts()
+    (p2, _, m2), ms = _synced_ms(ts.make_train_step(lm, ocfg), sparams,
+                                 state, specs.place(batch, bsh))
+    check(sum(fkernel.LAUNCHES.values()) == 0,
+          f"22a: the sharded train step launched {fkernel.LAUNCHES}")
+    loss1, loss2 = float(m1["loss"]), _scalar(m2["loss"])
+    gn1, gn2 = float(m1["grad_norm"]), _scalar(m2["grad_norm"])
+    check(abs(loss2 - loss1) <= LOSS_TOL,
+          f"22a {arch}: sharded loss {loss2} vs one-device {loss1}")
+    check(abs(gn2 / gn1 - 1) <= LOSS_TOL,
+          f"22a {arch}: sharded grad_norm {gn2} vs one-device {gn1}")
+    rel = _rel_l2(opt.tree_map(lambda t: t.full_tensor(), p2), p1)
+    check(rel <= SHARD_TOL, f"22a {arch}: updated params {rel:.3g} apart "
+          f"(rel. L2) > {SHARD_TOL}")
+    del p1, p2, state, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"22a {arch} train step on the one-rank mesh (B={HY_TRAIN_B} x "
+        f"S={HY_TRAIN_S}, remat {cfg.remat}, the chunked attention path): "
+        f"sharded {ms:.1f} ms vs one-device {one_ms:.1f} ms; loss "
+        f"{loss2:.5f} vs {loss1:.5f} (gap {abs(loss2 - loss1):.3g}, gate "
+        f"{LOSS_TOL}); grad_norm {gn2:.5f} vs {gn1:.5f}; params {rel:.3g} "
+        f"apart (rel. L2, gate {SHARD_TOL})")
+
+
+def _dry_in_background(cells):
+    """The dry-run of each (arch, shape) cell on the single-pod mesh (=
+    ``PROD_MESH``), each in a process of its own (``python -m
+    repro_torch.launch.dryrun``, its record into ``DRY_DIR``), started now
+    so that the host traces while the card runs 22a. Returns a function
+    that waits for them and gives each cell's record (its ``wall_s`` the
+    process's, import included)."""
+    import os
+    import shutil
+    assert PROD_MESH == (16, 16)
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--force", "--out",
+         str(DRY_DIR)], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for arch, shape in cells}
+
+    def wait() -> dict:
+        recs = {}
+        try:
+            for (arch, shape), p in procs.items():
+                out, _ = p.communicate(timeout=600)
+                check(p.returncode == 0, f"dry-run of {arch} {shape}: exit "
+                      f"{p.returncode}\n{out[-2000:]}")
+                rec = json.loads((DRY_DIR / f"{arch}__{shape}__single.json"
+                                  ).read_text())
+                rec["wall_s"] = time.perf_counter() - t0
+                recs[arch, shape] = rec
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+            shutil.rmtree(DRY_DIR, ignore_errors=True)
+        return recs
+    return wait
+
+
+def phase_families_sharded(device) -> dict:
+    """Phase 22: the VLM, hybrid, SSM and encoder-decoder families on
+    shards. Returns 22a's flash launches by model."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    t0 = time.perf_counter()
+    records = _dry_in_background([(arch, shape)
+                                  for _, arch, shape, _ in PROD_FAMILY])
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+            world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            launches = {arch: _family_infer(device, mesh, arch)
+                        for arch in FAMILY_FLASH}
+            log(f"[{time.perf_counter() - t0:.1f} s of phase 22] 22a "
+                "prefill and decode done")
+            _family_train(device, mesh)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        recs = records()
+    log(f"[{time.perf_counter() - t0:.1f} s of phase 22] 22a done")
+    for tag, arch, shape, watch in PROD_FAMILY:
+        _production_cell(device, tag, arch, shape, watch,
+                         rec=recs[arch, shape])
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return launches
 
 
 # -- main --------------------------------------------------------------------
@@ -4454,6 +4772,10 @@ def main() -> int:
     done("20")
     flash_launches["qwen2-0.5b"] += phase_infer_sharded(device)
     done("21")
+    for tag, n in phase_families_sharded(device).items():
+        if n:                              # a model with a flash row
+            fam[tag]["flash"] += n
+    done("22")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -4463,8 +4785,9 @@ def main() -> int:
     # point and heads (and decode at context 4096), its launches from that
     # model's run (serving for the paged kernel, the phase-7 forwards for
     # flash, plus phases 18's and 20's eval steps and 21's sharded prefill
-    # at qwen2-0.5b; phase 16 for
-    # qwen2-vl-7b and granite, phase 17 for hymba and whisper), its error
+    # at qwen2-0.5b; phase 16 for granite, phases 16 and 22's sharded
+    # prefill for qwen2-vl-7b, phases 17 and 22 for hymba and whisper), its
+    # error
     # from the bf16 cases at that head dim
     table = [
         ("paged_attention", "paged_attention", paged_src, f"{paged_tpu}:317"),

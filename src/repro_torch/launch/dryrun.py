@@ -16,16 +16,21 @@ record holds:
   ``total_bytes_per_device`` is the reference's sum (arguments + outputs
   + temporaries - aliases); ``peak_bytes_per_device`` the eager step's
   own peak (arguments + the larger phase's live bytes).
-- ``full``, for the train, prefill and decode cells of the dense and MoE
-  families (MLA included): rank 0's sharded step, traced (``"partition":
-  "traced"``). A fake process group of the mesh's size (``sharding/
-  dtensor.init_fake_group``) carries a ``DeviceMesh``; params, optimizer
-  state and batch (a decode cell's cache, tokens and position) are
-  DTensors of fake shards placed by ``sharding/specs.py``, the cache in
-  the reference's ``cache_leaf_sharding`` layouts; the launcher's
-  constraints are set as the reference's for that kind (``act_spec``
-  under ``seq_shard_activations`` for train and prefill, the MoE buffer
-  specs when the experts divide over (data, model)). A train cell runs
+- ``full``, for every cell on a mesh of more than one device (every
+  family: dense, MoE with MLA, VLM, hybrid, SSM, encoder-decoder; train,
+  prefill and decode, ``long_500k`` included): rank 0's sharded step,
+  traced (``"partition": "traced"``). A fake process group of the
+  mesh's size (``sharding/dtensor.init_fake_group``) carries a
+  ``DeviceMesh``; params, optimizer
+  state and batch (a decode cell's cache, tokens and position; a VLM's
+  patch embeddings and M-RoPE positions; an encoder-decoder's frames,
+  and its cache with the cross K/V) are DTensors of fake shards placed
+  by ``sharding/specs.py``, the cache in the reference's
+  ``cache_leaf_sharding`` layouts; the launcher's constraints are set as
+  the reference's for that kind (``act_spec`` under
+  ``seq_shard_activations`` for train and prefill, never for an
+  encoder-decoder; the MoE buffer specs when the experts divide over
+  (data, model)). A train cell runs
   ``make_train_step`` with ``grad_specs`` and ``mb_specs`` under
   accumulation, a prefill or decode cell ``registry.step_fn``, as the
   reference jits it; a decode step writes its cache in place, which the
@@ -36,20 +41,17 @@ record holds:
   (``CollectiveLog``: kind, result bytes, mesh dims); a decode record
   also gives ``pos_read_bytes``, what its reads of the ``pos`` leaves in
   the K/V leaves' layout move.
-- ``full``, for the other families' cells: FLOPs and bytes per device: the
-  microbatch's counts x accum, divided by the model axis, plus the
-  update's. The division is a model of tensor parallelism, marked
-  ``"partition": "modelled"`` wherever the model axis is wider than 1. The
-  collectives are built from the layouts: ZeRO's reduce-scatters and all-gathers and the
-  data-parallel all-reduces of the grads, per leaf; tensor parallelism's
-  all-reduces of the activations a row-parallel weight leaves as partial
-  sums, per layer, forward and backward and again under remat; the
-  vocab-sharded embedding's and head's; MoE all-to-alls where the experts
-  divide over (data, model) (the reference's ``set_buf_spec`` condition).
-- ``fragments``: each of ``model.fragments`` traced once (train ones with
-  their backward, all-ones cotangents). Eager PyTorch runs every trip of
-  a loop in the full trace, so ``roofline_record`` combines the full part
-  alone (``"trips_in_full": true``).
+- ``full``, on a one-device mesh: the plain step's FLOPs and bytes (the
+  microbatch's counts x accum plus the update's; ``"partition":
+  "exact"``, no collective). ``collectives`` still builds a step's
+  collectives from the layouts alone (ZeRO's, tensor parallelism's
+  partial sums, the vocab-sharded embedding's and head's, MoE
+  all-to-alls), a model no cell's record uses now.
+- ``fragments`` (one-device cells): each of ``model.fragments`` traced
+  once (train ones with their backward, all-ones cotangents). Eager
+  PyTorch runs every trip of a loop in the full trace, so
+  ``roofline_record`` combines the full part alone (``"trips_in_full":
+  true``).
 - ``roofline``: ``roofline/analyze.py``'s terms on the H100 table.
 
 Meshes are stand-ins (axis names and sizes): single (16, 16) = (data,
@@ -275,20 +277,21 @@ def _grad_collectives(cfg, mesh, pspecs, ops: _Ops, accum: int) -> None:
 
 def traced(cfg: ModelConfig, shape: registry.Shape) -> bool:
     """Whether the cell's record, on a mesh of more than one device, is
-    rank 0's sharded step, traced: the train, prefill and decode cells of
-    the dense and MoE families (MLA included). The VLM, SSM, hybrid and
-    encoder-decoder families stay modelled. On one device the step is the
-    plain one."""
-    return cfg.family in ("dense", "moe") and not cfg.enc_dec
+    rank 0's sharded step, traced: every cell of every family (dense, MoE
+    with MLA, VLM, hybrid, SSM and encoder-decoder; train, prefill and
+    decode, ``long_500k`` included). On one device the step is the plain
+    one."""
+    return True
 
 
 def launcher_constraints(model, cfg: ModelConfig, mesh, kind: str):
     """The reference launcher's layout hooks on ``mesh``: ``act_spec``
-    under ``seq_shard_activations`` (train and prefill), the MoE buffer
-    specs when the experts divide over (data, model). Returns a function
-    that clears them."""
+    under ``seq_shard_activations`` (train and prefill; not for an
+    encoder-decoder), the MoE buffer specs when the experts divide over
+    (data, model). Returns a function that clears them."""
     sizes = axis_sizes(mesh)
-    if cfg.seq_shard_activations and kind in ("train", "prefill"):
+    if cfg.seq_shard_activations and kind in ("train", "prefill") \
+            and not cfg.enc_dec:
         model.act_spec = sh.act_spec_of(mesh)
     if cfg.moe and cfg.moe.num_experts % (sizes["data"]
                                           * sizes["model"]) == 0:

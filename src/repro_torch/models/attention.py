@@ -416,11 +416,14 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
     k = k.reshape(b, 1, nkv, hd)
     v = v.reshape(b, 1, nkv, hd)
     if cfg.mrope:
-        p3 = pos_b[None].expand(3, b, 1)
+        rows = dtn.rows_like(pos_b, q)
+        p3 = (dtn.on_shards(lambda r: r[None].expand(3, *r.shape),
+                            dtn.remap(rows.placements, {0: 1}), rows)
+              if dtn.is_dt(rows) else rows[None].expand(3, b, 1))
         q = layers.apply_mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
         k = layers.apply_mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
     elif cfg.use_rope:
-        rows = dtn.rows_of(pos_b, q) if dtn.is_dt(q) else pos_b
+        rows = dtn.rows_like(pos_b, q)
         q = layers.apply_rope(q, rows, cfg.rope_theta)
         k = layers.apply_rope(k, rows, cfg.rope_theta)
 
@@ -443,6 +446,36 @@ def decode_attention(cfg: ModelConfig, p: Params, x, cache, position,
         out = gqa_attention(q, cache["k"], cache["v"], bias, cdt)
     out = layers.row_parallel(out.reshape(b, 1, nq * hd), p["wo"].to(cdt))
     return layers.tp_out(out, x_in).to(cdt), cache
+
+
+def cross_decode_attention(cfg: ModelConfig, p: Params, x, ck, cv):
+    """One token's cross-attention over the cached encoder K/V (read, not
+    written): x [B,1,d], ``ck``/``cv`` [B,F,nkv,hd]; no mask, no rotary
+    embedding (whisper's decoder). On DTensors ``ck``/``cv`` keep their
+    ``cache_leaf_spec`` layout (batch over the data axes, KV heads over
+    model where they divide): the queries move to it and each rank
+    attends over its own shard; ``wo``'s partial sums are reduced into
+    ``x``'s layout. Returns out [B,1,d]."""
+    cdt = dtype_of(cfg.compute_dtype)
+    b = x.shape[0]
+    nq, hd = cfg.num_heads, cfg.head_dim_
+    x_in = x
+    x = dtn.whole_on(x.to(cdt))
+    q = (x @ p["wq"].to(cdt)).reshape(b, 1, nq, hd)
+    if dtn.is_dt(ck):
+        tgt = _attend_layout(ck)
+        ql, kl = dtn.settle(q, tgt).to_local(), ck.to_local()
+        bias = torch.zeros((ql.shape[0], 1, kl.shape[1]),
+                           dtype=torch.float32, device=kl.device)
+        out = gqa_attention(ql, kl, cv.to_local(), bias, cdt)
+        out = dtn.settle(dtn.from_local(out, ck.device_mesh, tgt),
+                         q.placements)
+    else:
+        bias = torch.zeros((b, 1, ck.shape[1]), dtype=torch.float32,
+                           device=ck.device)
+        out = gqa_attention(q, ck, cv, bias, cdt)
+    out = layers.row_parallel(out.reshape(b, 1, nq * hd), p["wo"].to(cdt))
+    return layers.tp_out(out, x_in)
 
 
 # ---------------------------------------------------------------------------

@@ -3,13 +3,19 @@ the one-token decode body (port of ``repro.models.blocks``) for every kind:
 ``dense``, ``moe`` and ``moe_dense`` (MLA included), ``hybrid`` (hymba:
 attention and a Mamba head in parallel), ``mlstm`` and ``slstm`` (xLSTM),
 and whisper's ``enc`` and ``dec`` (``dec_layer_fwd``,
-``dec_layer_decode``)."""
+``dec_layer_decode``).
+
+On DTensors every body runs as its modules lay it out (``models/
+attention.py``, ``models/ssm.py``, ``layers.mlp_apply``): each
+row-parallel output (attention's ``wo``, Mamba's ``out_proj``, the
+mixers' ``down``, the MLP's ``w_down``) comes back with its partial sums
+reduced into the stream's layout, so a hybrid layer norms its two heads'
+outputs whole before it mixes them."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import dtype_of
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
@@ -183,19 +189,13 @@ def layer_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, position,
 def dec_layer_decode(cfg: ModelConfig, p: Params, x, cache, position):
     """Whisper's decoder step: the self-attention cache written in place,
     then cross-attention over the cached encoder K/V (``ck``, ``cv``; not
-    written). Returns (x_out, cache)."""
+    written; ``attention.cross_decode_attention``). Returns (x_out,
+    cache)."""
     h = layers.apply_norm(cfg, p["norm1"], x)
     a, _ = attention.decode_attention(cfg, p["attn"], h, cache, position, 0)
     x = x + a
     h = layers.apply_norm(cfg, p["norm3"], x)
-    cdt = dtype_of(cfg.compute_dtype)
-    b = x.shape[0]
-    enc_len = cache["ck"].shape[1]
-    nq, hd = cfg.num_heads, cfg.head_dim_
-    pc = p["cross"]
-    q = (h.to(cdt) @ pc["wq"].to(cdt)).reshape(b, 1, nq, hd)
-    bias = torch.zeros((b, 1, enc_len), dtype=torch.float32, device=x.device)
-    c = attention.gqa_attention(q, cache["ck"], cache["cv"], bias, cdt)
-    x = x + c.reshape(b, 1, nq * hd) @ pc["wo"].to(cdt)
+    x = x + attention.cross_decode_attention(cfg, p["cross"], h, cache["ck"],
+                                             cache["cv"])
     h = layers.apply_norm(cfg, p["norm2"], x)
     return x + layers.mlp_apply(cfg, p["mlp"], h), cache

@@ -6,9 +6,9 @@ projections and the MLP's pre-activations, which ``remat="names"`` saves.
 
 On DTensor params and activations (``sharding/dtensor.py``) the MLP is
 tensor parallel (its input replicated on the model axis, the partial sums
-of the row-parallel product reduced into the input's layout), RoPE runs
-on each rank's shards (at decode, on the positions of each rank's own
-rows: ``dtensor.rows_of``), the embedding lookup and the fused
+of the row-parallel product reduced into the input's layout), RoPE and
+M-RoPE run on each rank's shards (at decode, on the positions of each
+rank's own rows: ``dtensor.rows_of``), the embedding lookup and the fused
 cross-entropy are vocab parallel; on plain tensors every function is the
 one-device arithmetic.
 
@@ -219,7 +219,13 @@ def apply_mrope(x, positions3, theta: float, sections: tuple[int, ...]):
     """Qwen2-VL M-RoPE: x [B, S, H, D], positions3 [3, B, S] (t, h, w). The
     head dim's half is split into ``sections`` (summing to D/2); each
     frequency index takes its angle from its section's position stream
-    (arXiv:2409.12191). In fp32, as ``apply_rope``."""
+    (arXiv:2409.12191). In fp32, as ``apply_rope``; on DTensors on each
+    rank's shards, as ``apply_rope`` (positions3 split over the batch on
+    dim 1 as x's rows on dim 0)."""
+    if dtn.is_dt(x):
+        return dtn.on_shards(
+            lambda xl, pl: apply_mrope(xl, pl, theta, sections),
+            x.placements, x, positions3)
     d = x.shape[-1]
     half = d // 2
     assert sum(sections) == half, (sections, half)

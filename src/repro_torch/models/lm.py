@@ -9,22 +9,26 @@ every layer) and SSM (xlstm: mLSTM layers with sLSTM at
 refuses it. ``param_specs`` and the roofline ``fragments`` serve the
 dry-run (``launch/dryrun.py``).
 
-On DTensor params and batches (``sharding/specs.py`` places them) the
-dense and MoE families run sharded, MLA included, as GSPMD runs the
-reference's jitted steps: the full-sequence forward, the loss (with the
-MTP head), ``prefill`` and ``decode_step``. The embedding lookup and the
-head are vocab parallel, attention and the MLP tensor parallel, MoE
-expert parallel (``models/moe.py``), and ``act_spec`` (the reference's
+On DTensor params and batches (``sharding/specs.py`` places them) every
+family runs sharded, as GSPMD runs the reference's jitted steps: the
+full-sequence forward, the loss (with the MTP head), ``prefill`` and
+``decode_step``. The embedding lookup and the head are vocab parallel,
+attention and the MLP tensor parallel, MoE expert parallel
+(``models/moe.py``), Mamba, the mLSTM and the sLSTM parallel over their
+channels or heads (``models/ssm.py``), and ``act_spec`` (the reference's
 hook, set by the launcher under ``seq_shard_activations`` for train and
 prefill) is the residual stream's layout, which ``_constrain`` applies
-before and after each layer body. Without it ``_constrain`` only reduces
-pending partial sums (the embedding's), so the stream is batch-sharded
-and whole on the model axis; a decode step's stream always is. The decode
-cache is made shard by shard (``init_cache(shardings=...)``) in the
-reference's ``cache_leaf_sharding`` layouts, and attention decodes over
-each rank's own slots, merging the softmax where the capacity is split
-(``models/attention.py``). The VLM, SSM, hybrid and encoder-decoder
-families run on one device.
+before and after each layer body; the VLM's stub patches join the stream
+before it (``embed``), and its M-RoPE positions, made here or the
+batch's own, are split over the batch as the tokens are. Without
+``act_spec`` ``_constrain`` only reduces pending partial sums (the
+embedding's), so the stream is batch-sharded and whole on the model axis;
+a decode step's stream always is. The decode cache is made shard by shard
+(``init_cache(shardings=...)``) in the reference's ``cache_leaf_sharding``
+layouts, attention decodes over each rank's own slots, merging the
+softmax where the capacity is split (``models/attention.py``), and the
+recurrent states are updated on each rank's own channels or heads. The
+encoder-decoder family is ``models/whisper.py``'s, sharded alike.
 ``cfg.remat`` is honoured as the reference's ``_remat``: while autograd
 records a layer of a stacked group (4 or more layers), it is
 rematerialised in the backward (``torch.utils.checkpoint``, with a
@@ -256,12 +260,16 @@ class LM:
 
     def embed(self, params: Params, batch: dict):
         """Token embeddings [B,S,d]; under the vision stub a batch's
-        ``patch_embeds`` [B,P,d] come first ([B,P+S,d])."""
+        ``patch_embeds`` [B,P,d] come first ([B,P+S,d]). On DTensors the
+        vocab-parallel lookup's partial sums are reduced before the
+        concatenation, which runs in the batch's layout; the stream takes
+        ``act_spec``'s after it (``hidden``'s first ``_constrain``)."""
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         x = layers.embed_lookup(params["embed"], batch["tokens"]).to(cdt)
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
-            x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
+            x = torch.cat([batch["patch_embeds"].to(cdt), dtn.resolved(x)],
+                          dim=1)
         if cfg.embed_scale:
             x = x * np.sqrt(cfg.d_model)
         return x
@@ -269,25 +277,28 @@ class LM:
     def _positions(self, batch: dict, seq: int, batchsz: int):
         """[B, S] int32 positions 0..S-1; under M-RoPE [3, B, S], the
         batch's own ``positions`` if it brings them. The flash branch masks
-        by sequence index, so it refuses caller-given M-RoPE positions."""
+        by sequence index, so it refuses caller-given M-RoPE positions. On
+        DTensor tokens the positions made here are each rank's rows, placed
+        like the tokens' (``[3, B, S]`` with the batch on dim 1); a batch's
+        own are in its layout already (``batch_shardings``)."""
         tokens = batch["tokens"]
-        if dtn.is_dt(tokens) and not self.cfg.mrope:
-            # each rank's rows, placed like the tokens
+        if self.cfg.mrope and "positions" in batch:
+            if attention.takes_flash(self.attn_impl, tokens):
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the flash branch masks by sequence "
+                    "index and cannot honour a batch's own M-RoPE "
+                    "positions; set attn_impl='reference' to attend at "
+                    "those positions")
+            return batch["positions"]
+        if dtn.is_dt(tokens):
+            pl = tokens.placements
             return dtn.on_shards(
                 lambda t: self._positions({"tokens": t}, seq, t.shape[0]),
-                tokens.placements, tokens)
-        dev = tokens.device
-        p = torch.arange(seq, dtype=torch.int32, device=dev)
+                dtn.remap(pl, {0: 1}) if self.cfg.mrope else pl, tokens)
+        p = torch.arange(seq, dtype=torch.int32, device=tokens.device)
         if not self.cfg.mrope:
             return p.expand(batchsz, seq)
-        if "positions" not in batch:
-            return p.expand(3, batchsz, seq)
-        if attention.takes_flash(self.attn_impl, batch["tokens"]):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the flash branch masks by sequence index "
-                "and cannot honour a batch's own M-RoPE positions; set "
-                "attn_impl='reference' to attend at those positions")
-        return batch["positions"]
+        return p.expand(3, batchsz, seq)
 
     # -- full-sequence forward ---------------------------------------------------
 
@@ -422,18 +433,21 @@ class LM:
         With ``shardings`` (``sharding/specs.batch_shardings`` of this
         cache: ``(mesh, placements)`` pairs in its structure) the leaves
         are DTensors and each rank makes only its own shard, on the
-        mesh's device: no rank allocates a whole leaf. Positions start at
-        -1 (empty), everything else at zero, as in ``attention.
-        init_cache``."""
+        mesh's device: no rank allocates a whole leaf. Each leaf starts
+        as on one device: positions at -1 (empty), an mLSTM's or sLSTM's
+        ``m`` at ``ssm.M_START``, everything else at zero."""
         if shardings is not None:
             from repro_torch.sharding import specs
 
-            def empty(shape, dtype, dev):
-                fill = -1 if dtype == torch.int32 else 0
-                return torch.full(shape, fill, dtype=dtype, device=dev)
-            return specs.make_leaves(
+            def start(path):
+                name = specs._leaf_name(path)
+                if name == "pos":
+                    return -1
+                kind = self.groups[path[0]].kind
+                return ssm.M_START[kind] if name == "m" else 0
+            return specs.full_leaves(
                 self.init_cache(batch, max_len, device="meta"), shardings,
-                empty)
+                start)
         dev = resolve(device)
         out = []
         for g in self.groups:

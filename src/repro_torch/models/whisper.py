@@ -17,8 +17,21 @@ writes them: ``decode_step`` attends to whatever the caller put there
 (the encoder's K/V projected through each layer's ``cross`` weights, for a
 decode that matches ``prefill``). ``decode_step`` writes the
 self-attention cache in place; ``position`` is an int or a 0-d tensor on
-the device. ``param_specs`` and ``fragments`` serve the dry-run, as
-``LM``'s do.
+the device. ``write_cross`` writes the cross K/V from the encoder's output
+of a batch's frames. ``param_specs`` and ``fragments`` serve the dry-run,
+as ``LM``'s do.
+
+On DTensor params, batches and caches (``sharding/specs.py``'s layouts;
+the reference's launcher sets no ``act_spec`` for this family) every entry
+point runs sharded, as GSPMD runs the reference's: the frames and tokens
+are batch-sharded, attention (the encoder's, the decoder's causal
+self-attention and its cross-attention) and the MLP are tensor parallel
+over the heads where they divide the model axis, the embedding lookup and
+the tied head ``embed.T`` are vocab parallel, and the decoder's learned
+positions are read at a replicated position. A cache made with
+``init_cache(..., shardings=...)`` holds each rank's shards of the
+self-attention K/V (decoded as ``LM``'s) and of ``ck``/``cv``, which each
+rank attends over in place (``attention.cross_decode_attention``).
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from repro_torch.device import dtype_of, resolve
 from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
+from repro_torch.sharding import dtensor as dtn
 
 
 def sinusoids(length: int, channels: int, *, device) -> torch.Tensor:
@@ -87,10 +101,10 @@ class EncDecLM:
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         b, f, _ = frames.shape
-        x = frames.to(cdt) + sinusoids(f, cfg.d_model,
-                                       device=frames.device).to(cdt)
-        pos = torch.arange(f, dtype=torch.int32,
-                           device=frames.device).expand(b, f)
+        dev = _device(frames)
+        x = frames.to(cdt) + dtn.replicated(
+            sinusoids(f, cfg.d_model, device=dev).to(cdt), frames)
+        pos = _rows(f, frames)
         for p_l in params["enc"]:
             x, _, _ = blocks.layer_fwd(cfg, "enc", p_l, x, pos, 0)
         return layers.apply_norm(cfg, params["enc_norm"], x)
@@ -103,13 +117,12 @@ class EncDecLM:
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
         tokens = batch["tokens"]
-        b, s = tokens.shape
+        s = tokens.shape[1]
         enc_out = self.encode(params, batch["frames"])
-        dev = enc_out.device
-        f = enc_out.shape[1]
-        enc_pos = torch.arange(f, dtype=torch.int32, device=dev).expand(b, f)
-        x = params["embed"][tokens].to(cdt) + params["pos_dec"][:s].to(cdt)
-        pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        enc_pos = _rows(enc_out.shape[1], enc_out)
+        x = dtn.resolved(layers.embed_lookup(params["embed"], tokens)).to(
+            cdt) + params["pos_dec"][:s].to(cdt)
+        pos = _rows(s, tokens)
         for p_l in params["dec"]:
             x, _ = blocks.dec_layer_fwd(cfg, p_l, x, pos, enc_out, enc_pos,
                                         attn_impl=self.attn_impl)
@@ -119,23 +132,32 @@ class EncDecLM:
         """Mean next-token cross-entropy of ``batch["tokens"]`` [B,S] given
         ``batch["frames"]`` (fused head + CE through the tied embedding).
         Returns (ce, {"ce"})."""
-        x = self._decoder(params, batch)
-        ce = layers.softmax_xent_fused(x[:, :-1, :], params["embed"].T,
-                                       batch["tokens"][:, 1:])
+        x = dtn.whole_on(self._decoder(params, batch))
+        ce = dtn.resolved(layers.softmax_xent_fused(
+            x[:, :-1, :], params["embed"].T, batch["tokens"][:, 1:]))
         return ce, {"ce": ce}
 
     def prefill(self, params: Params, batch: dict):
         """Encoder and decoder forward; returns the last token's logits
-        [B,1,V]."""
+        [B,1,V] (split over the model axis on DTensors: the head is vocab
+        parallel)."""
         cdt = dtype_of(self.cfg.compute_dtype)
-        x = self._decoder(params, batch)
-        return x[:, -1:, :] @ params["embed"].T.to(cdt)
+        x = dtn.resolved(dtn.last_along(self._decoder(params, batch), 1))
+        return x @ params["embed"].T.to(cdt)
 
     def init_cache(self, params_or_specs: Params, batch: int, max_len: int,
-                   enc_frames: int, *, device="cuda"):
+                   enc_frames: int, *, device="cuda", shardings=None):
         """Per decoder layer: the self-attention cache of ``max_len`` slots
         and the cross K/V ``ck``/``cv`` [B, enc_frames, nkv, hd], zero.
-        ``params_or_specs`` is unused, as in the reference."""
+        ``params_or_specs`` is unused, as in the reference. With
+        ``shardings`` (``sharding/specs.batch_shardings`` of this cache)
+        each rank makes only its own shards, as ``LM.init_cache``."""
+        if shardings is not None:
+            from repro_torch.sharding import specs
+            return specs.full_leaves(
+                self.init_cache(None, batch, max_len, enc_frames,
+                                device="meta"), shardings,
+                lambda path: -1 if path[-1] == "pos" else 0)
         cfg = self.cfg
         dev = resolve(device)
         cdt = dtype_of(cfg.compute_dtype)
@@ -148,18 +170,60 @@ class EncDecLM:
             out.append(c)
         return out
 
-    def decode_step(self, params: Params, cache, tokens, position):
-        """tokens [B,1] at ``position`` (a Python int or a 0-d int tensor on
-        the cache's device) -> (logits [B,1,V], cache); the self-attention
-        cache is written in place."""
+    def write_cross(self, params: Params, cache, frames):
+        """Each decoder layer's ``ck``/``cv`` written in place: the
+        encoder's output of ``frames`` through the layer's ``cross`` K/V
+        products, as the decoder's cross-attention computes them in
+        ``prefill`` (the reference leaves them to the caller). On DTensors
+        each rank writes its own shard of each leaf. Returns ``cache``."""
         cfg = self.cfg
         cdt = dtype_of(cfg.compute_dtype)
-        emb = params["embed"][tokens].to(cdt)
-        position = torch.as_tensor(position, dtype=torch.int32,
-                                   device=emb.device)
-        pos_row = params["pos_dec"].index_select(0, position.reshape(1))
+        nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+        enc = dtn.whole_on(self.encode(params, frames).to(cdt))
+        b, f, _ = enc.shape
+        for p_l, c_l in zip(params["dec"], cache):
+            pc = p_l["cross"]
+            for leaf, w, bias in (("ck", "wk", "bk"), ("cv", "wv", "bv")):
+                new = enc @ pc[w].to(cdt)
+                if cfg.qkv_bias:
+                    new = new + pc[bias].to(cdt)
+                new = new.reshape(b, f, nkv, hd)
+                if dtn.is_dt(new):
+                    c_l[leaf].to_local().copy_(
+                        dtn.settle(new, c_l[leaf].placements).to_local())
+                else:
+                    c_l[leaf].copy_(new)
+        return cache
+
+    def decode_step(self, params: Params, cache, tokens, position):
+        """tokens [B,1] at ``position`` (a Python int, a 0-d int tensor on
+        the cache's device, or a replicated 0-d DTensor) -> (logits
+        [B,1,V], cache); the self-attention cache is written in place."""
+        cfg = self.cfg
+        cdt = dtype_of(cfg.compute_dtype)
+        emb = dtn.resolved(layers.embed_lookup(params["embed"], tokens)).to(
+            cdt)
+        position = attention.as_position(position, emb)
+        pos_dec = params["pos_dec"]
+        if dtn.is_dt(pos_dec):                  # replicated: read locally
+            pos_row = dtn.on_shards(
+                lambda t: t.index_select(0, position.reshape(1)),
+                pos_dec.placements, pos_dec)
+        else:
+            pos_row = pos_dec.index_select(0, position.reshape(1))
         x = emb + pos_row.to(cdt)
         for p_l, c_l in zip(params["dec"], cache):
             x, _ = blocks.dec_layer_decode(cfg, p_l, x, c_l, position)
         x = layers.apply_norm(cfg, params["final_norm"], x)
         return x @ params["embed"].T.to(cdt), cache
+
+
+def _device(t):
+    return t.to_local().device if dtn.is_dt(t) else t.device
+
+
+def _rows(n: int, like):
+    """Positions 0..n-1 [B, n] int32 for ``like``'s batch (dim 0), placed
+    as its rows on DTensors."""
+    p = torch.arange(n, dtype=torch.int32, device=_device(like))
+    return dtn.rows_like(p.expand(like.shape[0], n), like)

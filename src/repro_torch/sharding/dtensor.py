@@ -30,6 +30,15 @@ shards:
 - ``swap(x, d, dst)``, ``regroup(x, target)``: a shard moved between two
   tensor dims by one all-to-all over its mesh dim (the MoE's expert
   all-to-all; the ``pos`` leaf read in K's layout);
+- ``split_cols(y, parts)``: a column-parallel product cut into its
+  ``parts`` along the last dim, each in the column-parallel layout, by one
+  all-to-all over the model axis (Mamba's ``in_proj`` halves, the sLSTM's
+  four gates, its up-projection's halves), where a plain ``chunk`` would
+  gather the whole product;
+- ``remap(placements, dims)``: a layout carried to a tensor whose dims
+  sit elsewhere (a state's batch and head dims read by a product's);
+- ``replicated(t, like)``, ``rows_like(t, like)``: a whole plain tensor
+  on ``like``'s mesh, whole on every rank, or cut to ``like``'s rows;
 - ``init_fake_group(world)``: a process group of ``world`` ranks that moves
   no data (``FakeProcessGroup``), so one process can run, or trace, one
   rank of a production mesh.
@@ -216,6 +225,80 @@ def rows_of(t, like):
     start, length = shard_range(like, 0)
     pl = [Shard(0) if p.is_shard(0) else Replicate() for p in like.placements]
     return from_local(t[start:start + length], like.device_mesh, pl)
+
+
+def rows_like(t, like):
+    """``t`` (batch on dim 0, whole) as ``like``'s rows: ``rows_of`` on a
+    DTensor ``like``, ``t`` itself otherwise."""
+    return rows_of(t, like) if is_dt(like) else t
+
+
+def replicated(t, like):
+    """The plain tensor ``t``, whole on every rank, as a replicated DTensor
+    on ``like``'s mesh (``t`` itself where ``like`` is plain): a constant
+    added to a DTensor (whisper's sinusoids)."""
+    if not is_dt(like):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = like.device_mesh
+    return from_local(t, mesh, [Replicate()] * mesh.ndim)
+
+
+def remap(placements, dims: dict) -> tuple:
+    """``placements`` with each ``Shard(d)`` moved to ``Shard(dims[d])``
+    (a shard of a dim that ``dims`` does not name becomes ``Replicate``):
+    the layout of a tensor whose dims sit elsewhere than another's, as a
+    state's batch and heads (``[B, H, hd]``) in a product's ``[B, 1, 4, H,
+    hd]``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                 else Replicate() for p in placements)
+
+
+def split_cols(y, parts: int):
+    """``y.chunk(parts, dim=-1)`` of a column-parallel product ``y`` [...,
+    parts * n], each part in the column-parallel layout: rank r of the
+    model axis (size m) holds columns ``[r n / m, (r + 1) n / m)`` of every
+    part. Rank r holds the product's columns ``[r parts n / m, ...)``, so
+    each part's blocks live on other ranks (on a model axis of 2 and two
+    parts, one rank holds all of the first part): one all-to-all over the
+    model axis sends each block of ``n / m`` columns to its owner, where a
+    plain ``chunk`` would gather the whole product. Where no mesh dim of
+    more than one rank splits the last dim, the parts are cut locally;
+    where another mesh dim splits it too, or ``n`` does not divide, it is
+    gathered first."""
+    if not is_dt(y):
+        return y.chunk(parts, dim=-1)
+    from torch.distributed.tensor import Replicate
+    mesh = y.device_mesh
+    last = y.ndim - 1
+    md = mesh_dim(mesh, "model")
+    wide = tuple(d for d in split_dims(y, last) if mesh.size(d) > 1)
+    n = y.shape[-1] // parts
+    if wide and (wide != (md,) or n % mesh.size(md)):
+        y = settle(y, [Replicate() if p.is_shard(last) else p
+                       for p in y.placements])
+        wide = ()
+    if not wide:
+        return tuple(from_local(t, mesh, y.placements)
+                     for t in y.to_local().chunk(parts, dim=-1))
+    import torch.distributed._functional_collectives as fc
+    m, s = mesh.size(md), mesh.get_local_rank(md)
+    c = n // m
+    # this rank's blocks are k = s * parts + i of the parts * m blocks of
+    # c columns; block k is part k // m, owned by rank k % m
+    blocks = y.to_local().unflatten(-1, (parts, c)).movedim(-2, 0)
+    dest = [(s * parts + i) % m for i in range(parts)]
+    order = sorted(range(parts), key=lambda i: dest[i])
+    send = [dest.count(j) for j in range(m)]
+    # each rank receives one block of every part, from rank
+    # (p * m + s) // parts for part p: in part order
+    recv = [sum((p * m + s) // parts == r for p in range(parts))
+            for r in range(m)]
+    out = fc.wait_tensor(fc.all_to_all_single_autograd(
+        blocks[order].contiguous(), recv, send, mesh.get_group(md)))
+    return tuple(from_local(out[p].contiguous(), mesh, y.placements)
+                 for p in range(parts))
 
 
 def write_slot(leaf, slot, new, dim: int = 1) -> None:

@@ -28,9 +28,10 @@ bare cache too: its leaves are named ``k``/``v``/``ckv``/``kpe``/``pos``).
 These layouts are the reference's ``in_shardings``/``out_shardings``, and
 ``act_spec_of``, ``mb_shardings`` and the launcher's MoE buffer specs are
 its ``with_sharding_constraint`` calls. ``place`` distributes a tree of
-whole tensors by such pairs; ``make_leaves`` makes each rank's shards
-directly, so that no rank holds a whole leaf (``LM.init_cache`` with
-``shardings`` makes a decode cache so).
+whole tensors by such pairs; ``make_leaves`` (``full_leaves`` at
+constants) makes each rank's shards directly, so that no rank holds a
+whole leaf (``LM.init_cache`` and ``EncDecLM.init_cache`` with
+``shardings`` make a decode cache so).
 """
 
 from __future__ import annotations
@@ -454,3 +455,21 @@ def make_leaves(specs_tree, shardings, init) -> Any:
         return DTensor.from_local(local, mesh, list(placements),
                                   run_check=False)
     return map_pairs(make, specs_tree, shardings)
+
+
+def full_leaves(specs_tree, shardings, fill) -> Any:
+    """``make_leaves`` with each leaf at a constant: ``fill(path)``, its
+    path in ``specs_tree`` (a decode cache's empty state: positions at -1,
+    a recurrent stabiliser at its own start, the rest zero)."""
+    import torch
+
+    def walk(tree, pair, path):
+        if _is_pair(pair):
+            return make_leaves(tree, pair, lambda shape, dtype, dev:
+                               torch.full(shape, fill(path), dtype=dtype,
+                                          device=dev))
+        if isinstance(tree, dict):
+            return {k: walk(v, pair[k], path + (k,)) for k, v in tree.items()}
+        return type(tree)(walk(v, s, path + (i,))
+                          for i, (v, s) in enumerate(zip(tree, pair)))
+    return walk(specs_tree, shardings, ())

@@ -561,3 +561,200 @@ def split_block_update(rank, world):
             out[f"{k}.{part}"] = leaf.full_tensor().numpy()
             out[f"{k}.{part}.placements"] = str(tuple(leaf.placements))
     return out if rank == 0 else None
+
+
+# -- the VLM, hybrid, SSM and encoder-decoder families on shards
+#    (tests/test_torch_sharded_families.py) ---------------------------------
+
+#: the decode-state leaves no decode step may gather
+STATE_LEAVES = ("k", "v", "h", "conv", "c", "n", "m", "ck", "cv")
+
+
+def _state_leaves(cache):
+    from repro_torch.sharding import specs
+    out = []
+    specs.map_with_path(
+        lambda path, leaf: out.append(leaf)
+        if specs._leaf_name(path) in STATE_LEAVES else None, cache)
+    return out
+
+
+def _set_chunks(chunk):
+    """The Mamba and mLSTM chunk lengths (``None``: as they are); returns
+    a function that restores them."""
+    from repro_torch.models import ssm
+    saved = ssm.SSM_CHUNK, ssm.MLSTM_CHUNK
+    if chunk:
+        ssm.SSM_CHUNK = ssm.MLSTM_CHUNK = chunk
+
+    def restore():
+        ssm.SSM_CHUNK, ssm.MLSTM_CHUNK = saved
+    return restore
+
+
+_MESHES: dict = {}
+
+
+def _mesh_of(world, model_size):
+    """One (world/model, model) DeviceMesh a process: DTensor's sharding
+    cache can hand an op on one mesh the output spec of an equal mesh made
+    earlier, whose process groups the other ranks need not pick alike, and
+    two ranks then wait in collectives over different groups."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    if (world, model_size) not in _MESHES:
+        _MESHES[world, model_size] = make_debug_mesh(world, model_size,
+                                                     device_type="cpu")
+    return _MESHES[world, model_size]
+
+
+def sharded_family(rank, world, params_path, cfg, model_size, opt_kw,
+                   batch, steps, chunk, f64=False):
+    """A family's cells as the reference jits them, on the (world/model,
+    model) mesh from the params pickled at ``params_path`` (the
+    reference's, numpy), ``batch`` (numpy arrays: tokens, and frames or
+    patch embeddings and positions) placed by ``batch_shardings``:
+
+    - one ``make_train_step`` step at the dry-run's accumulation
+      (``accum_steps_for``: the config's ``train_accum_override``), with
+      ``grad_specs`` and ``mb_specs`` under accumulation: the full new
+      params and moments, loss and grad norm;
+    - the prefill's last-token logits (``registry.step_fn``, the dry-run's
+      function), and again with the Mamba and mLSTM chunks cut to
+      ``chunk`` tokens (a multi-chunk forward);
+    - a cache made shard by shard in ``cache_leaf_spec``'s layouts (an
+      encoder-decoder's cross K/V written from its frames) and
+      ``len(steps)`` decode steps at positions 0, 1, ...: each step's
+      logits, every cache leaf after the last and its placements; with
+      ``f64`` the same decode again in float64 params and compute;
+    - ``_counted`` of that train step and that prefill, and of one more
+      decode step (``registry.step_fn``) with the state leaves watched.
+
+    Rank 0 returns it all."""
+    import dataclasses
+    import pickle
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    lm = registry.make_model(cfg)
+    lm.attn_impl = "reference"
+    mesh = _mesh_of(world, model_size)
+    with open(params_path, "rb") as f:
+        whole = params_from_reference(pickle.load(f), device="cpu")
+    pspecs = lm.param_specs()
+    params = specs.place(whole, specs.param_shardings(cfg, mesh, pspecs))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    bsh = specs.batch_shardings(cfg, mesh, batch)
+    batch = specs.place(batch, bsh)
+    b, s = batch["tokens"].shape[0], _seq_of(batch)
+    out = {}
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    accum = ts.accum_steps_for(cfg, b, s, sizes["data"], sizes["model"])
+    ocfg = opt.OptConfig(**opt_kw)
+    state = opt.init_opt_state(ocfg, params, specs.opt_shardings(
+        cfg, mesh, opt.opt_state_specs(ocfg, pspecs)))
+    step = ts.make_train_step(
+        lm, ocfg, accum,
+        specs.grad_shardings(cfg, mesh, pspecs) if accum > 1 else None,
+        specs.mb_shardings(bsh) if accum > 1 else None)
+    res = {}
+    clear = dryrun.launcher_constraints(lm, cfg, mesh, "train")
+    try:
+        out["train_counted"] = _counted(
+            lambda: res.update(train=step(params, state, batch)), mesh)
+    finally:
+        clear()
+    new, st, m = res["train"]
+    out["train"] = {"params": _full(new),
+                    "state": {k: _full(st[k]) for k in ("m", "v")},
+                    "metrics": {k: float(m[k].full_tensor())
+                                for k in ("loss", "grad_norm")}}
+    with torch.no_grad():
+        shape = registry.SHAPES["prefill_32k"]
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, shape.kind)
+        try:
+            fn = registry.step_fn(cfg, shape, lm)
+            out["prefill_counted"] = _counted(
+                lambda: res.update(prefill=fn(params, batch)), mesh)
+            out["prefill"] = res["prefill"].full_tensor().numpy()
+            restore = _set_chunks(chunk)
+            try:
+                out["prefill_chunked"] = lm.prefill(
+                    params, batch).full_tensor().numpy()
+            finally:
+                restore()
+        finally:
+            clear()
+        logits, cache, dsh = _decode_run(lm, params, batch, steps, mesh)
+        out["decode"], out["cache"] = logits, _full(cache)
+        out["cache_placements"] = [tuple(str(p) for p in leaf.placements)
+                                   for leaf in _leaves(cache)]
+        shape = registry.SHAPES["decode_32k"]
+        clear = dryrun.launcher_constraints(lm, cfg, mesh, shape.kind)
+        try:
+            fn = registry.step_fn(cfg, shape, lm)
+            dbatch = {"cache": cache,
+                      "tokens": specs.place(torch.from_numpy(steps[0]),
+                                            dsh["tokens"]),
+                      "position": specs.place(
+                          torch.tensor(len(steps), dtype=torch.int32),
+                          dsh["position"])}
+            out["decode_counted"] = _counted(lambda: fn(params, dbatch),
+                                             mesh, _state_leaves(cache))
+        finally:
+            clear()
+        if f64:
+            cfg64 = dataclasses.replace(cfg, compute_dtype="float64",
+                                        param_dtype="float64")
+            lm64 = registry.make_model(cfg64)
+            lm64.attn_impl = "reference"
+            p64 = specs.place(
+                opt.tree_map(lambda t: t.double(), whole),
+                specs.param_shardings(cfg64, mesh, lm64.param_specs()))
+            b64 = {k: v.double() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+            logits, cache, _ = _decode_run(lm64, p64, b64, steps, mesh)
+            out["decode64"], out["cache64"] = logits, _full(cache)
+    return out if rank == 0 else None
+
+
+def _decode_run(lm, params, batch, steps, mesh):
+    """(each step's full logits, the cache, the decode cell's shardings)
+    of ``len(steps)`` decode steps at positions 0, 1, ... from a cache
+    made shard by shard at the batch's size (an encoder-decoder's cross
+    K/V written from the batch's frames)."""
+    from repro_torch.configs import registry
+    from repro_torch.sharding import specs
+    cfg = lm.cfg
+    b, s = batch["tokens"].shape[0], _seq_of(batch)
+    dsh = specs.batch_shardings(cfg, mesh, registry.input_specs(
+        cfg, registry.SHAPES["decode_32k"], batch=b, seq=s))
+    if cfg.enc_dec:
+        cache = lm.init_cache(None, b, s, cfg.enc_frames,
+                              shardings=dsh["cache"])
+        lm.write_cross(params, cache, batch["frames"])
+    else:
+        cache = lm.init_cache(b, s, shardings=dsh["cache"])
+    logits = []
+    for t, toks in enumerate(steps):
+        tk = specs.place(torch.from_numpy(toks), dsh["tokens"])
+        lg, cache = lm.decode_step(params, cache, tk, t)
+        logits.append(lg.full_tensor().numpy())
+    return logits, cache, dsh
+
+
+def _seq_of(batch):
+    """A batch's sequence: its tokens', and a VLM's patches before them."""
+    s = batch["tokens"].shape[1]
+    if "patch_embeds" in batch:
+        s += batch["patch_embeds"].shape[1]
+    return s
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)

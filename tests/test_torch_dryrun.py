@@ -323,7 +323,7 @@ def test_dryrun_driver_small_cell():
     rl = dryrun.roofline_record(rec)
     assert rl and rl["t_memory"] > 0
     assert rec["memory"]["total_bytes_per_device"] < 16 * 2**30
-    assert rec["trips_in_full"] and rec["full"]["partition"] == "modelled"
+    assert rec["trips_in_full"] and rec["full"]["partition"] == "traced"
     assert rec["chips"] == 256 and rl["chips"] == 256
 
 
@@ -333,14 +333,19 @@ DENSE_AND_MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b", "qwen2-0.5b",
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_traced_cells_are_the_dense_and_moe_families(arch):
-    """A cell on a mesh wider than one device is traced on shards for the
-    dense and MoE families (MLA included: deepseek's train, prefill and
-    decode) and modelled for the VLM, SSM, hybrid and encoder-decoder
-    ones."""
+    """A cell on a mesh wider than one device is traced on shards for
+    every family: the dense and MoE ones (MLA included: deepseek's train,
+    prefill and decode), the VLM, hybrid, SSM and encoder-decoder ones,
+    each in train, prefill and decode, ``long_500k`` included for the SSM
+    and hybrid families."""
     cfg = t_registry.get_config(arch)
-    for name, shape in t_registry.SHAPES.items():
-        want = arch in DENSE_AND_MOE
-        assert dryrun.traced(cfg, shape) == want, (arch, name)
+    shapes = dict(t_registry.SHAPES)
+    if cfg.family not in ("ssm", "hybrid"):
+        assert arch in DENSE_AND_MOE + ("qwen2-vl-7b", "whisper-tiny")
+        assert not t_registry.cell_supported(cfg, shapes.pop("long_500k"))[0]
+    for name, shape in shapes.items():
+        assert t_registry.cell_supported(cfg, shape)[0], (arch, name)
+        assert dryrun.traced(cfg, shape), (arch, name)
 
 
 def test_dryrun_cli_writes_records(tmp_path, capsys):
