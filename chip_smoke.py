@@ -288,6 +288,32 @@ Phases (each failed check raises; the script then exits non-zero):
    their dry-run records (traced by two processes while (a) runs): 21b's
    gates, no collective taking or gathering a ``k``/``v``/``h``/``conv``
    shard.
+23. the engine cases of the reference's page-table, scheduler and
+   speculation tests at full width (qwen2-0.5b, phase 4's weights,
+   page 16; runs after phase 15, while those weights are alive): the
+   reference tests' pools, with prompts scaled so a sequence holds the
+   reference's pages (``_cq``). Prefix sharing (4 prefix-hit pages, fewer
+   prefill tokens than unshared); the CoW fork on a full prompt match
+   (the clone bit-equal to its source when made, the source untouched
+   by the write through the clone); a swap round trip with two shared
+   pages pinned (the parked bytes and, after the swap-in, every K/V
+   position bit-equal to the bytes before); forced preemption at decode
+   steps 0, 2 and 5 (completes, ledgers drain, tokens equal an
+   unpressured run's: one sequence, the same GEMM shapes); speculation
+   with every draft rejected across two mid-page sequences (after each
+   step free lists, refcounts, trie, allocation cycle and page ids equal
+   a greedy engine's, and every K/V slot but the committed ones bit for
+   bit); 12 bursty requests oversubscribing the pool (zero failures,
+   swaps out equal swaps in), infeasible submits refused and joint
+   exhaustion raising. The fabric's invariants hold after every step;
+   each scenario also runs on the host at the one-layer fp32 smoke
+   config and its control plane (page ids after every step, free lists,
+   refcounts, trie, cycle) must equal the card's; every prefill and
+   verify step goes through ``paged_prefill_attention_batch`` and every
+   decode step through ``paged_attention``, on the tensor-core instance,
+   and nothing launches flash. Logged, not gated: shared vs unshared
+   tokens, and the committed slots' K/V and tokens against greedy
+   (GEMM row counts differ).
 
 The lines before the last two are phases 19-22's records, then the
 kernels' JSON record (a row per entry
@@ -299,7 +325,7 @@ phase-3 inputs against the plain version, and their launches from phases
 16 and 17; the qwen2-0.5b
 paged rows also carry phases 10-13's ``coda_launches``,
 ``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
-summed over the zoo's two modes) and the card's
+summed over the zoo's two modes, and phase 23's ``contract_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -4696,6 +4722,518 @@ def phase_families_sharded(device) -> dict:
     return launches
 
 
+# -- phase 23 ------------------------------------------------------------------
+
+CQ = PS // 4        # the reference tests' pages hold 4 tokens, these PS
+CV = 256            # prompt tokens below the smoke config's vocabulary
+
+
+def _cq(n: int) -> int:
+    """A reference test's prompt length at page size ``PS``: its prefill
+    target (all but the last token) times ``CQ``, so a sequence holds the
+    reference's pages."""
+    return (n - 1) * CQ + 1
+
+
+def _c_pool(cfg, device, fast, peer, host, bws=(819.0, 0.05, 0.016)):
+    """A pool of the reference test's domains (pages and Eq.-1
+    bandwidths; the DWP tuner frozen), page size ``PS``."""
+    from repro_torch.core.dwp import DWPConfig
+    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
+    doms = [MemoryDomain("hbm_local", fast, bws[0], True),
+            MemoryDomain("hbm_peer", peer, bws[1], False),
+            MemoryDomain("host", host, bws[2], False)]
+    return BwapPagePool(cfg, doms, page_size=PS,
+                        dwp_config=DWPConfig(n=10 ** 6, c=1), device=device)
+
+
+def _c_engine(cfg, params, device, pool, **kw):
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(cfg, params, pool, wall_clock=False, device=device,
+                       **kw)
+
+
+def _c_plane(eng) -> tuple:
+    """The control plane an engine step left: the batch's page ids, the
+    free lists' lengths, the refcounts."""
+    v = eng.view
+    return ([(s.sid, [int(p) for p in s.pages]) for s in eng.active],
+            [len(f) for f in v.pool.free],
+            sorted((int(p), int(n)) for p, n in v.table.ref.items()))
+
+
+def _c_table(pool) -> dict:
+    """Free lists, refcounts, trie nodes and the allocation cycle."""
+    t = pool.table
+    return {"free": [[int(p) for p in f] for f in pool.free],
+            "ref": sorted((int(p), int(n)) for p, n in t.ref.items()),
+            "trie": sorted((int(i), int(n.parent), tuple(n.block),
+                            int(n.phys)) for i, n in t._nodes.items()),
+            "cycle": int(pool._cycle_pos)}
+
+
+def _c_reclaimed(pool) -> bool:
+    return (pool.free_count() + int(pool.reserved.sum()) == pool.total_pages
+            and not pool.table.ref)
+
+
+def _c_kv(view, pages, n):
+    """K and V of positions [0, n) of a sequence holding ``pages``:
+    ``[layers, n, nkv, h]`` copies."""
+    ids = torch.tensor([int(p) for p in pages], device=view.k_pool.device)
+    k, v = (a[:, ids].flatten(1, 2)[:, :n].clone()
+            for a in (view.k_pool, view.v_pool))
+    return k, v
+
+
+def _c_same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _c_tokens(eng) -> dict:
+    return {s.sid: list(s.tokens) for s in eng.finished}
+
+
+class _Tally:
+    """The steps of phase 23's engines on one device: a step that ran
+    prefill chunks runs one batched prefill launch a layer, a verify step
+    one more, a plain decode step one decode launch a layer. The fabric's
+    invariants are checked after every step."""
+
+    def __init__(self):
+        self.prefill = self.verify = self.decode = 0
+
+    def step(self, eng, trail=None) -> None:
+        c0, d0 = eng.prefill_chunks_run, eng.decode_steps
+        v0 = eng.view.telemetry.snapshot()["spec"]["steps"]
+        eng.step()
+        eng.view.fabric.check_invariants()
+        v = eng.view.telemetry.snapshot()["spec"]["steps"] - v0
+        self.prefill += eng.prefill_chunks_run > c0
+        self.verify += v
+        self.decode += eng.decode_steps - d0 - v
+        if trail is not None:
+            trail.append(_c_plane(eng))
+
+    def drain(self, eng, trail=None, cap=2000) -> None:
+        n = 0
+        while eng.active or eng.waiting:
+            self.step(eng, trail)
+            n += 1
+            check(n < cap, "engine did not drain")
+
+
+def _contract_sharing(device, cfg, params, tally):
+    """``test_prefix_sharing_saves_pages_tokens_identical``: three
+    requests share a two-page prefix (the donor's registers before the
+    others arrive); the matchers map it onto the donor's pages. Gates:
+    4 prefix-hit pages (2 matchers x 2 pages), fewer prefill tokens than
+    unshared serving, the pool reclaimed. Logged: tokens against unshared
+    serving (the prefill shapes differ)."""
+    from repro_torch.scheduler import RequestScheduler
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, CV, 2 * PS).tolist()
+    prompts = [prefix + rng.integers(1, CV, CQ * (3 + i)).tolist()
+               for i in range(3)]
+    rec, runs = {}, {}
+    for reuse in (True, False):
+        pool = _c_pool(cfg, device, 64, 16, 16)
+        sched = RequestScheduler(pool, max_batch=8,
+                                 prefill_token_budget=64 * CQ,
+                                 default_max_new=5 * CQ)
+        eng = _c_engine(cfg, params, device, pool, scheduler=sched,
+                        sim_step_s=0.01, prefix_reuse=reuse)
+        trail = []
+        for p in prompts:                 # one arrival a step, as 0.02 s
+            eng.submit(p)                 # apart at the reference's pace
+            tally.step(eng, trail)
+        tally.drain(eng, trail)
+        check(len(eng.finished) == 3 and _c_reclaimed(pool),
+              f"sharing (reuse {reuse}): not finished or not reclaimed")
+        st = pool.table.stats()
+        runs[reuse] = eng
+        rec[reuse] = (trail, st, eng.prefill_tokens_computed,
+                      _c_table(pool))
+    on, off = runs[True], runs[False]
+    hits = rec[True][1]["prefix_hit_pages"]
+    check(hits == 2 * 2, f"sharing: {hits} prefix-hit pages, want 4")
+    check(on.prefill_tokens_computed < off.prefill_tokens_computed,
+          "sharing computed no fewer prefill tokens")
+    same = sum(_c_tokens(on)[k] == v for k, v in _c_tokens(off).items())
+    return rec, f"prefix-hit pages {hits}, prefill tokens " \
+        f"{on.prefill_tokens_computed} vs {off.prefill_tokens_computed} " \
+        f"unshared; tokens equal unshared serving's on {same}/3 sequences " \
+        f"(logged: the prefill shapes differ)"
+
+
+def _contract_cow(device, cfg, params, tally):
+    """``test_cow_fork_on_full_prompt_match_is_exact``: a prompt wholly
+    covered by the donor's registered pages; its first decode step writes
+    its last prompt position into a shared page, which forks. Gates: the
+    clone's K/V equal the source's bit for bit when it is made; after the
+    step the source is untouched and the clone differs from it at most in
+    the written slot; the pool reclaimed."""
+    from repro_torch.scheduler import RequestScheduler
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(1, CV, 3 * PS).tolist()
+    donor = prefix + rng.integers(1, CV, 5 * CQ).tolist()
+    pool = _c_pool(cfg, device, 64, 16, 16)
+    sched = RequestScheduler(pool, max_batch=8,
+                             prefill_token_budget=64 * CQ,
+                             default_max_new=5 * CQ)
+    eng = _c_engine(cfg, params, device, pool, scheduler=sched,
+                    sim_step_s=0.01)
+    view, forks = eng.view, []
+    fork = view.fork_for_write
+
+    def spy(pages, idx):
+        src = int(pages[idx])
+        out = fork(pages, idx)
+        if int(pages[idx]) != src:
+            forks.append((src, int(pages[idx]),
+                          (view.k_pool[:, src].clone(),
+                           view.v_pool[:, src].clone()),
+                          (view.k_pool[:, pages[idx]].clone(),
+                           view.v_pool[:, pages[idx]].clone())))
+        return out
+
+    view.fork_for_write = spy
+    trail = []
+    eng.submit(donor)
+    tally.step(eng, trail)
+    eng.submit(list(prefix))
+    while not forks:
+        check(eng.active or eng.waiting, "the CoW fork never fired")
+        tally.step(eng, trail)
+    src, clone, at_src, at_clone = forks[0]
+    check(_c_same(at_src, at_clone),
+          "CoW: the clone's K/V differ from the source's when made")
+    check(_c_same(at_src, (view.k_pool[:, src], view.v_pool[:, src])),
+          "CoW: a write through the clone reached the source page")
+    slot = (len(prefix) - 1) % PS         # the matcher's first decode write
+    keep = [i for i in range(PS) if i != slot]
+    check(_c_same((at_src[0][:, keep], at_src[1][:, keep]),
+                  (view.k_pool[:, clone][:, keep],
+                   view.v_pool[:, clone][:, keep])),
+          "CoW: the clone changed outside the written slot")
+    tally.drain(eng, trail)
+    check(pool.table.cow_faults >= 1 and _c_reclaimed(pool),
+          "CoW: no fault counted or the pool not reclaimed")
+    return (trail, [(s, c) for s, c, _, _ in forks], pool.table.cow_faults,
+            _c_table(pool)), f"{len(forks)} fork(s): page {src} -> " \
+        f"{clone}, bit-equal at the fork, source untouched after the write"
+
+
+def _contract_swap(device, cfg, params, tally):
+    """``test_swap_roundtrip_pins_shared_pages`` through the engine: a
+    victim holding two pages it shares with a donor and two of its own is
+    swapped out (forced) and back in by the scheduler. Gates: the shared
+    pages keep their ids, the exclusive ones park in slow domains; the
+    parked bytes and, after the swap-in, every K/V position the victim
+    held equal the bytes before, bit for bit; the pool reclaimed."""
+    from repro_torch.scheduler import KVSwapManager, RequestScheduler
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(1, CV, 2 * PS).tolist()
+    pool = _c_pool(cfg, device, 8, 12, 12)
+    swap = KVSwapManager(pool, reserve_fraction=0.8)
+    sched = RequestScheduler(pool, max_batch=4,
+                             prefill_token_budget=64 * CQ,
+                             default_max_new=4 * CQ, swap=swap)
+    eng = _c_engine(cfg, params, device, pool, scheduler=sched,
+                    sim_step_s=0.01)
+    view, trail = eng.view, []
+    eng.submit(prefix + rng.integers(1, CV, PS).tolist())
+    tally.step(eng, trail)
+    vid = eng.submit(prefix + rng.integers(1, CV, 2 * PS).tolist())
+    victim = None
+    while victim is None or victim.length < victim.prefill_target:
+        tally.step(eng, trail)
+        victim = next((r for r in sched.running if r.sid == vid), None)
+    n = victim.length
+    before, ids = _c_kv(view, victim.pages, n), list(victim.pages)
+    shared = [p for p in ids if view.shared(p)]
+    check(len(shared) == 2, f"swap: victim shares {shared}, want 2 pages")
+    sched._swap_out(victim)
+    parked = list(victim.pages)
+    check([p for p in parked if p in shared] == shared
+          and all(view.domain_of(p) in view.slow_domains
+                  for p in parked if p not in shared),
+          "swap: a shared page moved or an exclusive page did not park")
+    check(_c_same(before, _c_kv(view, parked, n)),
+          "swap: parked K/V differ from the bytes before")
+    while victim not in sched.running:
+        tally.step(eng, trail)
+    back = list(victim.pages)
+    check(back[:2] == shared, "swap: shared pages moved on the swap-in")
+    check(_c_same(before, _c_kv(view, back, n)),
+          "swap: K/V after the round trip differ from the bytes before")
+    tally.drain(eng, trail)
+    check(_c_reclaimed(pool) and swap.slots_free() == swap.reserved_total,
+          "swap: the pool or the swap slots not reclaimed")
+    return (trail, ids, parked, back, _c_table(pool)), \
+        f"{len(parked) - 2} pages parked and back, {n} positions bit-equal"
+
+
+def _contract_preempt(device, cfg, params, tally):
+    """``test_forced_preemption_at_point_is_exact`` at decode steps 0, 2
+    and 5: one sequence swapped out by force and resumed. Gates: the run
+    completes, the pool and the swap slots drain; the tokens equal an
+    unpressured run's (one sequence, one prefill chunk: the same GEMM
+    shapes on both sides)."""
+    from repro_torch.scheduler import (KVSwapManager, RequestScheduler,
+                                       State)
+    prompt = [3, 17, 29, 5, 41, 11] * CQ
+    prompt = prompt[:_cq(6)]
+    pool = _c_pool(cfg, device, 64, 8, 8)
+    sched = RequestScheduler(pool, max_batch=1,
+                             prefill_token_budget=64 * CQ,
+                             default_max_new=8 * CQ)
+    eng = _c_engine(cfg, params, device, pool, scheduler=sched)
+    eng.submit(list(prompt))
+    tally.drain(eng)
+    want = eng.finished[0].tokens
+    rec = []
+    for at in (0, 2, 5):
+        pool = _c_pool(cfg, device, 16, 8, 40)
+        swap = KVSwapManager(pool, reserve_fraction=0.8)
+        sched = RequestScheduler(pool, max_batch=1,
+                                 prefill_token_budget=64 * CQ,
+                                 default_max_new=8 * CQ, swap=swap)
+        eng = _c_engine(cfg, params, device, pool, scheduler=sched)
+        eng.submit(list(prompt))
+        trail = []
+        for _ in range(at + 1):
+            tally.step(eng, trail)
+        victim = sched.running[0]
+        sched._swap_out(victim)
+        check(victim.state is State.SWAPPED, "preempt: not swapped")
+        parked = list(victim.pages)
+        tally.drain(eng, trail)
+        check(len(eng.finished) == 1 and _c_reclaimed(pool)
+              and swap.slots_free() == swap.reserved_total,
+              f"preempt at {at}: not finished or the ledgers not drained")
+        check(eng.finished[0].tokens == want,
+              f"preempt at {at}: tokens differ from the unpressured run's")
+        rec.append((at, parked, trail, _c_table(pool)))
+    return rec, "steps 0, 2, 5: completed, drained, tokens equal the " \
+        "unpressured run's"
+
+
+class _WrongDrafter:
+    """Drafts the model's argmax does not confirm (the reference test's
+    ``AlwaysWrongDrafter``): every draft rejects, so every lookahead page
+    and every speculative slot must roll back."""
+
+    def __init__(self, vocab: int, max_tokens: int):
+        self.vocab, self.max_tokens = vocab, max_tokens
+
+    def draft(self, tokens):
+        t = self.vocab - 1 if tokens[-1] != self.vocab - 1 else 1
+        return [t] * self.max_tokens
+
+
+def _c_state(eng):
+    pool = eng.view.pool
+    return pool.k_pool.clone(), pool.v_pool.clone(), _c_table(pool), \
+        [(s.sid, [int(p) for p in s.pages]) for s in eng.scheduler.running]
+
+
+def _contract_rollback(device, cfg, params, tally):
+    """``test_spec_multiseq_all_rejected_restores_allocator``: two
+    sequences mid-page for two steps, every draft (``6 x CQ`` tokens, so
+    each verify crosses a page boundary) rejected. After each step,
+    gated against a greedy engine's: free lists, refcounts, trie, the
+    allocation cycle and page ids equal; every K/V slot but the one each
+    sequence committed equal bit for bit (the rejected slots restored).
+    Logged: the committed slots' K/V and the tokens (the verify's GEMMs
+    run 6 x CQ + 1 rows a sequence, greedy's one)."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, CV, _cq(7)).tolist(),
+               rng.integers(1, CV, _cq(6)).tolist()]
+
+    def mk(drafter):
+        pool = _c_pool(cfg, device, 32, 16, 16, bws=(819.0, 50.0, 16.0))
+        eng = _c_engine(cfg, params, device, pool, max_batch=4,
+                        max_new=8 * CQ, sim_step_s=0.001, drafter=drafter)
+        for p in prompts:
+            eng.submit(list(p))
+        while len(eng.scheduler.running) < 2:
+            tally.step(eng)
+        return eng
+
+    g, s = mk(None), mk(_WrongDrafter(cfg.vocab_size, 6 * CQ))
+    gs, ss = _c_state(g), _c_state(s)
+    check(_c_same(gs[:2], ss[:2]) and gs[2:] == ss[2:],
+          "rollback: speculative and greedy engines start apart")
+    rec, diff = [], []
+    for _ in range(2):
+        check(all(r.length % PS for r in s.scheduler.running),
+              "rollback: a sequence is not mid-page")
+        tally.step(g)
+        tally.step(s)
+        gs, ss = _c_state(g), _c_state(s)
+        check(gs[2:] == ss[2:], "rollback: free lists, refcounts, trie, "
+              "cycle or page ids differ from greedy")
+        keep = torch.ones(gs[0].shape[1:3], dtype=torch.bool,
+                          device=gs[0].device)
+        for r in s.scheduler.running:
+            pos = r.length - 1
+            keep[r.pages[pos // PS], pos % PS] = False
+        for a, b in zip(gs[:2], ss[:2]):
+            check(torch.equal(a[:, keep], b[:, keep]),
+                  "rollback: a rejected slot's K/V not restored bit for bit")
+            diff.append(float((a[:, ~keep].float()
+                               - b[:, ~keep].float()).abs().max()))
+        rec.append(ss[2:])
+    sp = s.view.telemetry.snapshot()["spec"]
+    check(sp["drafted"] > 0 and sp["accepted"] == 0,
+          f"rollback: drafted {sp['drafted']}, accepted {sp['accepted']}")
+    tally.drain(g)
+    tally.drain(s)
+    check(_c_reclaimed(g.view.pool) and _c_reclaimed(s.view.pool),
+          "rollback: a pool not reclaimed")
+    same = sum(_c_tokens(g)[k] == v for k, v in _c_tokens(s).items())
+    return (rec, sp["drafted"]), \
+        f"drafted {sp['drafted']}, accepted 0; committed slots' K/V max " \
+        f"|diff| {max(diff):.4g} against greedy (logged); tokens equal " \
+        f"greedy's on {same}/2 sequences (logged)"
+
+
+def _contract_pressure(device, cfg, params, tally):
+    """``test_oversubscribed_completes_with_zero_failures`` (12 bursty
+    requests, footprint over the fast domain, 90 % of the slow domains
+    reserved for swap), ``test_infeasible_request_rejected_at_submit`` and
+    ``test_joint_exhaustion_raises_not_spins`` (through the engine). Gates:
+    zero failures, every request its tokens, swaps out equal swaps in, the
+    pool and slots drained; an infeasible prompt refused at submit; two
+    feasible ones that cannot both grow raise within 60 x CQ steps."""
+    from repro_torch.scheduler import (KVSwapManager, RequestScheduler,
+                                       WorkloadSpec, generate,
+                                       total_kv_pages)
+    pool = _c_pool(cfg, device, 10, 10, 50)
+    swap = KVSwapManager(pool, reserve_fraction=0.9)
+    sched = RequestScheduler(pool, max_batch=6,
+                             prefill_token_budget=24 * CQ,
+                             default_max_new=8 * CQ, swap=swap)
+    eng = _c_engine(cfg, params, device, pool, scheduler=sched,
+                    sim_step_s=0.01)
+    trace = generate(WorkloadSpec(
+        kind="bursty", num_requests=12, mean_interarrival_s=0.005,
+        prompt_mean=12 * CQ, prompt_max=20 * CQ, max_new=8 * CQ,
+        vocab_size=CV, seed=1))
+    check(total_kv_pages(trace, PS) > 10, "pressure: not oversubscribed")
+    for t in trace:                       # all at once: no clock dependence
+        eng.submit(list(t.prompt), max_new=t.max_new)
+    trail = []
+    tally.drain(eng, trail)
+    tel = pool.telemetry
+    check(len(eng.finished) == 12
+          and all(r.produced == r.max_new for r in eng.finished),
+          "pressure: a request failed or came short")
+    check(tel.swap_outs > 0 and tel.swap_outs == tel.swap_ins,
+          f"pressure: swaps out {tel.swap_outs}, in {tel.swap_ins}")
+    check(_c_reclaimed(pool) and swap.slots_free() == swap.reserved_total,
+          "pressure: pool or slots not drained")
+    refused = []
+    tiny = RequestScheduler(_c_pool(cfg, device, 2, 1, 1), max_batch=2,
+                            default_max_new=4 * CQ)
+    pool2 = _c_pool(cfg, device, 4, 8, 8)
+    walled = RequestScheduler(pool2, max_batch=2, default_max_new=4 * CQ,
+                              swap=KVSwapManager(pool2,
+                                                 reserve_fraction=1.0))
+    check(walled.allocatable_pages() == 4, "infeasible: allocatable pages")
+    for sch, n in ((tiny, 40), (walled, 20)):
+        try:
+            sch.submit(list(range(1, _cq(n))))
+        except ValueError as e:
+            refused.append("allocatable" in str(e))
+    check(refused == [True, True], f"infeasible: refused {refused}")
+    pool3 = _c_pool(cfg, device, 4, 2, 2)
+    eng3 = _c_engine(cfg, params, device, pool3,
+                     scheduler=RequestScheduler(
+                         pool3, max_batch=2, prefill_token_budget=6 * CQ,
+                         default_max_new=20 * CQ))
+    for _ in range(2):
+        eng3.submit(list(range(1, _cq(13) + 1)))
+    raised, steps = None, 0
+    while raised is None and steps < 60 * CQ:
+        try:
+            tally.step(eng3)
+        except RuntimeError as e:
+            raised = str(e)
+        steps += 1
+    check(raised is not None and re.search("exhausted|grow", raised),
+          f"joint exhaustion: {raised!r} after {steps} steps")
+    return (trail, tel.swap_outs, _c_table(pool), steps, raised), \
+        f"12/12 finished, {tel.swap_outs} swaps out and in; infeasible " \
+        f"prompts refused at submit; joint exhaustion raised after " \
+        f"{steps} steps"
+
+
+CONTRACT = (("prefix sharing", _contract_sharing),
+            ("CoW fork", _contract_cow),
+            ("swap round trip", _contract_swap),
+            ("forced preemption", _contract_preempt),
+            ("rejected speculation", _contract_rollback),
+            ("oversubscription", _contract_pressure))
+
+
+def _smoke_model():
+    """The one-layer fp32 qwen2 smoke model on the host, seeded: the CPU
+    run whose control plane phase 23's card run must equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen2-0.5b"),
+                              num_layers=1, compute_dtype="float32")
+    return cfg, LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+
+
+def phase_contract(device, cfg, params) -> dict:
+    """Phase 23: the engine-level cases of the reference's own tests of
+    the page table, scheduler and speculation, at full width through the
+    paged kernels (see the module docstring). Each scenario also runs on
+    the host at the smoke config, where the same code path runs the plain
+    versions: the control plane (page ids after every step, free lists,
+    refcounts, trie, cycle) must be equal; it does not depend on the
+    model's width or values."""
+    t0 = time.perf_counter()
+    scfg, sparams = _smoke_model()
+    torch.cuda.synchronize()
+    kernel.reset_launch_counts()
+    fkernel.reset_launch_counts()
+    tally = _Tally()
+    for name, run in CONTRACT:
+        t1 = time.perf_counter()
+        rec, note = run(device, cfg, params, tally)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want, _ = run("cpu", scfg, sparams, _Tally())
+        check(rec == want, f"phase 23, {name}: the control plane differs "
+              f"from the host run's at the smoke config")
+        log(f"phase 23, {name}: {note}; control plane equal to the host "
+            f"run's ({t2 - t1:.1f} s on the card, "
+            f"{time.perf_counter() - t2:.1f} s on the host)")
+    launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    nl = cfg.num_layers
+    check(launches["paged_prefill_attention_batch"]
+          == (tally.prefill + tally.verify) * nl,
+          f"phase 23: a prefill or verify step missed the prefill kernel "
+          f"({launches}, {tally.prefill} prefill and {tally.verify} verify "
+          f"steps)")
+    check(launches["paged_attention"] == tally.decode * nl,
+          f"phase 23: a decode step missed the decode kernel ({launches}, "
+          f"{tally.decode} decode steps)")
+    check(launches["flash_attention"] == 0
+          and launches["flash_attention_wgmma"] == 0,
+          "phase 23 ran a full-sequence forward")
+    _check_instances(cfg, {"launches": launches})
+    log(f"phase 23: {tally.prefill} prefill, {tally.verify} verify and "
+        f"{tally.decode} decode steps at full width, launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return {"launches": launches}
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
@@ -4759,6 +5297,8 @@ def main() -> int:
     phase_dense_decode(device, g["cfg"], g["params"], watch=False)
     phase_window_decode(device)
     done("15")
+    contract = phase_contract(device, s["cfg"], s["params"])
+    done("23")
     del s["params"], g["params"]           # phase 16 needs the room
     fam = phase_families(device)
     done("16")
@@ -4838,6 +5378,7 @@ def main() -> int:
                 rows[-1]["persist_launches"] = persist["launches"][name]
                 rows[-1]["disagg_launches"] = disagg["launches"][name]
                 rows[-1]["zoo_launches"] = zoo["launches"][name]
+                rows[-1]["contract_launches"] = contract["launches"][name]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)

@@ -15,7 +15,12 @@ Differences from the reference, all on the data plane:
   every use: the same bits, without a 1 GB bf16 cast per step at full width
   (for fp32 compute the cast is the identity and costs nothing);
 - one device-to-host copy per decode launch brings the argmax tokens back
-  (one a step, or one a domain micro-batch under ``coda``).
+  (one a step, or one a domain micro-batch under ``coda``);
+- on the CPU the decoder's weight products run row by row
+  (``PagedDecoder._mm``), so a token's K/V and logits do not depend on how
+  many rows share the launch: a verify step writes the bits greedy decode
+  writes, as the reference's rollback contract asks. On a card the products
+  are plain GEMMs, whose rounding depends on the row count.
 
 Heat-driven re-homing (``rehome=True``, the ``coda`` policy's default)
 moves hot shared pages into fast domains on the pool's device, through the
@@ -84,6 +89,28 @@ class PagedDecoder:
         self.head = (self.embed.T if cfg.tie_embeddings
                      else params["head"].to(cdt))
 
+    def _mm(self, a, w):
+        """``a @ w``. On the plain path each row is its own product (a
+        ``bmm`` of [N,1,d] rows against ``w``): a plain ``@`` folds the
+        rows into one GEMM whose blocking, and so rounding, depends on N,
+        and decode (one row a sequence) would then write other K/V bits
+        than a verify chunk (T rows) at the same position. On a card, the
+        plain GEMM."""
+        if self.device.type != "cpu":
+            return a @ w
+        rows = a.reshape(-1, 1, a.shape[-1])
+        out = torch.bmm(rows, w.expand(rows.shape[0], *w.shape))
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+
+    def _mlp(self, p, h):
+        """``layers.mlp_apply`` (weights already in the compute dtype)
+        through :meth:`_mm`."""
+        act = L.act_fn(self.cfg.act)
+        up = self._mm(h, p["w_up"])
+        up = act(self._mm(h, p["w_gate"])) * up if "w_gate" in p \
+            else act(up)
+        return self._mm(up, p["w_down"])
+
     def _t(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
@@ -93,9 +120,9 @@ class PagedDecoder:
         nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
         h = L.apply_norm(cfg, p["norm1"], x)
         a = p["attn"]
-        q = (h @ a["wq"]).reshape(b, t, nq, hd)
-        k = (h @ a["wk"]).reshape(b, t, nkv, hd)
-        v = (h @ a["wv"]).reshape(b, t, nkv, hd)
+        q = self._mm(h, a["wq"]).reshape(b, t, nq, hd)
+        k = self._mm(h, a["wk"]).reshape(b, t, nkv, hd)
+        v = self._mm(h, a["wv"]).reshape(b, t, nkv, hd)
         if cfg.qkv_bias:
             q = q + a["bq"].reshape(nq, hd)
             k = k + a["bk"].reshape(nkv, hd)
@@ -107,14 +134,14 @@ class PagedDecoder:
 
     def _out_mlp(self, p, x, att, b: int, t: int):
         cfg = self.cfg
-        x = x + att.reshape(b, t, cfg.num_heads * cfg.head_dim_) \
-            @ p["attn"]["wo"]
+        x = x + self._mm(att.reshape(b, t, cfg.num_heads * cfg.head_dim_),
+                         p["attn"]["wo"])
         h = L.apply_norm(cfg, p["norm2"], x)
-        return x + L.mlp_apply(cfg, p["mlp"], h)
+        return x + self._mlp(p["mlp"], h)
 
     def _logits(self, x):
         x = L.apply_norm(self.cfg, self.params["final_norm"], x)
-        return x @ self.head
+        return self._mm(x, self.head)
 
     def prefill_chunk(self, token_ids, pages, lo: int, hi: int):
         """Single-sequence incremental prefill (kept for callers/tests):
@@ -575,13 +602,18 @@ class ServeEngine:
         ``[tokens[-1], draft...]`` writes K/V at positions
         ``[length, length + d]`` and runs through one batched prefill-mode
         attention launch; the longest draft prefix the model's own argmax
-        confirms is accepted, plus one bonus token, so outputs are
-        token-identical to greedy decoding.
+        confirms is accepted, plus one bonus token. On the plain path
+        (``PagedDecoder._mm``) a row's arithmetic does not depend on the
+        launch's row count, so tokens and the committed K/V are greedy
+        decoding's bit for bit; on a card the GEMMs round a verify chunk's
+        rows apart from a decode row's, and tokens can differ where greedy
+        logits nearly tie.
 
-        Rejected speculation rolls back exactly: snapshotted K/V bytes are
-        scattered back, pages greedy would not yet hold return to the
-        allocator LIFO with the allocation cycle rewound, in reverse batch
-        order (the step's allocations form one stack)."""
+        Rejected speculation rolls back exactly, on either path:
+        snapshotted K/V bytes are scattered back, pages greedy would not
+        yet hold return to the allocator LIFO with the allocation cycle
+        rewound, in reverse batch order (the step's allocations form one
+        stack)."""
         ps = self.view.page_size
         dev = self.device
         recs = []                       # per seq: (appended allocs, snap base)

@@ -100,33 +100,81 @@ class Pkg:
         self.device = device
         if port:
             from repro_torch import cluster
-            from repro_torch.core import bwmodel
+            from repro_torch import scheduler as sched
+            from repro_torch.checkpoint import ckpt
+            from repro_torch.core import (bwmodel, canonical, dwp, interleave,
+                                          simulator, topology)
             from repro_torch.obs.observatory import Observatory
-            from repro_torch.placement import (fabric, geometry, persist,
-                                               pool, zoo)
+            from repro_torch.placement import (arbiter, executor, fabric,
+                                               geometry, persist, policy,
+                                               pool, telemetry, zoo)
             from repro_torch.scheduler import KVSwapManager
+            from repro_torch.serve import engine, spec
         else:
             from repro import cluster
-            from repro.core import bwmodel
+            from repro import scheduler as sched
+            from repro.checkpoint import ckpt
+            from repro.core import (bwmodel, canonical, dwp, interleave,
+                                    simulator, topology)
             from repro.obs.observatory import Observatory
-            from repro.placement import fabric, geometry, persist, pool, zoo
+            from repro.placement import (arbiter, executor, fabric, geometry,
+                                         persist, policy, pool, telemetry,
+                                         zoo)
             from repro.scheduler import KVSwapManager
+            from repro.serve import engine, spec
         self.cluster, self.bwmodel, self.Observatory = (cluster, bwmodel,
                                                         Observatory)
         self.persist, self.geometry, self.pool_mod = persist, geometry, pool
         self.as_view, self.KVSwapManager = fabric.as_view, KVSwapManager
         self.fabric_mod, self.zoo_mod = fabric, zoo
+        # the core, the rest of placement, the scheduler and the engine
+        self.topology, self.canonical, self.dwp = topology, canonical, dwp
+        self.interleave, self.simulator = interleave, simulator
+        self.policy, self.executor, self.telemetry = policy, executor, \
+            telemetry
+        self.arbiter, self.sched, self.ckpt = arbiter, sched, ckpt
+        self.engine_mod, self.spec = engine, spec
 
     def cfg(self, cfg):
         return port_config(cfg) if self.port else cfg
 
-    def pool(self, cfg, domains, page_size=4, geometry=None):
+    def pool(self, cfg, domains, page_size=4, geometry=None, **kw):
+        """A ``BwapPagePool`` over ``domains`` (tuples of
+        ``MemoryDomain``'s fields); the DWP tuner frozen unless
+        ``dwp_config`` is given."""
         m = self.pool_mod
-        kw = {"device": self.device} if self.port else {}
+        if self.port:
+            kw["device"] = self.device
+        kw.setdefault("dwp_config", DWPConfig(n=10 ** 6, c=1))
         return m.BwapPagePool(
             self.cfg(cfg), [m.MemoryDomain(*d) for d in domains],
-            page_size=page_size, geometry=geometry,
-            dwp_config=DWPConfig(n=10 ** 6, c=1), **kw)
+            page_size=page_size, geometry=geometry, **kw)
+
+    def engine(self, cfg, params, pool, **kw):
+        """A ``ServeEngine`` (on the pool's device for the port)."""
+        if self.port:
+            kw["device"] = self.device
+        return self.engine_mod.ServeEngine(self.cfg(cfg), params, pool, **kw)
+
+    def put(self, pool, pages, value, which="k"):
+        """Write ``value`` (a scalar, or float32 values broadcast to the
+        pages' shape) into ``pool``'s ``which`` (``"k"`` or ``"v"``) pool
+        at ``pages``."""
+        name = which + "_pool"
+        arr = getattr(pool, name)
+        if self.port:
+            arr[:, pages] = torch.from_numpy(
+                np.asarray(value, np.float32)).to(arr.device, arr.dtype)
+        else:
+            setattr(pool, name, arr.at[:, pages].set(
+                jnp.asarray(value).astype(arr.dtype)))
+
+    def host(self, x) -> np.ndarray:
+        """An array of either package (a pool tensor, a jax array) as
+        numpy, float32 values as they are."""
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
 
     def fabric(self, cfg, domains, page_size=4, **kw):
         """A ``MemoryFabric`` over ``domains`` (tuples of
@@ -153,19 +201,8 @@ class Pkg:
         """Write float32 values ``k`` (``v``, default ``-k``) into
         ``pool``'s pages, cast to the pool's dtype (round to nearest even
         in both packages)."""
-        v = -k if v is None else v
-        if self.port:
-            dt = pool.k_pool.dtype
-            pool.k_pool[:, pages] = torch.from_numpy(k).to(
-                pool.k_pool.device, dt)
-            pool.v_pool[:, pages] = torch.from_numpy(v).to(
-                pool.v_pool.device, dt)
-        else:
-            dt = pool.k_pool.dtype
-            pool.k_pool = pool.k_pool.at[:, pages].set(
-                jnp.asarray(k).astype(dt))
-            pool.v_pool = pool.v_pool.at[:, pages].set(
-                jnp.asarray(v).astype(dt))
+        self.put(pool, pages, k)
+        self.put(pool, pages, -k if v is None else v, "v")
 
     def fill(self, pool, pid, val):
         shape = (pool.k_pool.shape[0],) + tuple(pool.k_pool.shape[2:])
@@ -185,6 +222,16 @@ class Pkg:
 BOTH = (Pkg(False), Pkg(True))
 
 
+def table_state(pool) -> dict:
+    """A pool's allocator and page table: free lists, refcounts, trie
+    nodes ``(parent, block, phys)`` and the allocation cycle."""
+    t = pool.table
+    return {"free": [list(f) for f in pool.free], "ref": dict(t.ref),
+            "trie": {nid: (n.parent, n.block, n.phys)
+                     for nid, n in t._nodes.items()},
+            "cycle": pool._cycle_pos}
+
+
 def equal(a, b) -> bool:
     """Nested equality of records that may hold numpy arrays."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -202,6 +249,20 @@ def both(case, *a, **kw):
     ref, port = (case(p, *a, **kw) for p in BOTH)
     assert equal(port, ref)
     return port
+
+
+def both_close(case, *a, atol=2e-5, **kw):
+    """``both`` for a case that returns ``(record, arrays)``: the records
+    must be equal, the float arrays (K/V the model computed) within
+    ``atol``, since the packages' fp32 kernels round differently. Returns
+    the port's ``(record, arrays)``."""
+    (ref, ref_arrays), (port, port_arrays) = (case(p, *a, **kw)
+                                              for p in BOTH)
+    assert equal(port, ref)
+    assert len(port_arrays) == len(ref_arrays)
+    for x, y in zip(port_arrays, ref_arrays):
+        np.testing.assert_allclose(x, y, rtol=0, atol=atol)
+    return port, port_arrays
 
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -161,3 +161,296 @@ def test_fabric_invariants_under_random_interleavings(ops, seed):
     every operation on both packages, with equal page lists, parked flags
     and ownership, and unregister leaks nothing."""
     both(_interleave, ops, seed)
+
+
+# ---------------------------------------------------------------------------
+# the rest of ``tests/test_fabric.py`` on both packages
+# (``_torch_parity.both``): view quotas, adoption of a bare pool,
+# ownership, the cross-tenant prefix tier and its share events, the
+# swap-slot loan cycle and its opt-out, Eq.-1 calibration, reservation-aware
+# occupancy and trie-aware admission. Each returns a record (page ids,
+# ledgers, loans, seconds, pool bits, tokens) that must be equal on both.
+# ---------------------------------------------------------------------------
+
+from _torch_parity import both_close, smoke_pair  # noqa: E402
+
+CFG = dataclasses.replace(registry.get_smoke_config("qwen2-0.5b"),
+                          num_layers=1, compute_dtype="float32")
+
+
+def _doms(fast=32, peer=24, host=24):
+    return (("hbm_local", fast, 819.0, True), ("hbm_peer", peer, 50.0, False),
+            ("host", host, 16.0, False))
+
+
+def _two_views(pkg, *, share_prefix=True, quota_a=(24, 18, 18),
+               quota_b=(8, 6, 6)):
+    fab = pkg.fabric(CFG, _doms(), page_size=4, seed=0)
+    a = fab.view("A", quota=quota_a, home=(0,), level=10,
+                 share_prefix=share_prefix)
+    b = fab.view("B", quota=quota_b, home=(1,), level=0,
+                 share_prefix=share_prefix)
+    return fab, a, b
+
+
+def _ledgers(fab) -> dict:
+    return {"owner": dict(fab.owner), "ref": dict(fab.table.ref),
+            "free": [list(f) for f in fab.pool.free],
+            "reserved": fab.pool.reserved.tolist(),
+            "views": {n: (v.used.tolist(), v.reserved.tolist())
+                      for n, v in fab.views.items()}}
+
+
+def test_view_quota_caps_allocation():
+    def case(pkg):
+        fab, a, b = _two_views(pkg, quota_b=(2, 1, 1))
+        pages = []
+        for _ in range(4):
+            b.append_page(pages)
+        assert b.free_count() == 0
+        with pytest.raises(RuntimeError, match="quota exhausted"):
+            b.append_page(pages)
+        other = []
+        a.append_page(other)
+        fab.check_invariants()
+        state = _ledgers(fab)
+        b.release(pages)
+        a.release(other)
+        fab.check_invariants()
+        assert not fab.owner and not fab.table.ref
+        return pages, other, state, _ledgers(fab)
+    both(case)
+
+
+def test_adopted_pool_matches_direct_driving():
+    def case(pkg):
+        def mk():
+            return pkg.pool(CFG, _doms(), page_size=4, seed=0,
+                            dwp_config=pkg.dwp.DWPConfig())
+        direct, adopted = mk(), mk()
+        view = pkg.as_view(adopted)
+        assert pkg.as_view(adopted) is view
+        want = [direct.alloc_page() for _ in range(20)]
+        got, pages = [], []
+        for _ in range(20):
+            got.append(view.append_page(pages))
+        assert got == want
+        view.fabric.check_invariants()
+        return got
+    both(case)
+
+
+def test_ownership_follows_last_holder():
+    def case(pkg):
+        fab, a, b = _two_views(pkg)
+        ps = fab.pool.page_size
+        tokens = list(range(100, 100 + ps))
+        pages_a = []
+        a.append_page(pages_a)
+        a.register_prefix(tokens, pages_a, ps)
+        pages_b = []
+        assert b.probe_prefix(tokens, pages_b) == ps
+        pid = pages_b[0]
+        assert fab.owner[pid] == "A"
+        a.release(pages_a)
+        assert fab.owner[pid] == "B"
+        assert fab.table.ref[pid] == 1
+        fab.check_invariants()
+        state = _ledgers(fab)
+        b.release(pages_b)
+        assert pid not in fab.table.ref
+        fab.check_invariants()
+        return pid, state, _ledgers(fab)
+    both(case)
+
+
+def test_cross_tenant_prefix_sharing_is_gated():
+    def case(pkg):
+        ps = 4
+        tokens = list(range(7, 7 + 2 * ps))
+        out = []
+        for share in (True, False):
+            fab, a, b = _two_views(pkg, share_prefix=share)
+            pages_a = []
+            a.append_page(pages_a)
+            a.append_page(pages_a)
+            a.register_prefix(tokens, pages_a, 2 * ps)
+            pages_b = []
+            matched = b.probe_prefix(tokens, pages_b)
+            if share:
+                assert matched == 2 * ps and pages_b == pages_a
+                assert fab.cross_shared_pages() == 2
+                fab.check_invariants()
+            else:
+                assert matched == 0 and not pages_b
+                assert fab.cross_shared_pages() == 0
+            out.append((matched, pages_a, pages_b, _ledgers(fab)))
+        return out
+    both(case)
+
+
+def test_share_events_fire_on_cross_tenant_match():
+    def case(pkg):
+        fab, a, b = _two_views(pkg)
+        events = []
+        fab.subscribe("share", lambda **kw: events.append(kw))
+        ps = fab.pool.page_size
+        tokens = list(range(50, 50 + ps))
+        pages_a = []
+        a.append_page(pages_a)
+        a.register_prefix(tokens, pages_a, ps)
+        pages_b = []
+        b.probe_prefix(tokens, pages_b)
+        assert [e for e in events if e.get("kind") == "prefix"
+                and e["owner"] == "A" and e["view"] == "B"]
+        return events
+    both(case)
+
+
+def test_loan_cycle_grant_use_reclaim():
+    def case(pkg):
+        fab, a, b = _two_views(pkg, quota_a=(20, 16, 16),
+                               quota_b=(10, 8, 8))
+        swap_a = pkg.KVSwapManager(a, reserve_fraction=0.5)
+        swap_b = pkg.KVSwapManager(b, reserve_pages={"host": 2})
+        lender_free = swap_a.slots_free()
+        assert b.borrowable() > 0
+        s1, s2 = [], []
+        for _ in range(2):
+            b.append_page(s1)
+        for _ in range(3):
+            b.append_page(s2)
+        pkg.put(fab.pool, s2, 7.25)
+        trail = []
+        p1, _ = swap_b.swap_out(list(s1))
+        assert swap_a.slots_free() == lender_free
+        assert swap_b.can_swap_out(3)
+        p2, _ = swap_b.swap_out(list(s2))
+        assert swap_a.slots_free() == lender_free - 3
+        loan = fab.loans[0]
+        assert (loan.lender, loan.borrower) == ("A", "B")
+        assert loan.granted == 3 and len(loan.slots) == 3
+        fab.check_invariants()
+        # copies: the port rewrites a parked list in place when a reclaim
+        # moves its bytes (``scheduler/swap.py``), the reference forwards
+        trail.append((list(p1), list(p2), list(loan.slots), _ledgers(fab)))
+        assert sum(1 for p in p2 if p in swap_b._borrowed) > 0
+        s1b, _ = swap_b.swap_in(p1)
+        got, secs = a.recall_loans(1)
+        assert got == 1 and secs > 0.0
+        assert loan.reclaimed == 1 and loan.reclaim_seconds == secs
+        assert len(loan.slots) == 2
+        fab.check_invariants()
+        trail.append((s1b, got, secs, list(loan.slots), _ledgers(fab)))
+        s2b, _ = swap_b.swap_in(p2)
+        assert (pkg.host(fab.pool.k_pool)[:, s2b] == 7.25).all()
+        fab.check_invariants()
+        got, secs = a.recall_loans(99)
+        assert got == 2 and secs == 0.0
+        assert not loan.slots and swap_a.slots_free() == lender_free
+        b.release(s1b)
+        b.release(s2b)
+        fab.check_invariants()
+        trail.append((s2b, got, secs, _ledgers(fab),
+                      pkg.kv(fab.pool, range(fab.pool.total_pages))))
+        return trail
+    both(case)
+
+
+def test_loans_respect_lend_optout():
+    def case(pkg):
+        fab, a, b = _two_views(pkg)
+        pkg.KVSwapManager(a, reserve_fraction=0.5, lend=False)
+        pkg.KVSwapManager(b, reserve_pages={"host": 1})
+        assert b.borrowable() == 0
+        assert fab.request_loan(b, 4) == 0
+        return _ledgers(fab)
+    both(case)
+
+
+def test_calibrate_ewma_tracks_measured_transfer_times():
+    def case(pkg):
+        fab = pkg.fabric(CFG, _doms(), page_size=4, seed=0,
+                         calibration_alpha=0.5)
+        view = fab.view("t", quota=(8, 8, 8), home=(0,))
+        pages = []
+        for _ in range(3):
+            view.append_page(pages)
+        analytic = view.stall_cost(pages)
+        assert analytic == pytest.approx(pkg.bwmodel.stall_cost(
+            view.footprint(pages), np.asarray([819.0, 50.0, 16.0])))
+        measured = [10 * fab.pool.page_bytes / (bw * 1e9)
+                    for bw in (819.0, 50.0, 16.0)]
+        trail, prev = [analytic], analytic
+        for _ in range(12):
+            fab.calibrate(measured)
+            cur = view.stall_cost(pages)
+            assert cur >= prev - 1e-18
+            prev = cur
+            trail.append(cur)
+        assert view.stall_cost(pages) == pytest.approx(10 * analytic,
+                                                       rel=0.01)
+        bw_before = fab.bw_effective.copy()
+        fab.calibrate([None, measured[1], None])
+        assert fab.bw_effective[0] == bw_before[0]
+        assert fab.bw_effective[2] == bw_before[2]
+        sw = pkg.KVSwapManager(view, reserve_fraction=0.2)
+        secs = sw._transfer_seconds([1], [2])
+        assert secs == pytest.approx(
+            fab.pool.page_bytes / (fab.bw_effective[2] * 1e9), rel=1e-6)
+        return trail, fab.bw_effective, secs
+    both(case)
+
+
+def test_occupancy_counts_reserved_pages_per_domain():
+    def case(pkg):
+        pool = pkg.pool(CFG, _doms(peer=20), page_size=4,
+                        dwp_config=pkg.dwp.DWPConfig())
+        pool.reserve_pages(1, 10)
+        assert pool.occupancy()["hbm_peer"] == 0.0
+        assert pool.used_pages()[1] == 0
+        taken = [pool.free[1].pop() for _ in range(len(pool.free[1]))]
+        assert pool.occupancy()["hbm_peer"] == 1.0
+        assert pool.used_pages()[1] == len(taken)
+        return taken, pool.occupancy(), pool.used_pages()
+    both(case)
+
+
+def test_trie_aware_admission_admits_shared_prefix_concurrently():
+    smoke = smoke_pair()
+
+    def case(pkg):
+        cfg, params = smoke[pkg.port]
+        ps = 4
+        prefix = list(range(1, 1 + 8 * ps))
+
+        def run(reuse: bool):
+            pool = pkg.pool(CFG, _doms(fast=8, peer=4, host=4),
+                            page_size=ps, dwp_config=pkg.dwp.DWPConfig())
+            sched = pkg.sched.RequestScheduler(pool, max_batch=2,
+                                               default_max_new=8,
+                                               conservative_admission=True)
+            eng = pkg.engine(cfg, params, pool, scheduler=sched,
+                             wall_clock=False, sim_step_s=0.001,
+                             prefix_reuse=reuse)
+            eng.submit(prefix + [7, 7])
+            eng.submit(prefix + [9, 9])
+            peak = steps = 0
+            trail = []
+            while (eng.active or eng.waiting) and steps < 200:
+                eng.step()
+                steps += 1
+                peak = max(peak, len(eng.scheduler.running))
+                trail.append([(s.sid, list(s.pages)) for s in eng.active])
+            assert len(eng.finished) == 2
+            eng.view.fabric.check_invariants()
+            return (peak, steps, pool.table.prefix_hit_pages, trail,
+                    {s.sid: s.tokens for s in eng.finished}), \
+                [pkg.host(pool.k_pool), pkg.host(pool.v_pool)]
+
+        (on, kv_on), (off, kv_off) = run(True), run(False)
+        assert on[0] == 2 and on[2] >= 8
+        assert off[0] == 1
+        assert on[1] < off[1]
+        return (on, off), kv_on + kv_off
+    both_close(case)

@@ -244,3 +244,411 @@ def test_pool_rebalance_identical_to_reference():
     np.testing.assert_array_equal(np.asarray(r.v_pool), t.v_pool.numpy())
     assert [list(f) for f in r.free] == [list(f) for f in t.free]
     assert r.page_bytes == t.page_bytes
+
+
+# ---------------------------------------------------------------------------
+# ``tests/test_placement.py``'s cases on both packages
+# (``_torch_parity.both``): the policy registry and its weights and counts,
+# the executor against its per-page oracle, the telemetry ring and counters,
+# pool migration, fallback and rebalance, the two-stage co-scheduled tuner,
+# the arbiter's unregister and interference, and the engine step's
+# telemetry. Each returns a record that must be equal on both. The arbiter's
+# other cases are in ``test_torch_arbiter.py``, the checkpoint staging
+# cases in ``test_torch_ckpt.py``.
+# ---------------------------------------------------------------------------
+
+from _torch_parity import both, smoke_pair  # noqa: E402
+
+BWS = (819.0, 50.0, 16.0)
+
+
+def _pctx(pkg, bws=BWS, pages=1000, workers=(0,), dwp=0.0, caps=None):
+    return pkg.policy.PlacementContext(
+        bandwidths=np.asarray(bws), num_pages=pages, workers=workers,
+        dwp=dwp, capacities=None if caps is None else np.asarray(caps))
+
+
+def _ppool(pkg, pages=64):
+    cfg, _ = _cfgs()
+    doms = (("hbm_local", pages // 2, 819.0, True),
+            ("hbm_peer", pages // 4, 50.0, False),
+            ("host", pages - pages // 2 - pages // 4, 16.0, False))
+    return pkg.pool(cfg, doms, page_size=4,
+                    dwp_config=pkg.dwp.DWPConfig(n=4, c=1))
+
+
+def _arr(pkg, a: np.ndarray):
+    return torch.from_numpy(a.copy()) if pkg.port else jnp.asarray(a)
+
+
+# -- policy registry ----------------------------------------------------------
+
+def test_registry_has_all_four_policies():
+    def case(pkg):
+        assert {"uniform", "bwap_canonical", "bwap_dwp",
+                "local_first"} <= set(pkg.policy.available())
+        with pytest.raises(KeyError):
+            pkg.policy.get("no_such_policy")
+        return sorted(pkg.policy.available())
+    both(case)
+
+
+@pytest.mark.parametrize("name,dwp", [("uniform", 0.0),
+                                      ("bwap_canonical", 0.0),
+                                      ("bwap_dwp", 0.4)],
+                         ids=["uniform_weights_are_equal",
+                              "canonical_weights_proportional_to_bw",
+                              "bwap_dwp_matches_core_dwp_weights"])
+def test_policy_weights(name, dwp):
+    """``test_uniform_weights_are_equal``,
+    ``test_canonical_weights_proportional_to_bw`` and
+    ``test_bwap_dwp_matches_core_dwp_weights``."""
+    def case(pkg):
+        w = pkg.policy.weights(name, _pctx(pkg, dwp=dwp))
+        bw = np.asarray(BWS)
+        want = {"uniform": np.full(3, 1 / 3), "bwap_canonical": bw / bw.sum(),
+                "bwap_dwp": pkg.interleave.dwp_weights(
+                    pkg.interleave.normalize(bw), [0], 0.4)}[name]
+        np.testing.assert_allclose(w, want)
+        return w
+    both(case)
+
+
+def test_local_first_fills_fastest_then_spills():
+    def case(pkg):
+        c = pkg.policy.get("local_first").counts(
+            _pctx(pkg, pages=150, caps=(100, 100, 100)))
+        np.testing.assert_array_equal(c, [100, 50, 0])
+        return c
+    both(case)
+
+
+def test_counts_respect_capacity_and_total():
+    def case(pkg):
+        ctx = _pctx(pkg, pages=1000, caps=(100, 600, 600))
+        out = {}
+        for name in pkg.policy.available():
+            c = pkg.policy.get(name).counts(ctx)
+            assert int(c.sum()) == 1000, name
+            assert (c <= np.asarray([100, 600, 600])).all(), name
+            out[name] = c
+        return out
+    both(case)
+
+
+def test_counts_raise_when_capacity_exceeded():
+    def case(pkg):
+        ctx = _pctx(pkg, pages=1000, caps=(100, 100, 100))
+        msgs = {}
+        for name in pkg.policy.available():
+            with pytest.raises(ValueError) as e:
+                pkg.policy.get(name).counts(ctx)
+            msgs[name] = str(e.value)
+        return msgs
+    both(case)
+
+
+def test_assign_fractions_follow_clamped_counts():
+    def case(pkg):
+        a = pkg.policy.assign("bwap_canonical",
+                              _pctx(pkg, pages=1024, caps=(64, 2000, 2000)))
+        counts = np.bincount(a, minlength=3)
+        assert counts[0] <= 64
+        assert counts.sum() == 1024
+        assert counts[1] > counts[2]
+        return a
+    both(case)
+
+
+# -- migration executor -------------------------------------------------------
+
+def test_executor_matches_per_page_oracle():
+    def case(pkg):
+        k = np.arange(2 * 16 * 3 * 2 * 4, dtype=np.float32).reshape(
+            2, 16, 3, 2, 4)
+        src, dst = [0, 3, 5, 7], [8, 9, 12, 15]
+        ex = pkg.executor.MigrationExecutor()
+        (bk, bv), res = ex.execute((_arr(pkg, k), _arr(pkg, 2 * k)), src,
+                                   dst)
+        (lk, lv), _ = ex.execute_looped((_arr(pkg, k), _arr(pkg, 2 * k)),
+                                        src, dst)
+        bk, bv, lk, lv = (pkg.host(x) for x in (bk, bv, lk, lv))
+        assert np.array_equal(bk, lk) and np.array_equal(bv, lv)
+        assert res.num_moves == 4
+        assert res.bytes_moved == 2 * 4 * (2 * 3 * 2 * 4 * 4)
+        return bk, bv, res.num_moves, res.bytes_moved
+    both(case)
+
+
+def test_executor_empty_moves_is_noop():
+    def case(pkg):
+        k = _arr(pkg, np.ones((1, 4, 2), np.float32))
+        (out,), res = pkg.executor.MigrationExecutor().execute((k,), [], [])
+        assert out is k and res.num_moves == 0
+        return res.num_moves, res.bytes_moved, res.pair_pages
+    both(case)
+
+
+def test_executor_copy_across_pools():
+    def case(pkg):
+        src = np.arange(1 * 8 * 2, dtype=np.float32).reshape(1, 8, 2)
+        (out,), res = pkg.executor.MigrationExecutor().copy(
+            (_arr(pkg, src),), (_arr(pkg, np.zeros((1, 12, 2), np.float32)),),
+            [1, 7], [0, 11])
+        out = pkg.host(out)
+        assert np.array_equal(out[:, 0], src[:, 1])
+        assert np.array_equal(out[:, 11], src[:, 7])
+        assert res.num_moves == 2
+        return out, res.num_moves, res.bytes_moved
+    both(case)
+
+
+def test_executor_records_pair_telemetry():
+    def case(pkg):
+        tel = pkg.telemetry.DomainTelemetry(["a", "b"])
+        ex = pkg.executor.MigrationExecutor(telemetry=tel)
+        ex.execute((_arr(pkg, np.ones((1, 8, 2), np.float32)),), [0, 1, 2],
+                   [4, 5, 6], src_domains=[0, 0, 0], dst_domains=[1, 1, 1])
+        assert tel.migrations_out[0] == 3
+        assert tel.migrations_in[1] == 3
+        assert tel.bytes_moved > 0
+        return tel.snapshot()
+    both(case)
+
+
+# -- telemetry ----------------------------------------------------------------
+
+def test_ring_overwrites_oldest():
+    def case(pkg):
+        r = pkg.telemetry.Ring(capacity=3)
+        for x in [1.0, 2.0, 3.0, 4.0]:
+            r.push(x)
+        np.testing.assert_array_equal(r.values(), [2.0, 3.0, 4.0])
+        assert r.last() == 4.0
+        assert len(r) == 3
+        return r.values(), r.last(), len(r)
+    both(case)
+
+
+def test_telemetry_snapshot_counters():
+    def case(pkg):
+        t = pkg.telemetry.DomainTelemetry(["fast", "slow"], ring_capacity=8)
+        t.record_alloc(0, 3)
+        t.record_free(0, 1)
+        t.record_migration(0, 1, pages=2, nbytes=256)
+        t.record_latency(0.5)
+        t.record_stall(1, 0.1)
+        s = t.snapshot()
+        assert s["domains"]["fast"]["allocs"] == 3
+        assert s["domains"]["fast"]["migr_out"] == 2
+        assert s["domains"]["slow"]["migr_in"] == 2
+        assert s["domains"]["slow"]["bytes_in"] == 256
+        assert s["latency_last_s"] == 0.5
+        assert s["executed_moves"] == 2
+        return s
+    both(case)
+
+
+# -- pool on the new runtime --------------------------------------------------
+
+def _pool_record(pkg, pool) -> dict:
+    return {"free": [list(f) for f in pool.free],
+            "k": pkg.host(pool.k_pool), "v": pkg.host(pool.v_pool),
+            "tel": pool.telemetry.snapshot()}
+
+
+def test_pool_migrate_sequence_is_batched_and_conserves_pages():
+    def case(pkg):
+        pool = _ppool(pkg, pages=64)
+        ids = [pool.alloc_page() for _ in range(12)]
+        for pid in ids:
+            pkg.put(pool, [pid], float(pid))
+        before_total = sum(len(f) for f in pool.free)
+        pool.tuner.dwp = 1.0
+        new_ids = pool.migrate_sequence(ids)
+        assert len(new_ids) == len(ids)
+        assert sum(len(f) for f in pool.free) == before_total
+        k = pkg.host(pool.k_pool)
+        for old, new in zip(ids, new_ids):
+            np.testing.assert_allclose(k[:, new], float(old))
+        moved = sum(1 for o, n in zip(ids, new_ids) if o != n)
+        assert pool.telemetry.snapshot()["executed_moves"] == moved > 0
+        return ids, list(new_ids), _pool_record(pkg, pool)
+    both(case)
+
+
+def test_pool_alloc_fallback_uses_precomputed_bw_order():
+    def case(pkg):
+        pool = _ppool(pkg, pages=16)
+        assert pool._bw_order[0] == 0
+        pool.free[0] = []
+        pid = pool.alloc_page()
+        assert pool.domain_of(pid) in (1, 2)
+        return list(pool._bw_order), pid
+    both(case)
+
+
+def test_pool_rebalance_grows_capacity_and_remaps():
+    def case(pkg):
+        pool = _ppool(pkg, pages=32)
+        ids = [pool.alloc_page() for _ in range(10)]
+        for pid in ids:
+            pkg.put(pool, [pid], float(pid) + 1.0)
+        id_map = pool.rebalance([24, 12, 12])
+        assert pool.total_pages == 48
+        assert [d.num_pages for d in pool.domains] == [24, 12, 12]
+        k = pkg.host(pool.k_pool)
+        for old in ids:
+            new = int(id_map[old])
+            assert new >= 0
+            np.testing.assert_allclose(k[:, new], float(old) + 1.0)
+        assert sum(len(p) for p in pool.live_pages()) == 10
+        assert sum(len(f) for f in pool.free) == 48 - 10
+        nxt = pool.alloc_page()
+        assert pool.domain_of(nxt) in (0, 1, 2)
+        return id_map, nxt, _pool_record(pkg, pool)
+    both(case)
+
+
+def test_pool_rebalance_spills_overfull_domain():
+    def case(pkg):
+        pool = _ppool(pkg, pages=32)
+        ids = []
+        while len(ids) < 12 and pool.free[0]:
+            ids.append(pool.free[0].pop())
+        id_map = pool.rebalance([8, 20, 4])
+        assert (id_map[np.asarray(ids)] >= 0).all()
+        doms = [pool.domain_of(int(id_map[p])) for p in ids]
+        assert sum(1 for d in doms if d == 0) == 8
+        assert all(d == 1 for d in doms if d != 0)
+        return id_map, doms, [list(f) for f in pool.free]
+    both(case)
+
+
+def test_pool_rebalance_raises_when_live_exceeds_capacity():
+    def case(pkg):
+        pool = _ppool(pkg, pages=32)
+        ids = [pool.alloc_page() for _ in range(20)]
+        with pytest.raises(ValueError) as e:
+            pool.rebalance([4, 4, 4])
+        return ids, str(e.value)
+    both(case)
+
+
+# -- two-stage co-scheduled search (paper §III-B3) ---------------------------
+
+def _cotune(pkg, stall_a, stall_b, max_periods=60):
+    canon = pkg.interleave.normalize(np.asarray([3.0, 2, 1, 1]))
+    t = pkg.dwp.CoScheduledTuner(canon, workers_b=[0, 1], num_pages=1024)
+    periods, trail = 0, []
+    while not t.done and periods < max_periods:
+        for _ in range(t.cfg.n):
+            t.record(stall_a(t.dwp), stall_b(t.dwp))
+        trail.append((t.stage, t.dwp, t.dwp_lower_bound))
+        periods += 1
+    return t, trail
+
+
+def test_cotuner_stage1_freezes_bound_where_a_stabilises():
+    def case(pkg):
+        t, trail = _cotune(pkg, lambda d: max(1.0 - d, 0.7), lambda d: 1.0)
+        assert t.stage == 2 or t.done
+        assert t.dwp_lower_bound == pytest.approx(0.3, abs=t.cfg.x + 1e-9)
+        return trail, t.assignment
+    both(case)
+
+
+def test_cotuner_stage2_respects_floor_when_optimum_below():
+    def case(pkg):
+        t, trail = _cotune(pkg, lambda d: max(1.0 - d, 0.6),
+                           lambda d: 1.0 + d)
+        assert t.done
+        assert t.dwp_lower_bound >= 0.4 - 1e-9
+        assert t.dwp >= t.dwp_lower_bound - 1e-9
+        return trail, t.assignment
+    both(case)
+
+
+def test_cotuner_stage2_climbs_above_bound_when_beneficial():
+    def case(pkg):
+        t, trail = _cotune(pkg, lambda d: 1.0, lambda d: 2.0 - d)
+        assert t.done
+        assert t.dwp == pytest.approx(1.0)
+        assert t.dwp > t.dwp_lower_bound
+        return trail, t.assignment
+    both(case)
+
+
+# -- domain arbiter -----------------------------------------------------------
+
+def _arbiter(pkg):
+    m = pkg.arbiter
+    specs = [m.DomainSpec("hbm_local", 64, 819.0),
+             m.DomainSpec("hbm_peer", 48, 50.0),
+             m.DomainSpec("host", 64, 16.0)]
+    return m.DomainArbiter(specs, page_size=4,
+                           **({"device": "cpu"} if pkg.port else {}))
+
+
+def test_arbiter_unregister_redistributes_quota():
+    def case(pkg):
+        cfg = pkg.cfg(_cfgs()[0])
+        P = pkg.arbiter.Priority
+        arb = _arbiter(pkg)
+        a = arb.register("A", cfg, priority=P.HIGH, share=0.5)
+        b = arb.register("B", cfg, priority=P.BEST_EFFORT, share=0.5)
+        pages = []
+        for _ in range(5):
+            a.view.append_page(pages)
+        before = list(pages)
+        quota_before, b_quota = a.quotas.copy(), b.quotas.copy()
+        grants = arb.unregister("B")
+        np.testing.assert_array_equal(a.quotas, quota_before + grants["A"])
+        np.testing.assert_array_equal(grants["A"], b_quota)
+        np.testing.assert_array_equal(a.view.quota, a.quotas)
+        assert pages == before
+        assert "B" not in arb.tenants and "B" not in arb.fabric.views
+        assert (arb.free == 0).all()
+        assert 1 not in arb._claimed_homes
+        arb.fabric.check_invariants()
+        return pages, a.quotas, grants, arb.free, sorted(arb._claimed_homes)
+    both(case)
+
+
+def test_arbiter_interference_tracks_foreign_residency():
+    def case(pkg):
+        cfg = pkg.cfg(_cfgs()[0])
+        P = pkg.arbiter.Priority
+        arb = _arbiter(pkg)
+        arb.register("A", cfg, priority=P.HIGH, share=0.4)
+        b = arb.register("B", cfg, priority=P.BEST_EFFORT, share=0.4)
+        base = arb.interference("A")
+        pages = []
+        while int(b.view.used_pages()[0]) < 4:
+            b.view.append_page(pages)
+        grown = arb.interference("A")
+        assert grown > base
+        b.view.release(pages)
+        return base, grown, pages
+    both(case)
+
+
+# -- engine surfaces telemetry ------------------------------------------------
+
+def test_engine_step_reports_telemetry():
+    smoke = smoke_pair()
+
+    def case(pkg):
+        cfg, params = smoke[pkg.port]
+        eng = pkg.engine(cfg, params, _ppool(pkg, pages=64), max_batch=2,
+                         max_new=3)
+        eng.submit([3, 5, 7, 11])
+        info = eng.step()
+        tel = info["telemetry"]
+        assert sum(d["allocs"] for d in tel["domains"].values()) > 0
+        assert tel["latency_last_s"] > 0
+        # the wall clock is in the latency: the record leaves it out
+        return {k: v for k, v in tel.items() if "latency" not in k}, \
+            eng.finished[0].tokens if eng.finished else \
+            eng.active[0].tokens
+    both(case)
