@@ -7,7 +7,9 @@ required top-level keys of the reference's ``BENCH_<x>.json``
     PYTHONPATH=src python -m benchmarks.torch_artifacts BENCH_torch_zoo.json
 
 The artifacts are written by ``benchmarks.torch_scheduler_bench``,
-``benchmarks.torch_obs_bench`` and ``benchmarks.torch_placement_bench``.
+``benchmarks.torch_serve_bench``, ``benchmarks.torch_obs_bench`` and
+``benchmarks.torch_placement_bench``, and all of them by
+``benchmarks.torch_run``.
 """
 
 from __future__ import annotations
@@ -27,10 +29,9 @@ def port_name(name: str) -> str:
 
 SCHEMAS = {port_name(n): keys for n, keys in artifacts.SCHEMAS.items()}
 
-# the artifacts the port's benchmarks write (the reference's
-# BENCH_serve.json has no port benchmark: tests/test_torch_spec.py holds
-# speculative decode against the reference instead)
-EXPECTED = tuple(n for n in SCHEMAS if n != "BENCH_torch_serve.json")
+# the artifacts the port's benchmarks write: one for each of the
+# reference's
+EXPECTED = tuple(SCHEMAS)
 
 
 def problems(name: str, data) -> list[str]:

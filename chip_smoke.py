@@ -50,7 +50,9 @@ Phases (each failed check raises; the script then exits non-zero):
    can tie exactly in either, and a tie passes either token; the gate of
    phases 4, 7 and 9-12);
 5. speculative decode at full width on a repetition-friendly trace, counters
-   zeroed again, verify steps through the prefill kernel;
+   zeroed again, verify steps through the prefill kernel; its tokens equal
+   greedy's on 8 of 8 sequences (gated: the decoder's weight products and
+   norms are row-invariant, phases 25 and 26);
 6. a ``torch.profiler`` window over 3 full-width decode steps: the device's
    busy share and the kernels that fill it (informational);
 7. full-width prefill: ``LM.prefill`` and ``make_eval_step`` of qwen2-0.5b
@@ -81,9 +83,11 @@ Phases (each failed check raises; the script then exits non-zero):
    multi-launch step and the first after a re-homing, each micro-batch's
    logits hold the plain version's (phase 4's gate) and its attention
    rows equal one full-batch launch's bit for bit; the tracer holds each
-   request's spans and one ``rehome`` span a re-homing step. Printed: the
-   counters beside ``BENCH_coda.json``'s, token agreement of the two
-   policies, p50 step times and launches a step, and the observatory's
+   request's spans and one ``rehome`` span a re-homing step; the two
+   policies' tokens equal on every request (a micro-batch's rows compute
+   the global batch's bits). Printed: the counters beside
+   ``BENCH_coda.json``'s, p50 step times and launches a step, and the
+   observatory's
    host cost (5 interleaved pairs with and without it: best of each,
    median paired difference, and the spread of the runs without it);
 11. the persistence tier at full width: qwen2-0.5b (phase 4's weights)
@@ -99,8 +103,10 @@ Phases (each failed check raises; the script then exits non-zero):
    demote 2 of 4 parked pages and promote them back, bit-equal; a 12-page
    range through ``export_range``, the wire and ``import_range`` into a
    second pool on the card, bit-equal, its sha256 the host copy's.
-   Printed: the cold restart's token agreement, the TTFT ratio beside
-   ``BENCH_persist.json``'s, synchronised wall ms of each step;
+   The cold restart's tokens equal the uninterrupted engine's (its
+   prefill runs other chunks, whose rows compute the same bits). Printed:
+   the TTFT ratio beside ``BENCH_persist.json``'s, synchronised wall ms of
+   each step;
 12. prefill/decode disaggregation at full width: ``disagg_run`` (a prefill
    host at page 4 hands each prompt's range over the Eq.-5-striped wire to
    a decode host at page 8; every Eq.-1 bandwidth x 48, the wire's links
@@ -108,8 +114,9 @@ Phases (each failed check raises; the script then exits non-zero):
    chunks). Gates: 10 handoffs, 10 converted imports, 0 fallbacks, both
    fabrics' invariants; the first handoff's re-chunked K/V equal the
    prefill host's token for token; the decode host's first decode step
-   over imported pages holds the plain logits. Printed: token agreement
-   with the single host, wire bytes beside ``BENCH_disagg.json``'s, and
+   over imported pages holds the plain logits; tokens equal the single
+   host's on every request. Printed: wire bytes beside
+   ``BENCH_disagg.json``'s, and
    the wall ms a handoff spends in export, serialize, deserialize,
    convert and import;
 13. the page-geometry zoo at full width: ``zoo_run`` (``zoo_compare``'s
@@ -123,9 +130,9 @@ Phases (each failed check raises; the script then exits non-zero):
    under static partitions, the zoo's invariants after every step, SSM
    and ASR digests equal across the modes and to the CPU smoke run's,
    the first decode step's logits against the plain version (phase 4's
-   gate), every paged launch on the tensor-core instance. Printed: steps,
-   goodput ratio and granted bytes beside ``BENCH_zoo.json``'s, token
-   agreement of the two modes, p50 zoo step;
+   gate), every paged launch on the tensor-core instance, the chat
+   tokens equal across the two modes. Printed: steps, goodput ratio and
+   granted bytes beside ``BENCH_zoo.json``'s, p50 zoo step;
 14. the placement executor on the card: ``torch_placement_bench.suite``
    at ``benchmarks/run.py``'s size (batched moves equal looped ones bit
    for bit, >= 5x faster), then 1024 moves at qwen2-0.5b's full-width
@@ -311,9 +318,35 @@ Phases (each failed check raises; the script then exits non-zero):
    refcounts, trie, cycle) must equal the card's; every prefill and
    verify step goes through ``paged_prefill_attention_batch`` and every
    decode step through ``paged_attention``, on the tensor-core instance,
-   and nothing launches flash. Logged, not gated: shared vs unshared
-   tokens, and the committed slots' K/V and tokens against greedy
-   (GEMM row counts differ).
+   and nothing launches flash; shared serving's tokens equal unshared
+   serving's, and after a rejected verify the committed slots' K/V and
+   the tokens equal greedy's (a row's bits do not depend on the GEMM's
+   row count);
+24. the entry points on the card: ``torch_serve_bench.speculative_compare``
+   at the reference's smoke config (zero failures and greedy's tokens
+   gated, the step ratio logged against the reference's 1.3), then
+   ``python -m benchmarks.torch_run --device cuda`` in its own process
+   (exit 0, every ``BENCH_torch_*.json`` written and passing
+   ``torch_artifacts.check()``; each section's seconds printed);
+25. the row-invariant kernels (``csrc/rowwise_matmul.cu``,
+   ``csrc/rowwise_rmsnorm.cu``; runs after phase 3): the product at every
+   weight shape of qwen2-0.5b, gemma-2b and qwen2-vl-7b (each weight the
+   transpose of a contiguous [N, K], as the decoder stores it on a card;
+   the tied heads the embedding's), bf16 and fp32: each row of launches of
+   1, 8, 40 rows at offsets 0, 7 and the end equal bit for bit to the same
+   row of a 256-row launch (the engine's largest prefill chunk); the RMS
+   error against an fp64 product no larger than ``torch.matmul``'s on the
+   same inputs (up to three standard errors); bf16 times at M = 8, 40,
+   256 beside ``torch.matmul`` and the bound. The RMSNorm at each model's
+   width, both dtypes: rows bit-equal across M, within two bf16 ulps of
+   the plain version; whether torch's own reduction keeps rows across M,
+   logged; times at M = 8 beside ``F.rms_norm`` and the bound;
+26. a row through the whole full-width decoder (qwen2-0.5b, phase 4's
+   weights; runs after phase 4): alone, in a batch-8 decode step and in
+   an 8 x 25 verify chunk, the same logits and K/V bit for bit, every
+   batch row equal to row 0 of its chunk; the same rows with the products
+   as ``a @ w`` and with the norms as torch's reduction, logged (F7's
+   cause).
 
 The lines before the last two are phases 19-22's records, then the
 kernels' JSON record (a row per entry
@@ -325,7 +358,12 @@ phase-3 inputs against the plain version, and their launches from phases
 16 and 17; the qwen2-0.5b
 paged rows also carry phases 10-13's ``coda_launches``,
 ``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
-summed over the zoo's two modes, and phase 23's ``contract_launches``) and the card's
+summed over the zoo's two modes, and phase 23's ``contract_launches``;
+then a ``rowwise_matmul`` and a ``rowwise_rmsnorm`` row at qwen2-0.5b,
+gemma-2b and qwen2-vl-7b, timed by phase 25 at decode (the head's
+product, the final norm), launched by that model's serving run, the
+qwen2-0.5b rows with phase 5's ``spec_launches`` and phase 10's
+``coda_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -334,6 +372,7 @@ card has none.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -380,6 +419,8 @@ SPIN_CYCLES = 1_000_000          # ~0.5 ms at the H100's clock
 torch = None
 kernel = ops = None              # paged attention
 fkernel = fops = None            # flash attention
+rkernel = rref = None            # row-invariant weight product
+nkernel = nref = None            # row-invariant RMSNorm
 
 
 class SmokeFailure(RuntimeError):
@@ -400,6 +441,29 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _reset_counts() -> None:
+    """Every kernel's launch counts to 0."""
+    for m in (kernel, fkernel, rkernel, nkernel):
+        m.reset_launch_counts()
+
+
+def _counts() -> dict:
+    """Every kernel's launch counts, by wrapper and instance."""
+    return {**kernel.LAUNCHES, **fkernel.LAUNCHES, **rkernel.LAUNCHES,
+            **nkernel.LAUNCHES}
+
+
+def _snap() -> list:
+    """The counts of the kernels a decode step launches, to put back after
+    launches made only to compare with a plain version (``_restore``)."""
+    return [(m, dict(m.LAUNCHES)) for m in (kernel, rkernel, nkernel)]
+
+
+def _restore(saved) -> None:
+    for m, counts in saved:
+        m.LAUNCHES.update(counts)
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -443,6 +507,8 @@ def phase_build() -> None:
     # warpgroups, or one for launches of at most 64 rows)
     _check_tensor_cores(build, "paged_attention", "paged_wgmma_kernel",
                         len(kernel.WGMMA_HEAD_DIMS) * len(kernel.ROUTES) * 2)
+    _check_tensor_cores(build, "rowwise_matmul", "rowwise_bf16", 1,
+                        op="HMMA")
     for h in kernel.WGMMA_HEAD_DIMS:
         check(kernel.layout(h) == (kernel.TILE_KEYS[h], kernel.CHUNK_TILES[h]),
               f"paged h={h}: built layout {kernel.layout(h)} != the "
@@ -491,10 +557,10 @@ def _short_names(build, mangled: list[str]) -> list[str]:
     return short
 
 
-def _check_tensor_cores(build, lib, tc_kernel, n_tc) -> None:
+def _check_tensor_cores(build, lib, tc_kernel, n_tc, op="HGMMA") -> None:
     """The ``n_tc`` tensor-core instances of library ``lib`` (the kernels
-    named ``tc_kernel``) have HGMMA instructions in their SASS
-    (``cuobjdump -sass``)."""
+    named ``tc_kernel``) have ``op`` instructions in their SASS
+    (``cuobjdump -sass``): HGMMA (wgmma) or HMMA (mma.sync)."""
     so = build.library_path(lib)
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True,
@@ -505,14 +571,14 @@ def _check_tensor_cores(build, lib, tc_kernel, n_tc) -> None:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and op in line:
             counts[fn] += 1
     wgmma = {k: v for k, v in counts.items() if tc_kernel in k}
     names = _short_names(build, list(counts))
-    log(f"SASS of {so.name}: HGMMA instructions per kernel "
+    log(f"SASS of {so.name}: {op} instructions per kernel "
         + ", ".join(f"{n} {v}" for n, v in zip(names, counts.values())))
     check(len(wgmma) == n_tc and all(v > 0 for v in wgmma.values()),
-          f"the tensor-core instances of {lib} lack HGMMA: {wgmma}")
+          f"the tensor-core instances of {lib} lack {op}: {wgmma}")
 
 
 # -- inputs --------------------------------------------------------------------
@@ -1078,10 +1144,9 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
     for prompt in prompts:
         eng.submit(prompt)
     logit_err = None
-    step_s, decode_s, prefill_steps = [], [], 0
+    step_s, decode_s, prefill_s = [], [], []
     torch.cuda.synchronize()
-    kernel.reset_launch_counts()
-    fkernel.reset_launch_counts()
+    _reset_counts()
     while eng.active or eng.waiting:
         if check_decode and logit_err is None:
             logit_err = _decode_plain_check(eng)
@@ -1091,11 +1156,12 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
         torch.cuda.synchronize()
         dt = time.perf_counter() - s0
         step_s.append(dt)
-        prefill_steps += eng.prefill_chunks_run > c0
+        if eng.prefill_chunks_run > c0:
+            prefill_s.append(dt)
         if eng.decode_steps > d0:
             decode_s.append(dt)
         check(len(step_s) < 10_000, "serving did not finish")
-    launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    launches = _counts()
     eng.view.fabric.check_invariants()
     reclaimed = (pool.free_count() + int(pool.reserved.sum())
                  == pool.total_pages and not pool.table.ref)
@@ -1103,11 +1169,12 @@ def serve(cfg, params, device, prompts, *, max_new=32, drafter=None,
     return dict(tokens={s.sid: list(s.tokens) for s in eng.finished},
                 produced=[s.produced for s in eng.finished],
                 finished=len(eng.finished), steps=len(step_s),
-                decode_steps=eng.decode_steps, prefill_steps=prefill_steps,
+                decode_steps=eng.decode_steps, prefill_steps=len(prefill_s),
                 prefill_chunks=eng.prefill_chunks_run,
                 verify_steps=spec["steps"], spec=spec, launches=launches,
                 reclaimed=reclaimed, wall_s=sum(step_s), step_s=step_s,
-                decode_s=decode_s, tokens_emitted=eng.tokens_emitted,
+                decode_s=decode_s, prefill_s=prefill_s,
+                tokens_emitted=eng.tokens_emitted,
                 layers=cfg.num_layers, logit_err=logit_err)
 
 
@@ -1132,14 +1199,14 @@ def _decode_plain_check(eng):
     toks = np.asarray([[s.tokens[-1]] for s in seqs], np.int64)
     args = (d._t(toks), d._t(tables, torch.int32), d._t(lens, torch.int32),
             d._t(lens))
-    saved = dict(kernel.LAUNCHES)
+    saved = _snap()
     fast = d.decode_step(*args).float()
     impl, d.impl = d.impl, "reference"
     try:
         plain = d.decode_step(*args).float()
     finally:
         d.impl = impl
-    kernel.LAUNCHES.update(saved)
+    _restore(saved)
     err, ties = _logits_gate(fast, plain, "decode step")
     log(f"decode step, kernel vs plain version, full width: max |logit "
         f"diff| {err:.4g} (bf16 gate {LOGIT_TOL}; |logit| up to "
@@ -1213,6 +1280,27 @@ def _check_instances(cfg, r) -> None:
           f"{inst}")
 
 
+def _check_rowwise(cfg, r) -> None:
+    """Every weight product and norm of serving run ``r`` went through the
+    row-invariant kernels, on the instance the compute dtype selects: a
+    forward runs 4 attention and 2 or 3 MLP products and 2 norms a layer,
+    and the head and the final norm where it returns logits (a decode
+    launch or a verify step, not a prefill step)."""
+    nl, n = cfg.num_layers, r["launches"]
+    per_layer = 4 + (3 if cfg.act in ("silu", "geglu") else 2)
+    logits = n["paged_attention"] // nl + r["verify_steps"]
+    prefill = r["prefill_steps"]
+    want_mm = logits * (per_layer * nl + 1) + prefill * per_layer * nl
+    want_norm = logits * (2 * nl + 1) + prefill * 2 * nl
+    inst = rkernel.instance(getattr(torch, cfg.compute_dtype))
+    check(n["rowwise_matmul"] == want_mm and n[inst] == want_mm,
+          f"{cfg.name}: {n['rowwise_matmul']} row-invariant products "
+          f"({n[inst]} on {inst}), want {want_mm}")
+    check(n["rowwise_rmsnorm"] == want_norm,
+          f"{cfg.name}: {n['rowwise_rmsnorm']} row-invariant norms, want "
+          f"{want_norm}")
+
+
 def _report(tag, r) -> None:
     p50 = float(np.median(r["step_s"])) * 1e3
     dec = sum(r["decode_s"])
@@ -1253,6 +1341,7 @@ def phase_serve(device, cfg) -> dict:
     check(r["reclaimed"], "pool not fully reclaimed")
     check(r["logit_err"] is not None, "decode check never ran")
     _check_instances(cfg, r)
+    _check_rowwise(cfg, r)
     return dict(cfg=cfg, params=params, greedy=r, prompts=prompts)
 
 
@@ -1281,15 +1370,17 @@ def phase_spec(device, cfg, params) -> dict:
           == (spec["decode_steps"] - spec["verify_steps"]) * nl,
           "a plain decode step did not go through the decode kernel")
     _check_instances(cfg, spec)
-    same = greedy["tokens"] == spec["tokens"]
-    differ = sum(greedy["tokens"][k] != spec["tokens"].get(k)
-                 for k in greedy["tokens"])
+    _check_rowwise(cfg, spec)
+    same = sum(greedy["tokens"][k] == spec["tokens"].get(k)
+               for k in greedy["tokens"])
     log(f"speculative: drafted {spec['spec']['drafted']}, accepted "
         f"{spec['spec']['accepted']}, {spec['verify_steps']} verify steps, "
         f"decode steps {spec['decode_steps']} vs greedy "
-        f"{greedy['decode_steps']}; tokens equal greedy's: {same} "
-        f"({differ} of 8 sequences differ; an observation, not a gate: "
-        f"CUDA matmul rounding depends on shape)")
+        f"{greedy['decode_steps']}; tokens equal greedy's on {same} of 8 "
+        f"sequences (gated: the weight products and norms are "
+        f"row-invariant, so a verify row computes greedy's bits)")
+    check(same == 8 and spec["finished"] == greedy["finished"] == 8,
+          f"speculative tokens equal greedy's on {same} of 8 sequences")
     return spec
 
 
@@ -1548,14 +1639,14 @@ def _plain_gate(eng, seqs, what) -> tuple[float, int]:
     toks = np.asarray([[s.tokens[-1]] for s in seqs], np.int64)
     args = (d._t(toks), d._t(tables, torch.int32),
             d._t(lens, torch.int32), d._t(lens))
-    saved = dict(kernel.LAUNCHES)
+    saved = _snap()
     fast = d.decode_step(*args).float()
     impl, d.impl = d.impl, "reference"
     try:
         plain = d.decode_step(*args).float()
     finally:
         d.impl = impl
-    kernel.LAUNCHES.update(saved)
+    _restore(saved)
     return _logits_gate(fast, plain, what)
 
 
@@ -1663,8 +1754,7 @@ def _coda_run(cfg, params, device, trace, policy, *, obs=True,
         eng.submit(t.prompt, max_new=t.max_new, arrival_s=t.arrival_s)
     infos, step_s = [], []
     torch.cuda.synchronize()
-    kernel.reset_launch_counts()
-    fkernel.reset_launch_counts()
+    _reset_counts()
     while eng.active or eng.waiting:
         c0 = eng.prefill_chunks_run
         s0 = time.perf_counter()
@@ -1675,7 +1765,7 @@ def _coda_run(cfg, params, device, trace, policy, *, obs=True,
                           rehomed=info.get("rehomed", 0),
                           prefill=eng.prefill_chunks_run > c0))
         check(len(infos) < 3000, "coda serving did not finish")
-    launches = {**kernel.LAUNCHES, **fkernel.LAUNCHES}
+    launches = _counts()
     view.fabric.check_invariants()
     reclaimed = (pool.free_count() + int(pool.reserved.sum())
                  == pool.total_pages and not pool.table.ref)
@@ -1762,8 +1852,10 @@ def phase_coda(device, cfg, params) -> dict:
         f"pages' K/V equal their sources on {len(coda['remapped'])} "
         f"re-homings; {len(tr.events)} trace events")
     log(f"coda vs bwap_dwp tokens equal for {same} of {len(trace)} requests "
-        f"(an observation, not a gate: bf16 GEMM bits depend on the "
-        f"micro-batch's shape)")
+        f"(gated: a micro-batch's rows compute the global batch's bits)")
+    check(same == len(trace) == len(glob["tokens"]),
+          f"coda vs bwap_dwp tokens equal for {same} of {len(trace)} "
+          f"requests")
     for r in (coda, glob):
         dec = [s for s, i in zip(r["step_s"], r["infos"]) if i["launches"]]
         ls = [i["launches"] for i in r["infos"] if i["launches"]]
@@ -1989,9 +2081,13 @@ def phase_persist(device, cfg, params) -> dict:
         f"(BENCH_persist.json: {want}); warm restart tokens equal the "
         f"uninterrupted engine's on {len(r['warm']['tokens'])} of "
         f"{len(r['warm']['tokens'])}; cold restart on {same} of "
-        f"{len(r['cold']['tokens'])} (an observation: its bf16 prefill "
-        f"runs other chunks); TTFT cold/warm {ratio:.4f} on the virtual "
-        f"clock (BENCH_persist.json: {bench['ttft_cold_over_warm']:.4f})")
+        f"{len(r['cold']['tokens'])} (gated: its prefill runs other chunks, "
+        f"whose rows compute the same bits); TTFT cold/warm {ratio:.4f} on "
+        f"the virtual clock (BENCH_persist.json: "
+        f"{bench['ttft_cold_over_warm']:.4f})")
+    check(same == len(r["cold"]["tokens"]) == len(r["oracle"]["tokens"]),
+          f"cold restart tokens equal the uninterrupted engine's on {same} "
+          f"of {len(r['cold']['tokens'])}")
     log(f"warm restart's first decode step ({g.rows} rows over restored "
         f"pages): logits max |diff| {g.err:.4g} (gate {LOGIT_TOL}), "
         f"{g.ties} exact ties; demote/promote of 2 of 4 prefill pages and "
@@ -2083,8 +2179,12 @@ def phase_disagg(device, cfg, params) -> dict:
         f"TTFT-weighted goodput ratio {ratio:.4f} on the virtual clock "
         f"({bench['ttft_goodput_ratio']:.4f}); single-host steps "
         f"{single['steps']} ({bench['single']['steps']}); tokens equal to "
-        f"the single host's for {same} of {n} requests (an observation: "
-        f"the decode host re-prefills only the tail page)")
+        f"the single host's for {same} of {n} requests (gated: the "
+        f"decode host re-prefills only the tail page, whose rows compute "
+        f"the single host's bits)")
+    check(same == n == len(single["tokens"]),
+          f"disaggregation: tokens equal the single host's for {same} of "
+          f"{n} requests")
     log(f"first handoff: decode host's re-chunked K/V equal the prefill "
         f"host's token for token; decode host's first decode step "
         f"({g.rows} rows over imported pages): logits max |diff| "
@@ -2202,8 +2302,11 @@ def phase_zoo(device, cfg, params) -> dict:
     log(f"zoo digests equal across modes and to the CPU smoke run's: SSM "
         f"{mkt['ssm_digests']}, ASR {mkt['asr_digests']}; chat tokens "
         f"market vs static equal for {same} of {len(mkt['tokens'])} "
-        f"requests (an observation, not a gate: each mode batches "
-        f"differently, so bf16 GEMM bits differ)")
+        f"requests (gated: each mode batches differently, and a row's "
+        f"bits do not depend on its batch)")
+    check(same == len(mkt["tokens"]) == len(sta["tokens"]),
+          f"zoo: chat tokens market vs static equal for {same} of "
+          f"{len(mkt['tokens'])} requests")
     for mode, r in runs.items():
         g = r["gate"]
         log(f"zoo ({mode}): p50 zoo step {np.median(r['step_ms']):.2f} ms "
@@ -4860,10 +4963,13 @@ def _contract_sharing(device, cfg, params, tally):
     check(on.prefill_tokens_computed < off.prefill_tokens_computed,
           "sharing computed no fewer prefill tokens")
     same = sum(_c_tokens(on)[k] == v for k, v in _c_tokens(off).items())
+    check(same == 3, f"sharing: tokens equal unshared serving's on "
+          f"{same}/3 sequences")
     return rec, f"prefix-hit pages {hits}, prefill tokens " \
         f"{on.prefill_tokens_computed} vs {off.prefill_tokens_computed} " \
         f"unshared; tokens equal unshared serving's on {same}/3 sequences " \
-        f"(logged: the prefill shapes differ)"
+        f"(gated: shared pages hold the bits a row-invariant prefill " \
+        f"writes)"
 
 
 def _contract_cow(device, cfg, params, tally):
@@ -5093,10 +5199,14 @@ def _contract_rollback(device, cfg, params, tally):
     check(_c_reclaimed(g.view.pool) and _c_reclaimed(s.view.pool),
           "rollback: a pool not reclaimed")
     same = sum(_c_tokens(g)[k] == v for k, v in _c_tokens(s).items())
+    check(max(diff) == 0 and same == 2,
+          f"rollback: committed slots' K/V max |diff| {max(diff):.4g} "
+          f"against greedy, tokens equal greedy's on {same}/2 sequences")
     return (rec, sp["drafted"]), \
         f"drafted {sp['drafted']}, accepted 0; committed slots' K/V max " \
-        f"|diff| {max(diff):.4g} against greedy (logged); tokens equal " \
-        f"greedy's on {same}/2 sequences (logged)"
+        f"|diff| {max(diff):.4g} against greedy; tokens equal greedy's on " \
+        f"{same}/2 sequences (both gated: a verify row computes a decode " \
+        f"row's bits)"
 
 
 def _contract_pressure(device, cfg, params, tally):
@@ -5234,10 +5344,335 @@ def phase_contract(device, cfg, params) -> dict:
     return {"launches": launches}
 
 
+# -- phase 24 ------------------------------------------------------------------
+
+SERVE_MIN_RATIO = 1.3            # serve_bench.speculative_compare's gate
+
+
+def phase_entry_points(device) -> None:
+    """Phase 24: ``torch_serve_bench.speculative_compare`` on the card at
+    the reference's smoke config (seeded random params): zero failed
+    requests and greedy's tokens, gated; the decode-step ratio logged
+    against the reference's 1.3 (its counters follow the params). Then
+    ``python -m benchmarks.torch_run --device cuda`` in a process of its
+    own: exit 0, which includes its ``torch_artifacts.check()``, and the
+    check again here; each section's seconds printed."""
+    from benchmarks import torch_artifacts, torch_serve_bench
+    t0 = time.perf_counter()
+    rows = torch_serve_bench.speculative_compare(device=device, check=False)
+    g, sp = rows["greedy"], rows["speculative"]
+    check(g["failed"] == 0 and sp["failed"] == 0,
+          f"phase 24: failed requests greedy {g['failed']}, speculative "
+          f"{sp['failed']}")
+    check(rows["token_identical"],
+          "phase 24: speculative tokens differ from greedy's")
+    log(f"phase 24, speculative_compare on the card: decode steps "
+        f"{g['decode_steps']} greedy / {sp['decode_steps']} speculative, "
+        f"ratio {rows['decode_step_ratio']:.3f} (the reference's gate "
+        f"{SERVE_MIN_RATIO}, logged), drafted {sp['spec']['drafted']}, "
+        f"accepted {sp['spec']['accepted']}, tokens equal greedy's "
+        f"(gated), {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "benchmarks.torch_run", "--device", "cuda"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": f"{SRC}:{ROOT}"},
+        capture_output=True, text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        if line.startswith(("[section", "[port artifacts", "[benchmarks")):
+            log(f"  torch_run {line}")
+    check(r.returncode == 0, f"phase 24: benchmarks.torch_run exited "
+          f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    torch_artifacts.check()
+    log(f"phase 24: torch_run {time.perf_counter() - t1:.1f} s, the phase "
+        f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
+
+
+# -- phases 25 and 26 ----------------------------------------------------------
+
+ROW_ARCHS = ("qwen2-0.5b", "gemma-2b", "qwen2-vl-7b")
+# rows a weight product runs: a row alone, decode at batch 8, a verify step
+# of 8 sequences x (1 + 4 drafts) (phase 5's drafter), the engine's largest
+# prefill chunk (RequestScheduler's prefill_token_budget, 256 tokens)
+ROW_M = (1, 8, 40, 256)
+ROW_TIMED = (8, 40, 256)
+VERIFY_T = 25                    # the layer check's verify chunk: 8 x 25
+
+
+def _row_products():
+    """{(K, N, tied): [arch product, ...]} over the served decoders' weight
+    products (their K and V projections share a shape, as do gate and
+    up); ``tied`` is a head read as the embedding's transpose."""
+    from repro_torch.configs import registry
+    out = {}
+    for arch in ROW_ARCHS:
+        cfg = registry.get_config(arch)
+        d, ff = cfg.d_model, cfg.d_ff
+        q = cfg.num_heads * cfg.head_dim_
+        kv = cfg.num_kv_heads * cfg.head_dim_
+        for name, k, n, tied in (
+                ("wq", d, q, False), ("wk/wv", d, kv, False),
+                ("wo", q, d, False), ("w_gate/w_up", d, ff, False),
+                ("w_down", ff, d, False),
+                ("head", d, cfg.vocab_size, cfg.tie_embeddings)):
+            out.setdefault((k, n, tied), []).append(f"{arch} {name}")
+    return out
+
+
+def _rms(x) -> float:
+    return float(x.double().square().mean().sqrt())
+
+
+def _row_bound(m, k, n) -> tuple[float, str]:
+    """Least ms of a bf16 [m, k] @ [k, n]: its bytes (each input read
+    once, the output written once) at the HBM rate, or 2mnk flops at the
+    bf16 dense peak, whichever is larger."""
+    t_mem = 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    t_ops = 2 * m * n * k / PEAK_FLOPS["bfloat16"]
+    return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else \
+        "operations"
+
+
+def _row_case(k, n, tied, dtype, gen, what) -> tuple:
+    """One product shape in one dtype: every row of launches of M in
+    ``ROW_M`` rows, at offsets 0, 7 and the end of a 256-row input, equal
+    bit for bit to the same row of the 256-row launch; the kernel's RMS
+    error against an fp64 product no larger than ``torch.matmul``'s on
+    the same inputs, up to three standard errors of an RMS over the
+    outputs (1 + 3 / sqrt(n)). Returns (a, w, log text)."""
+    big = max(ROW_M)
+    a = torch.randn(big, k, generator=gen, device="cuda").to(dtype)
+    # [N, K] stored, read as .T: an embedding table, or a projection as
+    # the decoder stores it on a card (rowwise_matmul.ops.weight)
+    scale = 0.02 if tied else k ** -0.5
+    w = (torch.randn(n, k, generator=gen, device="cuda") * scale).to(dtype).T
+    whole = rkernel.rowwise_matmul(a, w)
+    for m in ROW_M[:-1]:
+        for lo in sorted({0, 7, big - m}):
+            part = rkernel.rowwise_matmul(a[lo:lo + m], w)
+            check(torch.equal(part, whole[lo:lo + m]),
+                  f"rowwise_matmul {what} {dtype}: rows {lo}..{lo + m} of "
+                  f"an M = {m} launch differ from the M = {big} launch's")
+    want = a.double() @ w.double()
+    lib = torch.matmul(a, w)
+    e_k, e_l = _rms(whole.double() - want), _rms(lib.double() - want)
+    x_k = float((whole.double() - want).abs().max())
+    x_l = float((lib.double() - want).abs().max())
+    del want
+    margin = 1 + 3 / whole.numel() ** 0.5
+    check(e_k <= e_l * margin,
+          f"rowwise_matmul {what} {dtype}: RMS error vs fp64 {e_k:.4g} > "
+          f"torch.matmul's {e_l:.4g} x {margin:.5f}")
+    return a, w, (f"RMS err vs fp64 {e_k:.4g} (torch.matmul {e_l:.4g}), max "
+                  f"{x_k:.4g} ({x_l:.4g})")
+
+
+def _norm_case(d, dtype, gen, arch) -> tuple:
+    """The RMSNorm kernel at width ``d``: rows of M-row launches equal bit
+    for bit to the same rows of a 256-row launch; within two bf16 ulps of
+    the plain version (fp32: 1e-6 relative); whether torch's own reduction
+    (the plain version on the card) keeps rows across M, logged."""
+    big = max(ROW_M)
+    x = (torch.randn(big, d, generator=gen, device="cuda") * 3).to(dtype)
+    g = torch.randn(d, generator=gen, device="cuda") * 0.1
+    whole = nkernel.rmsnorm(x, g, 1e-6)
+    plain = nref.rmsnorm_ref(x, g, 1e-6)
+    torch_rows = True
+    for m in ROW_M[:-1]:
+        check(torch.equal(nkernel.rmsnorm(x[:m], g, 1e-6), whole[:m]),
+              f"rowwise_rmsnorm {arch} d {d} {dtype}: rows of an M = {m} "
+              f"launch differ from the M = {big} launch's")
+        torch_rows &= torch.equal(nref.rmsnorm_ref(x[:m], g, 1e-6),
+                                  plain[:m])
+    err = (whole.float() - plain.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = BF16_ULPS[0] * plain.float().abs() + BF16_ULPS[1]
+    else:
+        bound = 1e-6 * plain.abs() + 1e-7
+    check(bool((err <= bound).all()),
+          f"rowwise_rmsnorm {arch} d {d} {dtype}: max |err| vs the plain "
+          f"version {float(err.max()):.4g}")
+    return x, g, float(err.max()), torch_rows
+
+
+def phase_rowwise() -> dict:
+    """Phase 25: the row-invariant product at every weight shape of the
+    served decoders and the RMSNorm at their widths, in bf16 and fp32;
+    times (bf16) against torch.matmul / F.rms_norm and the bound. Returns
+    the kernels line's rows a model (the head's product at decode, the
+    final norm at decode)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    card = smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = {}
+    for (k, n, tied), users in _row_products().items():
+        what = f"[{k} x {n}{', tied' if tied else ''}] ({', '.join(users)})"
+        for dtype in (torch.float32, torch.bfloat16):
+            a, w, text = _row_case(k, n, tied, dtype, gen, what)
+            line = f"rowwise_matmul {what} {str(dtype)[6:]}: rows bit-equal " \
+                   f"across M {ROW_M}; {text}"
+            if dtype == torch.bfloat16:
+                times = []
+                for m in ROW_TIMED:
+                    ms = _timed(lambda: rkernel.rowwise_matmul(a[:m], w))
+                    lib = _timed(lambda: torch.matmul(a[:m], w))
+                    bound, by = _row_bound(m, k, n)
+                    times.append(f"M {m}: {ms:.5f} ms (torch.matmul "
+                                 f"{lib:.5f}, bound {bound:.5f}, {by})")
+                    if m == 8 and any(u.endswith(" head") for u in users):
+                        plain = _timed(
+                            lambda: rref.rowwise_matmul_ref(a[:m], w),
+                            iters=5)
+                        want = rref.rowwise_matmul_ref(a[:m], w).float()
+                        err = (rkernel.rowwise_matmul(a[:m], w).float()
+                               - want).abs()
+                        check(bool((err <= BF16_ULPS[0] * want.abs()
+                                    + BF16_ULPS[1]).all()),
+                              f"rowwise_matmul {what}: max |err| vs the "
+                              f"plain version {float(err.max()):.4g}")
+                        for u in users:
+                            rows[u.split()[0]] = dict(
+                                ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by=by, library_ms=lib,
+                                max_abs_err=float(err.max()),
+                                shape=f"[8, {k}] x [{k}, {n}]"
+                                      f"{' tied' if tied else ''}")
+                line += "; " + "; ".join(times) + f" -- {card}"
+            log(line)
+            del a, w
+    norms = {}
+    for arch in ROW_ARCHS:
+        d = registry.get_config(arch).d_model
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, err, torch_rows = _norm_case(d, dtype, gen, arch)
+            line = (f"rowwise_rmsnorm {arch} d {d} {str(dtype)[6:]}: rows "
+                    f"bit-equal across M {ROW_M}, max |err| vs the plain "
+                    f"version {err:.4g}; torch's reduction keeps rows "
+                    f"across M: {torch_rows}")
+            if dtype == torch.bfloat16:
+                m = 8
+                ms = _timed(lambda: nkernel.rmsnorm(x[:m], g, 1e-6))
+                plain = _timed(lambda: nref.rmsnorm_ref(x[:m], g, 1e-6))
+                w1 = 1 + g       # the library's weight, made once
+                lib = _timed(lambda: F.rms_norm(x[:m], (d,), w1, 1e-6)) \
+                    if hasattr(F, "rms_norm") else None
+                bound = 1e3 * (2 * 2 * m * d + 4 * d) / HBM_BYTES_PER_S
+                norms[arch] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                   bound_by="bytes", library_ms=lib,
+                                   shape=f"[8, {d}]", max_abs_err=err)
+                line += (f"; M 8: {ms:.5f} ms (plain {plain:.5f}, "
+                         f"F.rms_norm {lib if lib is None else f'{lib:.5f}'}, "
+                         f"bound {bound:.5f}, bytes) -- {card}")
+            log(line)
+    torch.cuda.empty_cache()
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return {"matmul": rows, "rmsnorm": norms}
+
+
+def _fill_pool(pool, gen) -> None:
+    """Every slot of the pool holds random K/V (a prefix the layer check's
+    rows attend over, the same for every variant)."""
+    for t in (pool.k_pool, pool.v_pool):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device))
+
+
+def _row_variants(dec, starts, toks, tables):
+    """Sequence 3's first verify row through the whole decoder (every
+    layer's norms, products and attention, and the head) three ways: a
+    decode step of it alone, a decode step of all 8 sequences, and an 8 x
+    ``VERIFY_T`` verify chunk; also every sequence's row of the batch-8
+    decode and of the chunk. Returns the logits and the K/V the row wrote
+    (every layer) after each."""
+    ps = dec.view.page_size
+    pool = dec.view.pool
+    b = len(starts)
+    out = {}
+
+    def kv_at(i):
+        pos = int(starts[i])
+        pid = int(tables[i, pos // ps])
+        return (pool.k_pool[:, pid, pos % ps].clone(),
+                pool.v_pool[:, pid, pos % ps].clone())
+
+    def decode(idx):
+        t = torch.as_tensor(tables[idx], device=dec.device)
+        st = torch.as_tensor(starts[idx], device=dec.device)
+        tk = torch.as_tensor(toks[idx, :1], device=dec.device)
+        return dec.decode_step(tk, t, st.to(torch.int32), st)
+    out["alone"] = (decode([3])[0], kv_at(3))
+    batch = decode(list(range(b)))
+    out["batch"] = (batch[3], kv_at(3))
+    chunks = [(toks[i].tolist(), tables[i].tolist(), int(starts[i]))
+              for i in range(b)]
+    chunk = dec.forward_chunks(chunks, want_logits=True)
+    out["chunk"] = (chunk[3, 0], kv_at(3))
+    out["rows"] = torch.equal(batch, chunk[:, 0])
+    return out
+
+
+def phase_layer_rows(device, cfg, params) -> None:
+    """Phase 26: one row through the full-width decoder (phase 4's
+    weights) alone, inside a batch-8 decode step and inside an 8 x 25
+    verify chunk must give the same logits and write the same K/V, bit
+    for bit; every row of the batch-8 step must equal row 0 of its chunk.
+    Then the same rows with the products as ``a @ w`` (a library GEMM) and
+    with the norms as torch's reduction, logged: what F7 was."""
+    from repro_torch.models import layers as L
+    from repro_torch.placement.pool import BwapPagePool
+    from repro_torch.serve.engine import PagedDecoder
+    t0 = time.perf_counter()
+    pool = BwapPagePool(cfg, _domains(), page_size=PS, device=device)
+    dec = PagedDecoder(cfg, params, pool)
+    gen = torch.Generator(device=device).manual_seed(26)
+    rng = np.random.default_rng(26)
+    b = 8
+    starts = rng.integers(100, 700, b)
+    mp = -(-(int(starts.max()) + VERIFY_T) // PS)
+    tables = np.arange(b * mp, dtype=np.int32).reshape(b, mp)
+    toks = rng.integers(1, cfg.vocab_size, (b, VERIFY_T))
+    _fill_pool(pool, gen)
+    got = _row_variants(dec, starts, toks, tables)
+    for name in ("batch", "chunk"):
+        check(torch.equal(got[name][0], got["alone"][0]),
+              f"phase 26: sequence 3's logits {name} differ from alone")
+        check(all(torch.equal(x, y) for x, y in zip(got[name][1],
+                                                      got["alone"][1])),
+              f"phase 26: sequence 3's K/V written {name} differ from "
+              f"alone")
+    check(got["rows"], "phase 26: a batch-8 decode row differs from row 0 "
+          "of its verify chunk")
+    seen = {}
+    for what, mm, norm in (
+            ("the products as a library GEMM (a @ w)", lambda a, w: a @ w,
+             None),
+            ("the norms as torch's reduction", None,
+             lambda p, x: L.apply_norm(cfg, p, x))):
+        if mm is not None:
+            dec._mm = mm
+        if norm is not None:
+            dec._norm = norm
+        _fill_pool(pool, gen.manual_seed(26))
+        r = _row_variants(dec, starts, toks, tables)
+        seen[what] = (torch.equal(r["batch"][0], r["alone"][0]),
+                      torch.equal(r["chunk"][0], r["alone"][0]),
+                      r["rows"])
+        dec.__dict__.pop("_mm", None)
+        dec.__dict__.pop("_norm", None)
+    log(f"phase 26 ({cfg.name}, {cfg.num_layers} layers, {cfg.compute_dtype}"
+        f", positions {starts.tolist()}): a row alone, in a batch-8 decode "
+        f"step and in an 8 x {VERIFY_T} verify chunk gives equal logits and "
+        f"K/V bit for bit, every batch row equal to its chunk's row 0. "
+        + "; ".join(f"with {w}: batch = alone {a}, chunk = alone {c}, "
+                    f"batch rows = chunk rows {rr}"
+                    for w, (a, c, rr) in seen.items())
+        + f" -- {time.perf_counter() - t0:.1f} s, {smi_line()}")
+
+
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
-    global torch, kernel, ops, fkernel, fops
+    global torch, kernel, ops, fkernel, fops, rkernel, rref, nkernel, nref
     import torch as _torch
     torch = _torch
     if not torch.cuda.is_available():
@@ -5253,7 +5688,12 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as _fo
     from repro_torch.kernels.paged_attention import kernel as _k
     from repro_torch.kernels.paged_attention import ops as _o
+    from repro_torch.kernels.rowwise_matmul import kernel as _rk
+    from repro_torch.kernels.rowwise_matmul import ref as _rr
+    from repro_torch.kernels.rowwise_rmsnorm import kernel as _nk
+    from repro_torch.kernels.rowwise_rmsnorm import ref as _nr
     kernel, ops, fkernel, fops = _k, _o, _fk, _fo
+    rkernel, rref, nkernel, nref = _rk, _rr, _nk, _nr
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -5268,9 +5708,17 @@ def main() -> int:
     done("2")
     times = phase_timing()
     done("3")
+    t_new = time.perf_counter()
+    rowwise = phase_rowwise()
+    added = time.perf_counter() - t_new      # phases 24-26's seconds
+    done("25")
     from repro_torch.configs import registry
     s = phase_serve(device, registry.get_config("qwen2-0.5b"))
-    phase_spec(device, s["cfg"], s["params"])
+    t_new = time.perf_counter()
+    phase_layer_rows(device, s["cfg"], s["params"])
+    added += time.perf_counter() - t_new
+    done("4, 26")
+    spec = phase_spec(device, s["cfg"], s["params"])
     phase_profile(device, s["cfg"], s["params"])
     done("4-6")
     flash_launches = {
@@ -5316,6 +5764,10 @@ def main() -> int:
         if n:                              # a model with a flash row
             fam[tag]["flash"] += n
     done("22")
+    t_new = time.perf_counter()
+    phase_entry_points(device)
+    added += time.perf_counter() - t_new
+    done("24")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
               "gemma-2b": g["greedy"]["launches"],
               "qwen2-vl-7b": fam["qwen2-vl-7b"]["served"]}
@@ -5379,7 +5831,35 @@ def main() -> int:
                 rows[-1]["disagg_launches"] = disagg["launches"][name]
                 rows[-1]["zoo_launches"] = zoo["launches"][name]
                 rows[-1]["contract_launches"] = contract["launches"][name]
-    log(f"total {time.perf_counter() - t0:.1f} s")
+    # the row-invariant kernels replace no pallas_call: "replaces" names
+    # the reference decoder's XLA code they stand for (its products and
+    # norms, src/repro/serve/engine.py); each row's time is one shape of
+    # phase 25 at decode (the head's product, the final norm), its
+    # launches a model's phase-4 serving run (phase 9 for gemma-2b, 16 for
+    # qwen2-vl-7b), and on qwen2-0.5b phase 5's and 10's runs too
+    ref_engine = "src/repro/serve/engine.py"
+    for tag in ROW_ARCHS:
+        for name, key, src, replaces in (
+                ("rowwise_matmul", "matmul",
+                 "src/repro_torch/csrc/rowwise_matmul.cu",
+                 f"none (XLA's dot: {ref_engine}:112-141, 158-185)"),
+                ("rowwise_rmsnorm", "rmsnorm",
+                 "src/repro_torch/csrc/rowwise_rmsnorm.cu",
+                 f"none (jnp rmsnorm: {ref_engine}:111-138, 157-182)")):
+            launches = served[tag][name]
+            check(launches > 0, f"{name} never launched on the {tag} path")
+            row = dict(rowwise[key][tag])
+            err = row.pop("max_abs_err")
+            rows.append(dict(
+                name=name, route="cuda", source=src, replaces=replaces,
+                launches=launches, max_abs_err=err, **row,
+                instance=(rkernel.instance(torch.bfloat16)
+                          if key == "matmul" else name), heads=tag))
+            if tag == "qwen2-0.5b":
+                rows[-1]["spec_launches"] = spec["launches"][name]
+                rows[-1]["coda_launches"] = coda["launches"][name]
+    log(f"total {time.perf_counter() - t0:.1f} s, of it phases 24-26 "
+        f"{added:.1f} s -- {smi_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,2 @@
+"""Row-invariant RMSNorm: the CUDA kernel (``kernel``), its plain PyTorch
+version (``ref``) and the dispatching op (``ops``)."""

@@ -1,0 +1,18 @@
+"""The row-invariant RMSNorm, dispatched by device as
+``kernels/rowwise_matmul/ops.py``: the CUDA kernel for a CUDA tensor, the
+plain version for a CPU one."""
+
+from __future__ import annotations
+
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.rowwise_rmsnorm import kernel
+from repro_torch.kernels.rowwise_rmsnorm.ref import rmsnorm_ref
+
+
+def rmsnorm(x, gamma, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2, -1) + eps) * (1 + gamma)`` in fp32, in
+    ``x``'s dtype; each row summed in an order that does not depend on how
+    many rows share the call."""
+    if use_kernel(None, x):
+        return kernel.rmsnorm(x, gamma, eps)
+    return rmsnorm_ref(x, gamma, eps)

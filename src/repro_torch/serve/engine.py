@@ -13,14 +13,20 @@ Differences from the reference, all on the data plane:
   after every write); the verify snapshot stays a copy (advanced indexing);
 - compute-dtype weights are cast once when the decoder is built, not at
   every use: the same bits, without a 1 GB bf16 cast per step at full width
-  (for fp32 compute the cast is the identity and costs nothing);
+  (for fp32 compute the cast is the identity and costs nothing); on a card
+  each projection is stored once as the transpose of a contiguous
+  ``[N, K]``, the layout the row-invariant product reads (a tied head's
+  embedding table is in it already);
 - one device-to-host copy per decode launch brings the argmax tokens back
   (one a step, or one a domain micro-batch under ``coda``);
-- on the CPU the decoder's weight products run row by row
-  (``PagedDecoder._mm``), so a token's K/V and logits do not depend on how
-  many rows share the launch: a verify step writes the bits greedy decode
-  writes, as the reference's rollback contract asks. On a card the products
-  are plain GEMMs, whose rounding depends on the row count.
+- the decoder's weight products and norms are row-invariant
+  (``PagedDecoder._mm``, ``_norm``): on a card the hand-written kernels
+  ``kernels/rowwise_matmul`` and ``kernels/rowwise_rmsnorm`` (a library
+  GEMM or reduction rounds by the row count), on the CPU a ``bmm`` of one
+  row a product and the model's own rmsnorm. So a token's K/V and logits
+  do not depend on how many rows share the launch: a verify step or a
+  ``coda`` micro-batch writes the bits greedy decode writes, as the
+  reference's rollback contract asks.
 
 Heat-driven re-homing (``rehome=True``, the ``coda`` policy's default)
 moves hot shared pages into fast domains on the pool's device, through the
@@ -41,6 +47,8 @@ import torch
 from repro_torch.device import dtype_of, resolve
 from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.rowwise_matmul import ops as rowwise_ops
+from repro_torch.kernels.rowwise_rmsnorm import ops as norm_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM, layer_params_of
@@ -50,16 +58,21 @@ from repro_torch.scheduler.scheduler import Request, RequestScheduler
 
 
 def _cast_tree(tree, dtype):
+    """``tree``'s leaves in ``dtype``, each weight matrix laid out as the
+    row-invariant product takes it on its device (``rowwise_ops.weight``;
+    biases are 1-d and stay as they are)."""
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+    leaf = tree.to(dtype)
+    return rowwise_ops.weight(leaf) if leaf.dim() == 2 else leaf
 
 
 class PagedDecoder:
     """Per-layer forward through the page pool (dense/GQA families)."""
 
     def __init__(self, cfg: ModelConfig, params, pool):
-        assert cfg.family in ("dense", "vlm") and cfg.mla is None
+        assert cfg.family in ("dense", "vlm") and cfg.mla is None \
+            and cfg.norm == "rmsnorm"
         if any(cfg.window_array()):
             # the paged kernels attend over every cached key; serving a
             # windowed layer with them would be full attention (ROADMAP §3)
@@ -87,20 +100,21 @@ class PagedDecoder:
                                 "mlp": _cast_tree(p["mlp"], cdt)})
         self.embed = params["embed"].to(cdt)
         self.head = (self.embed.T if cfg.tie_embeddings
-                     else params["head"].to(cdt))
+                     else _cast_tree(params["head"], cdt))
 
     def _mm(self, a, w):
-        """``a @ w``. On the plain path each row is its own product (a
-        ``bmm`` of [N,1,d] rows against ``w``): a plain ``@`` folds the
-        rows into one GEMM whose blocking, and so rounding, depends on N,
+        """``a @ w``, each row rounded as if it were alone: the CUDA
+        row-invariant product on a card, one ``bmm`` row a product on the
+        CPU (``kernels/rowwise_matmul``). A plain ``@`` folds the rows into
+        one GEMM whose blocking, and so rounding, depends on their number,
         and decode (one row a sequence) would then write other K/V bits
-        than a verify chunk (T rows) at the same position. On a card, the
-        plain GEMM."""
-        if self.device.type != "cpu":
-            return a @ w
-        rows = a.reshape(-1, 1, a.shape[-1])
-        out = torch.bmm(rows, w.expand(rows.shape[0], *w.shape))
-        return out.reshape(*a.shape[:-1], w.shape[-1])
+        than a verify chunk (T rows) at the same position."""
+        return rowwise_ops.rowwise_matmul(a, w)
+
+    def _norm(self, p, x):
+        """``layers.apply_norm``'s rmsnorm, row-invariant on a card (the
+        CUDA RMSNorm of ``kernels/rowwise_rmsnorm``)."""
+        return norm_ops.rmsnorm(x, p["gamma"], self.cfg.rms_eps)
 
     def _mlp(self, p, h):
         """``layers.mlp_apply`` (weights already in the compute dtype)
@@ -118,7 +132,7 @@ class PagedDecoder:
     def _qkv(self, p, x, pos, b: int, t: int):
         cfg = self.cfg
         nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-        h = L.apply_norm(cfg, p["norm1"], x)
+        h = self._norm(p["norm1"], x)
         a = p["attn"]
         q = self._mm(h, a["wq"]).reshape(b, t, nq, hd)
         k = self._mm(h, a["wk"]).reshape(b, t, nkv, hd)
@@ -136,11 +150,11 @@ class PagedDecoder:
         cfg = self.cfg
         x = x + self._mm(att.reshape(b, t, cfg.num_heads * cfg.head_dim_),
                          p["attn"]["wo"])
-        h = L.apply_norm(cfg, p["norm2"], x)
+        h = self._norm(p["norm2"], x)
         return x + self._mlp(p["mlp"], h)
 
     def _logits(self, x):
-        x = L.apply_norm(self.cfg, self.params["final_norm"], x)
+        x = self._norm(self.params["final_norm"], x)
         return self._mm(x, self.head)
 
     def prefill_chunk(self, token_ids, pages, lo: int, hi: int):
@@ -602,12 +616,11 @@ class ServeEngine:
         ``[tokens[-1], draft...]`` writes K/V at positions
         ``[length, length + d]`` and runs through one batched prefill-mode
         attention launch; the longest draft prefix the model's own argmax
-        confirms is accepted, plus one bonus token. On the plain path
-        (``PagedDecoder._mm``) a row's arithmetic does not depend on the
-        launch's row count, so tokens and the committed K/V are greedy
-        decoding's bit for bit; on a card the GEMMs round a verify chunk's
-        rows apart from a decode row's, and tokens can differ where greedy
-        logits nearly tie.
+        confirms is accepted, plus one bonus token. A row's arithmetic
+        does not depend on the launch's row count (``PagedDecoder._mm``,
+        ``_norm``, the paged kernels' bitwise properties), so tokens and
+        the committed K/V are greedy decoding's bit for bit, on the CPU and
+        on a card.
 
         Rejected speculation rolls back exactly, on either path:
         snapshotted K/V bytes are scattered back, pages greedy would not

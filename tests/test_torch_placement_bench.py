@@ -121,7 +121,9 @@ def test_port_artifacts_hold_the_reference_schemas(tmp_path):
     with pytest.raises(SystemExit, match="missing"):
         torch_artifacts.check(("BENCH_torch_zoo.json",), root=tmp_path)
     writers = "".join((ROOT / "benchmarks" / f).read_text() for f in (
-        "torch_scheduler_bench.py", "torch_obs_bench.py",
-        "torch_placement_bench.py"))
+        "torch_scheduler_bench.py", "torch_serve_bench.py",
+        "torch_obs_bench.py", "torch_placement_bench.py"))
+    assert torch_artifacts.EXPECTED == tuple(torch_artifacts.SCHEMAS)
+    assert "BENCH_torch_serve.json" in torch_artifacts.EXPECTED
     for n in torch_artifacts.EXPECTED:
         assert f'"{n}"' in writers, n

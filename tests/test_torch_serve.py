@@ -9,11 +9,12 @@ virtual clock and — step by step — the same page ids.
 
 The reference params are drawn with ``jax.threefry_partitionable(False)``,
 the jax PRNG default before jax 0.5, under which ``BENCH_serve.json`` was
-recorded; the full-trace test then reproduces that artifact's counters
-exactly. The live engine-vs-engine comparison runs a shorter cut of the
-same trace: the reference engine recompiles its jitted ops for every new
-shape and takes minutes on the full trace. The speculative half of that
-comparison is in ``test_torch_spec.py``.
+recorded; the full-trace test, through the port's benchmark
+(``benchmarks/torch_serve_bench.py``), then reproduces that artifact's
+counters exactly. The live engine-vs-engine comparison runs a shorter cut
+of the same trace: the reference engine recompiles its jitted ops for
+every new shape and takes minutes on the full trace. The speculative half
+of that comparison is in ``test_torch_spec.py``.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ import pytest
 
 jax = pytest.importorskip("jax", reason="parity with the reference needs jax")
 
+from benchmarks import torch_serve_bench  # noqa: E402
 import repro.placement.pool as r_pool  # noqa: E402
 import repro.scheduler as r_sched  # noqa: E402
 import repro.serve.engine as r_engine  # noqa: E402
@@ -111,15 +113,18 @@ def _run(port: bool, cfg, params, trace, *, spec: bool, **eng_kw) -> dict:
 
 
 def test_full_trace_reproduces_bench_serve_json(setup):
+    """The port's benchmark (``torch_serve_bench.speculative_compare``,
+    with the reference's gates on) on the reference's params reproduces
+    ``BENCH_serve.json``'s counters exactly."""
     _, _, tcfg, tparams = setup
-    trace = _trace(tcfg)
     bench = json.loads(BENCH.read_text())
-    greedy = _run(True, tcfg, tparams, trace, spec=False)
-    spec = _run(True, tcfg, tparams, trace, spec=True)
-    assert greedy["tokens"] == spec["tokens"]
+    rows = torch_serve_bench.speculative_compare(params=tparams,
+                                                 device="cpu")
+    greedy, spec = rows["greedy"], rows["speculative"]
+    assert rows["token_identical"] is True
     for got, want in ((greedy, bench["greedy"]),
                       (spec, bench["speculative"])):
-        assert got["finished"] == want["finished"] == len(trace)
+        assert got["finished"] == want["finished"] == got["requests"] == 6
         assert got["decode_steps"] == want["decode_steps"]
         assert got["prefill_fwd_tokens"] == want["prefill_fwd_tokens"]
         assert got["makespan_s"] == want["makespan_s"]
@@ -128,6 +133,7 @@ def test_full_trace_reproduces_bench_serve_json(setup):
     assert (greedy["decode_steps"], spec["decode_steps"]) == (65, 48)
     assert (spec["spec"]["drafted"], spec["spec"]["accepted"]) == (267, 84)
     assert greedy["prefill_fwd_tokens"] == spec["prefill_fwd_tokens"] == 94
+    assert rows["decode_step_ratio"] == bench["decode_step_ratio"]
 
 
 def assert_same_run(got: dict, want: dict) -> None:
