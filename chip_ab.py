@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Compare the port's attention kernels between checkouts on one card.
+"""Compare the port's kernels between checkouts on one card.
 
     python3 chip_ab.py OTHER_ROOT [THIS_ROOT ...]   # THIS_ROOT defaults to .
     python3 chip_ab.py --kernels OTHER_ROOT [...]   # no serving runs
+    python3 chip_ab.py --plans       # this tree's weight product by plan
 
 Each tree's CUDA sources are built by that tree's own
 ``repro_torch.kernels.build`` (into its own ``build/kernels``), and each
@@ -18,6 +19,10 @@ times, through the public ops with the same seeded inputs:
   pages);
 - the flash kernel (bf16, causal, B = 1): qwen2-0.5b heads at S = 4096 and
   S = 32768, gemma-2b heads at S = 4096;
+- the row-invariant weight product (bf16) at ``chip_smoke.py`` phase
+  25's 15 shapes (qwen2-0.5b, gemma-2b, qwen2-vl-7b) at M 8, 40 and 256,
+  each beside ``torch.matmul`` on the same inputs, and the wrapper's host
+  microseconds a call;
 
 with ``chip_smoke.py``'s timing (``_timed``: CUDA events, the L2 flushed
 before every call, the host's enqueue hidden behind a device spin, the
@@ -27,15 +32,16 @@ phases 4 and 9 (full-width qwen2-0.5b and gemma-2b greedy serving, their
 trace and seeds, through ``chip_smoke.serve``), unless ``--kernels``:
 each model serves ``SERVE_RUNS`` times and the p50s are over the steps of
 all runs but the first (the first run of a process pays its one-time
-costs). A
-tree from before the row-invariant kernels (``kernels/rowwise_matmul``,
-``kernels/rowwise_rmsnorm``) serves with its own decoder and counts none
-of their launches. It prints one line per turn and, last, the card's name
-and power limit. Nothing here imports JAX.
+costs). A tree from before the row-invariant kernels
+(``kernels/rowwise_matmul``, ``kernels/rowwise_rmsnorm``) times no
+product, serves with its own decoder and counts none of their launches.
+It prints one line per turn and, last, the card's name and power limit.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -107,6 +113,7 @@ def run(root: Path, serving: bool = True) -> dict[str, float]:
         out[f"flash h{h} S{s}"] = timed(
             lambda: fops.flash_attention(fq, fk, fv), iters)
     del kp, vp, fq, fk, fv
+    out.update(products(torch, timed))
     if not serving:
         return out
     from repro_torch.configs import registry
@@ -138,7 +145,110 @@ def run(root: Path, serving: bool = True) -> dict[str, float]:
     return out
 
 
+def products(torch, timed) -> dict[str, float]:
+    """The row-invariant weight product (bf16) at ``chip_smoke.py`` phase
+    25's shapes and timed row counts, beside ``torch.matmul`` on the same
+    inputs, and the wrapper's host microseconds a call (M 8, the K/V
+    projection of qwen2-0.5b, ``chip_smoke._host_us``)."""
+    try:
+        from repro_torch.kernels.rowwise_matmul import kernel as rkernel
+    except ImportError:          # a tree from before it
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for (k, n, tied), _ in chip_smoke._row_products().items():
+        a = torch.randn(max(chip_smoke.ROW_TIMED), k, generator=gen,
+                        device="cuda").bfloat16()
+        scale = 0.02 if tied else k ** -0.5
+        w = (torch.randn(n, k, generator=gen, device="cuda") * scale) \
+            .bfloat16().T
+        for m in chip_smoke.ROW_TIMED:
+            out[f"rowwise {k}x{n} M{m}"] = timed(
+                lambda: rkernel.rowwise_matmul(a[:m], w))
+            out[f"torch.matmul {k}x{n} M{m}"] = timed(
+                lambda: torch.matmul(a[:m], w))
+        if (k, n) == (896, 128):
+            out["rowwise host us a call"] = chip_smoke._host_us(
+                lambda: rkernel.rowwise_matmul(a[:8], w))
+        del a, w
+    return out
+
+
+def plans() -> int:
+    """``--plans``: this tree's bf16 product at phase 25's shapes under
+    other plans than ``plan(N, K)``'s (each width, unsplit and split to
+    reach the SM count), at M 8, 40 and 256, each row's time beside the
+    chosen plan's; at M 256 the chosen plan under each tile a launch of
+    more than 64 rows can take, beside the one the kernel picks; then the
+    wrapper's host microseconds a call, whole and without its launch."""
+    import torch
+    chip_smoke.torch = torch
+    sys.path.insert(0, str(Path(".").resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rowwise_matmul import kernel as rkernel
+    build.build_all()
+    force = build.library("rowwise_matmul").bwap_rowwise_force_shape
+    force.argtypes = [ctypes.c_int] * 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    chosen = rkernel.plan
+    for (k, n, tied), users in chip_smoke._row_products().items():
+        a = torch.randn(256, k, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             * (0.02 if tied else k ** -0.5)).bfloat16().T
+        want = torch.matmul(a.float(), w.float())
+        steps = -(-k // rkernel.BK)
+        cands = {chosen(n, k, sms)}
+        for bn in rkernel.WIDTHS:
+            cands |= {(bn, 1), (bn, min(-(-sms // -(-n // bn)), steps))}
+        for bn, splits in sorted(cands):
+            rkernel.plan = lambda n_, k_, s_, p=(bn, splits): p
+            rkernel._PLANS.clear()
+            got = rkernel.rowwise_matmul(a, w).float()
+            err = float((got - want).abs().max())
+            times = [chip_smoke._timed(
+                lambda: rkernel.rowwise_matmul(a[:m], w))
+                for m in chip_smoke.ROW_TIMED]
+            mark = " (plan)" if (bn, splits) == chosen(n, k, sms) else ""
+            print(f"plans {k}x{n} BN {bn} splits {splits}{mark}: " + ", ".join(
+                f"M{m} {t:.5f}" for m, t in zip(chip_smoke.ROW_TIMED, times))
+                + f" ms; max |err| vs fp32 {err:.4g}", flush=True)
+        rkernel.plan = chosen
+        rkernel._PLANS.clear()
+        bn, splits = chosen(n, k, sms)
+        shapes = []
+        for rows, t in sorted({(64, bn), (128, bn), (128, max(bn, 128))}):
+            for dist in (0, 1):
+                if (dist and splits == 1) or \
+                        (not dist and splits > 1 and t > 64):
+                    continue
+                force(rows, t, dist)
+                ms = chip_smoke._timed(lambda: rkernel.rowwise_matmul(a, w))
+                shapes.append(f"{rows}x{t}{' dist' if dist else ''} "
+                              f"{ms:.5f}")
+        force(0, 0, 0)
+        picked = chip_smoke._timed(lambda: rkernel.rowwise_matmul(a, w))
+        print(f"plans {k}x{n} M256 by tile: " + ", ".join(shapes)
+              + f" ms; picked {picked:.5f}", flush=True)
+        if (k, n) == (896, 128):
+            whole = chip_smoke._host_us(
+                lambda: rkernel.rowwise_matmul(a[:8], w))
+            entry = rkernel._entry
+            rkernel._entry = lambda: (lambda *args: 0)
+            py = chip_smoke._host_us(lambda: rkernel.rowwise_matmul(a[:8], w))
+            rkernel._entry = entry
+            print(f"plans host us a call (M 8, {k}x{n}): wrapper {whole:.2f}"
+                  f", without the C call {py:.2f}", flush=True)
+        del a, w, want
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
+    if argv == ["--plans"]:
+        return plans()
     if len(argv) >= 2 and argv[0] == "--run":
         print(json.dumps(run(Path(argv[1]).resolve(), "--kernels" not in
                              argv)), flush=True)

@@ -10,10 +10,12 @@ Phases (each failed check raises; the script then exits non-zero):
    sm_90a (one nvcc per source, all started together); ptxas registers,
    spills and dynamic shared memory per kernel instance, and ptxas's
    performance warnings (serialised wgmma in a tensor-core instance fails
-   the phase); the bf16 flash instances and the bf16 paged instances at
-   h = 64, 128, 256 (four a head dim: the split and the serial route, each
-   with two walking consumer warpgroups or one) must hold HGMMA
-   (tensor-core) instructions in their SASS;
+   the phase, and any warning or spill in the weight product's); the bf16
+   flash instances, the bf16 paged instances at h = 64, 128, 256 (four a
+   head dim: the split and the serial route, each with two walking
+   consumer warpgroups or one) and the weight product's bf16 instances
+   (``rowwise_matmul.kernel.INSTANCES``) must hold HGMMA (tensor-core)
+   instructions in their SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
    kernel per instance at the serving shapes (qwen2-0.5b heads, h = 128 and
    gemma-2b heads in bf16 on the tensor-core instance, at contexts up to
@@ -337,7 +339,9 @@ Phases (each failed check raises; the script then exits non-zero):
    row of a 256-row launch (the engine's largest prefill chunk); the RMS
    error against an fp64 product no larger than ``torch.matmul``'s on the
    same inputs (up to three standard errors); bf16 times at M = 8, 40,
-   256 beside ``torch.matmul`` and the bound. The RMSNorm at each model's
+   256 beside ``torch.matmul`` and the bound, each shape's plan (wgmma
+   width, splits of K, blocks a row tile) and the wrapper's host
+   microseconds a call. The RMSNorm at each model's
    width, both dtypes: rows bit-equal across M, within two bf16 ulps of
    the plain version; whether torch's own reduction keeps rows across M,
    logged; times at M = 8 beside ``F.rms_norm`` and the bound;
@@ -479,6 +483,7 @@ def phase_build() -> None:
     if not build.LOGS:
         log("  built before this run: no ptxas report (a fresh checkout "
             "builds and reports)")
+    spills = []
     for name, out in build.LOGS.items():
         for fn, regs, spill in _ptxas_report(build, out):
             smem = ""
@@ -493,22 +498,38 @@ def phase_build() -> None:
                         f"; {kernel.smem_bytes(dtype, h, PS)} bytes dynamic "
                         f"shared memory at page {PS}")
             log(f"  ptxas[{name}] {fn}: {regs}; {spill}{smem}")
+            # the weight product's tensor-core instances must not spill
+            if "rowwise_wgmma" in fn and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                spills.append(f"{fn}: {spill}")
         # ptxas's performance warnings; serialised wgmma (C7510-C7520)
-        # in a tensor-core instance fails the phase
+        # in a tensor-core instance fails the phase, any C75xx warning in
+        # the weight product's
         for line in out.splitlines():
             if "(C75" in line:
                 log(f"  ptxas[{name}] {line.split('info', 1)[-1].strip()}")
                 check("serialized" not in line or "wgmma_kernel" not in line,
                       f"ptxas serialised a tensor-core instance's wgmma: "
                       f"{line.strip()}")
+                check("rowwise_wgmma" not in line,
+                      f"ptxas warns on the weight product: {line.strip()}")
+    check(not spills, f"ptxas spills in the weight product: {spills}")
     _check_tensor_cores(build, "flash_attention", "flash_wgmma_kernel",
                         len(fkernel.WGMMA_HEAD_DIMS))
     # a paged instance per head dim, route, and block shape (two consumer
     # warpgroups, or one for launches of at most 64 rows)
     _check_tensor_cores(build, "paged_attention", "paged_wgmma_kernel",
                         len(kernel.WGMMA_HEAD_DIMS) * len(kernel.ROUTES) * 2)
-    _check_tensor_cores(build, "rowwise_matmul", "rowwise_bf16", 1,
-                        op="HMMA")
+    # the weight product's bf16 instances (wgmma width, tile columns, rows)
+    _check_tensor_cores(build, "rowwise_matmul", "rowwise_wgmma",
+                        len(rkernel.INSTANCES))
+    for inst in rkernel.INSTANCES:
+        check(rkernel.smem_bytes(*inst) > 0,
+              f"rowwise_matmul: no bf16 instance {inst} built")
+    log("rowwise_matmul bf16 instances (wgmma width, tile columns x rows: "
+        "dynamic shared memory): " + ", ".join(
+            f"{b}, {t} x {r}: {rkernel.smem_bytes(b, t, r)} bytes"
+            for b, t, r in rkernel.INSTANCES))
     for h in kernel.WGMMA_HEAD_DIMS:
         check(kernel.layout(h) == (kernel.TILE_KEYS[h], kernel.CHUNK_TILES[h]),
               f"paged h={h}: built layout {kernel.layout(h)} != the "
@@ -5432,6 +5453,31 @@ def _row_bound(m, k, n) -> tuple[float, str]:
         "operations"
 
 
+def _host_us(fn, calls: int = 50, batches: int = 21) -> float:
+    """Host microseconds of ``fn`` a call, enqueue only: the least over
+    ``batches`` of the mean of ``calls`` calls (no sync inside a batch;
+    50 calls stay well inside the launch queue), so that the host's other
+    work, which only adds, stays out of the number."""
+    fn()
+    means = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return min(means)
+
+
+def _row_plan(k, n) -> str:
+    """The bf16 product's plan at [K, N] on this card, as the wrapper
+    takes it (``rowwise_matmul.kernel.launch_args``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    (_, _, _, bn, splits, _), (_, cols) = rkernel.launch_args(1, n, k, sms)
+    return f"plan BN {bn}, splits {splits}, {cols} blocks a row tile"
+
+
 def _row_case(k, n, tied, dtype, gen, what) -> tuple:
     """One product shape in one dtype: every row of launches of M in
     ``ROW_M`` rows, at offsets 0, 7 and the end of a 256-row input, equal
@@ -5513,7 +5559,9 @@ def phase_rowwise() -> dict:
             line = f"rowwise_matmul {what} {str(dtype)[6:]}: rows bit-equal " \
                    f"across M {ROW_M}; {text}"
             if dtype == torch.bfloat16:
-                times = []
+                host = _host_us(lambda: rkernel.rowwise_matmul(a[:8], w))
+                times = [_row_plan(k, n), f"wrapper {host:.2f} us a call "
+                         f"on the host (M 8)"]
                 for m in ROW_TIMED:
                     ms = _timed(lambda: rkernel.rowwise_matmul(a[:m], w))
                     lib = _timed(lambda: torch.matmul(a[:m], w))
@@ -5672,7 +5720,16 @@ def phase_layer_rows(device, cfg, params) -> None:
 # -- main --------------------------------------------------------------------
 
 def main() -> int:
+    """Every phase, or with ``--rowwise`` phases 1, 25 and 26 alone (the
+    build, the row-invariant kernels at every served shape, and a row
+    through the whole decoder; qwen2-0.5b's weights from phase 4's seed);
+    ``--rowwise`` prints no kernels line."""
     global torch, kernel, ops, fkernel, fops, rkernel, rref, nkernel, nref
+    argv = sys.argv[1:]
+    if argv not in ([], ["--rowwise"]):
+        log(f"chip_smoke: unknown arguments {argv}; takes none, or "
+            "--rowwise")
+        return 2
     import torch as _torch
     torch = _torch
     if not torch.cuda.is_available():
@@ -5703,6 +5760,18 @@ def main() -> int:
         log(f"[{time.perf_counter() - t0:.1f} s] phase {phases} done")
     phase_build()
     done("1")
+    if argv == ["--rowwise"]:
+        from repro_torch.configs import registry
+        from repro_torch.models.lm import LM
+        phase_rowwise()
+        done("25")
+        cfg = registry.get_config("qwen2-0.5b")
+        params = LM(cfg).init(torch.Generator(device=device).manual_seed(0),
+                              device=device)
+        phase_layer_rows(device, cfg, params)
+        done("26")
+        log(smi_line())
+        return 0
     errs = phase_correctness()
     ferrs = phase_flash_correctness()
     done("2")

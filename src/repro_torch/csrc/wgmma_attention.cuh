@@ -1,25 +1,27 @@
 // The tensor-core attention machinery shared by the flash kernel
 // (flash_attention.cu) and the paged kernel (paged_attention.cu), for Hopper
-// (sm_90a): the K/V ring's shared-memory layout and mbarriers, wgmma
-// descriptors and issue, the online softmax in the wgmma accumulator layout,
+// (sm_90a): the K/V ring's shared-memory layout and mbarriers, the S and
+// P V issue (the generic mbarrier, descriptor and wgmma helpers are in
+// sm90.cuh), the online softmax in the wgmma accumulator layout,
 // P as a hi/lo bf16 pair, and the consumer warpgroups' pipelined walk over
 // the ring, at every head dim of the tensor-core instances (64, 128, 256).
 // Each kernel brings its own producer (TMA for flash, cp.async page gathers
 // for paged) and its own online softmax (softmax_tile) with its mask
 // written inline: with the mask passed in as a functor, ptxas
 // scheduled the flash kernel's softmax otherwise, and the kernel ran
-// measurably slower at S = 32768 on the H100. kernels/build.py hashes this
-// header into both libraries' names.
+// measurably slower at S = 32768 on the H100. kernels/build.py hashes every
+// header into every library's name.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -2.0e38f;
-constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int WQ = 128;                // query rows per block
 constexpr int WG_THREADS = 384;        // producer warpgroup + two consumers
@@ -76,139 +78,6 @@ struct WgLayout {
   }
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-// arrive, and expect `bytes` more from the copies that signal this barrier
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// set once a wait of this block has given up (mbar_wait<false>); a kernel
-// that waits so clears it before its first wait
-__device__ __forceinline__ int& wait_abandoned() {
-  __shared__ int flag;
-  return flag;
-}
-
-// spin until the phase of parity `parity` has completed. A wait that
-// outlasts ~2^34 cycles (seconds) ends the launch instead of holding the
-// card: with kTrap by a trap, an error the host sees at its next sync; else
-// by giving up, and every later wait of the block gives up at once, so the
-// launch ends with wrong output that any check against the plain version
-// catches. WgLayout<H>::TRAP picks: a trap anywhere in the H = 256
-// instances makes ptxas serialise their wgmma ("insufficient register
-// resources", C7512) and spill, so they give up instead.
-template <bool kTrap>
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if constexpr (kTrap) {
-      if (!done && clock64() - t0 > (1ll << 34)) __trap();
-    } else if (!done && (*static_cast<volatile int*>(&wait_abandoned()) ||
-                         clock64() - t0 > (1ll << 34))) {
-      wait_abandoned() = 1;
-      break;
-    }
-  }
-}
-
-// wgmma shared-memory matrix descriptor for a 128-byte swizzled operand:
-// start address, leading and stride byte offsets (stored in 16-byte units)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// until at most N committed wgmma groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of accumulator registers across
-// an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC32_LIST                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
-  "%28, %29, %30, %31}"
-#define ACC32_OPERANDS(d)                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-      "+f"(d[30]), "+f"(d[31])
-
-#define ACC24_LIST                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23}"
-#define ACC24_OPERANDS(d)                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-
-// d (+)= A B for A [64 x 16] and B [16 x N] (N = 64 or 48 keys), both bf16
-// in shared memory, K-major; d = A B when `accumulate` is 0
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 48, "S tiles are 64 or 48 keys wide");
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
-        ", %32, %33, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : ACC32_OPERANDS(d)
-        : "l"(da), "l"(db), "r"(accumulate));
-  } else {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %26, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " ACC24_LIST
-        ", %24, %25, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : ACC24_OPERANDS(d)
-        : "l"(da), "l"(db), "r"(accumulate));
-  }
-}
 
 // d += A B for A [64 x 16] bf16 in registers (four bf16 pairs a thread, the
 // accumulator layout of S) and B [16 x 64] bf16 in shared memory, MN-major
@@ -233,13 +102,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// named barriers over the two consumer warpgroups (256 threads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
-}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);

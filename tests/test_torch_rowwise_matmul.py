@@ -109,8 +109,75 @@ def test_weight_layouts():
         kernel.check_weight(w["tied"][:, ::2])
     with pytest.raises(ValueError, match="2-d"):
         kernel.check_weight(w["kn"][None])
-    assert kernel.instance(torch.bfloat16) == "rowwise_mma_bf16"
+    assert kernel.instance(torch.bfloat16) == "rowwise_wgmma_bf16"
     assert kernel.instance(torch.float32) == "rowwise_fma_f32"
+
+
+# -- the bf16 instance's plan and launch ------------------------------------
+
+SMS = 132                         # the H100's SM count
+ARCHS = ("qwen2-0.5b", "gemma-2b", "qwen2-vl-7b")
+
+
+def _served_shapes():
+    """(K, N) of every weight product of the three served decoders."""
+    out = set()
+    for arch in ARCHS:
+        cfg = registry.get_config(arch)
+        d, ff = cfg.d_model, cfg.d_ff
+        q = cfg.num_heads * cfg.head_dim_
+        kv = cfg.num_kv_heads * cfg.head_dim_
+        out |= {(d, q), (d, kv), (q, d), (d, ff), (ff, d),
+                (d, cfg.vocab_size)}
+    return sorted(out)
+
+
+def test_plan_takes_no_m_and_fills_the_card():
+    """``plan(N, K, sms)`` has no argument for M, and at every served
+    shape it gives at least the SM count of blocks a row tile, or splits K
+    at every step; a width of the built instances, splits within the
+    steps."""
+    import inspect
+    assert list(inspect.signature(kernel.plan).parameters) == \
+        ["n", "k", "sms"]
+    for k, n in _served_shapes():
+        bn, splits = kernel.plan(n, k, SMS)
+        steps = -(-k // kernel.BK)
+        assert bn in kernel.WIDTHS and 1 <= splits <= steps, (k, n)
+        blocks = -(-n // bn) * splits
+        assert blocks >= SMS or splits == steps, (k, n, bn, splits)
+
+
+@pytest.mark.parametrize("k,n", _served_shapes())
+def test_launch_args_differ_only_in_m(k, n):
+    """The bf16 launch of any row count is the same launch but for M and
+    the grid's row extent: what fixes an element's order of summation
+    (the width, the split of K) never follows M."""
+    runs = {m: kernel.launch_args(m, n, k, SMS) for m in (1, 8, 40, 256, 300)}
+    args0, grid0 = runs[1]
+    for m, (args, grid) in runs.items():
+        assert args[0] == m and args[1:] == args0[1:], (m, args, args0)
+        assert grid[1] == grid0[1], (m, grid, grid0)
+        assert grid[0] == -(-m // 64), (m, grid)
+
+
+def test_workspace_is_grown_never_shrunk(monkeypatch):
+    """The split workspace and tickets are cached per device and stream,
+    grown when a launch needs more and never shrunk; tickets start at 0."""
+    monkeypatch.setattr(kernel, "_WS", {})
+    dev = torch.device("cpu")
+    ws, tk = kernel._workspace(dev, 7, 100, 10)
+    assert ws.numel() >= 100 and tk.numel() >= 10
+    assert not tk.any()
+    ws2, tk2 = kernel._workspace(dev, 7, 50, 5)
+    assert ws2 is ws and tk2 is tk
+    big = ws.numel() + 1
+    ws3, tk3 = kernel._workspace(dev, 7, big, tk.numel() + 1)
+    assert ws3.numel() >= big and tk3.numel() > tk.numel()
+    ws4, tk4 = kernel._workspace(dev, 7, 1, 1)
+    assert ws4 is ws3 and tk4 is tk3
+    other, _ = kernel._workspace(dev, 8, 1, 1)    # another stream
+    assert other is not ws3
 
 
 def test_decoder_runs_its_products_and_norms_through_the_ops():
@@ -189,19 +256,25 @@ def test_rmsnorm_matches_the_reference(jref, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("layout", ["kn", "tied"])
 def test_kernel_rows_are_bit_equal_across_row_counts(cuda, dtype, layout):
-    w = ops.weight(_weights(dtype)[layout].to(cuda))
-    kernel.check_weight(w)
-    a = _data(11, (256, K), dtype).to(cuda)
-    whole = kernel.rowwise_matmul(a, w)
-    for m in (1, 8, 40, 200):
-        for lo in (0, 256 - m, 7):
-            if lo + m > 256:
-                continue
-            part = kernel.rowwise_matmul(a[lo:lo + m].contiguous(), w)
-            assert torch.equal(part, whole[lo:lo + m]), (m, lo)
-    plain = ref.rowwise_matmul_ref(a.float(), w.float())
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(whole.float(), plain, rtol=tol, atol=tol)
+    """Rows of launches of 1 to 300 rows, at offsets 0, 7 and the end,
+    equal the same rows of the 300-row launch, at the narrow stand-in and
+    at qwen2-0.5b's K/V projection (896 x 128, K split in 14 on an H100)."""
+    deep = _data(14, (128, 896), dtype, 896 ** -0.5).T
+    for w in (_weights(dtype)[layout], deep):
+        w = ops.weight(w.to(cuda))
+        kernel.check_weight(w)
+        k = w.shape[0]
+        a = _data(11, (300, k), dtype).to(cuda)
+        whole = kernel.rowwise_matmul(a, w)
+        for m in (1, 8, 40, 200, 256):
+            for lo in (0, 300 - m, 7):
+                if lo + m > 300:
+                    continue
+                part = kernel.rowwise_matmul(a[lo:lo + m].contiguous(), w)
+                assert torch.equal(part, whole[lo:lo + m]), (k, m, lo)
+        plain = ref.rowwise_matmul_ref(a.float(), w.float())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(whole.float(), plain, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
