@@ -23,6 +23,13 @@ times, through the public ops with the same seeded inputs:
   25's 15 shapes (qwen2-0.5b, gemma-2b, qwen2-vl-7b) at M 8, 40 and 256,
   each beside ``torch.matmul`` on the same inputs, and the wrapper's host
   microseconds a call;
+- the residual add and the norm that reads it (bf16, fp32 gamma) at the
+  three models' widths (896, 2048, 3584) and M 8, 40 and 256: the tree's
+  fused ``add_rmsnorm`` where it has one, else torch's ``x + y`` then its
+  ``rmsnorm`` (``add+norm``), and in every tree torch's add then the
+  launch without ``y`` (``x + y, norm``); beside them, the floor these
+  timings cannot go below: torch's add alone (``torch add``) and a launch
+  that does no work (``empty launch``, ``torch.cuda._sleep(0)``);
 
 with ``chip_smoke.py``'s timing (``_timed``: CUDA events, the L2 flushed
 before every call, the host's enqueue hidden behind a device spin, the
@@ -32,9 +39,11 @@ phases 4 and 9 (full-width qwen2-0.5b and gemma-2b greedy serving, their
 trace and seeds, through ``chip_smoke.serve``), unless ``--kernels``:
 each model serves ``SERVE_RUNS`` times and the p50s are over the steps of
 all runs but the first (the first run of a process pays its one-time
-costs). A tree from before the row-invariant kernels
-(``kernels/rowwise_matmul``, ``kernels/rowwise_rmsnorm``) times no
-product, serves with its own decoder and counts none of their launches.
+costs); then the device kernels a decode step, from ``chip_smoke.py``
+phase 6's profile of each model. A tree from before the row-invariant
+kernels (``kernels/rowwise_matmul``, ``kernels/rowwise_rmsnorm``) times
+no product and no norm, serves with its own decoder and counts none of
+their launches.
 It prints one line per turn and, last, the card's name and power limit.
 Nothing here imports JAX.
 """
@@ -55,6 +64,7 @@ LONG_CTX, LONG_POOL = 4096, 2560
 QWEN = (14, 2, 64)
 GEMMA = (8, 1, 256)
 SERVE_RUNS = 3
+KERNELS_A_STEP = "device kernels a decode step"     # phase 6's count
 
 
 def run(root: Path, serving: bool = True) -> dict[str, float]:
@@ -114,6 +124,7 @@ def run(root: Path, serving: bool = True) -> dict[str, float]:
             lambda: fops.flash_attention(fq, fk, fv), iters)
     del kp, vp, fq, fk, fv
     out.update(products(torch, timed))
+    out.update(norms(torch, timed))
     if not serving:
         return out
     from repro_torch.configs import registry
@@ -141,7 +152,38 @@ def run(root: Path, serving: bool = True) -> dict[str, float]:
                           ("prefill step", "prefill_s")):
             out[f"{arch} serving p50 {what}"] = \
                 float(np.median([t for r in runs for t in r[key]])) * 1e3
+        out[f"{arch} {KERNELS_A_STEP}"] = chip_smoke.phase_profile(
+            torch.device("cuda"), cfg, params)
         del params
+    return out
+
+
+def norms(torch, timed) -> dict[str, float]:
+    """The residual add and the norm that reads it (bf16 x and y, fp32
+    gamma) at the three served widths and M 8, 40, 256: the tree's fused
+    launch where it has one, else torch's add then its norm; and torch's
+    add then the launch without ``y`` in every tree; torch's add alone
+    and an empty launch, the floor of the timing."""
+    try:
+        from repro_torch.kernels.rowwise_rmsnorm import kernel as nkernel
+    except ImportError:          # a tree from before it
+        return {}
+    fused = getattr(nkernel, "add_rmsnorm", None)
+    if fused is None:            # a tree from before the fused launch
+        fused = lambda x, y, g, eps: (None, nkernel.rmsnorm(x + y, g, eps))
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    out = {"empty launch": timed(lambda: torch.cuda._sleep(0))}
+    for d in (896, 2048, 3584):
+        x, y = (torch.randn(256, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        g = torch.randn(d, generator=gen, device="cuda") * 0.1
+        for m in (8, 40, 256):
+            xm, ym = x[:m], y[:m]
+            out[f"add+norm d{d} M{m}"] = timed(
+                lambda: fused(xm, ym, g, 1e-6))
+            out[f"x + y, norm d{d} M{m}"] = timed(
+                lambda: nkernel.rmsnorm(xm + ym, g, 1e-6))
+            out[f"torch add d{d} M{m}"] = timed(lambda: xm + ym)
     return out
 
 
@@ -246,6 +288,14 @@ def plans() -> int:
     return 0
 
 
+def _shown(key: str, value: float) -> str:
+    """A result with its unit: a count, microseconds or milliseconds."""
+    if key.endswith(KERNELS_A_STEP):
+        return f"{key} {value:g}"
+    return f"{key} {value:.5f}" + ("" if key.endswith(" us a call")
+                                   else " ms")
+
+
 def main(argv: list[str]) -> int:
     if argv == ["--plans"]:
         return plans()
@@ -269,8 +319,8 @@ def main(argv: list[str]) -> int:
             print(r.stdout[-2000:], r.stderr[-4000:])
             return 1
         times = json.loads(r.stdout.strip().splitlines()[-1])
-        print(f"{root}: " + ", ".join(f"{k} {v:.5f} ms"
-                                      for k, v in times.items()), flush=True)
+        print(f"{root}: " + ", ".join(_shown(k, v) for k, v in times.items()),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

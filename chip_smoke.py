@@ -10,12 +10,14 @@ Phases (each failed check raises; the script then exits non-zero):
    sm_90a (one nvcc per source, all started together); ptxas registers,
    spills and dynamic shared memory per kernel instance, and ptxas's
    performance warnings (serialised wgmma in a tensor-core instance fails
-   the phase, and any warning or spill in the weight product's); the bf16
-   flash instances, the bf16 paged instances at h = 64, 128, 256 (four a
-   head dim: the split and the serial route, each with two walking
-   consumer warpgroups or one) and the weight product's bf16 instances
-   (``rowwise_matmul.kernel.INSTANCES``) must hold HGMMA (tensor-core)
-   instructions in their SASS;
+   the phase, and any warning or spill in the weight product's or the
+   fused add + RMSNorm's); the norm's 32 vector-layout instances must load
+   and store 128 bits at a time in their SASS (``LDG.E.128``,
+   ``STG.E.128``); the bf16 flash instances, the bf16 paged instances at
+   h = 64, 128, 256 (four a head dim: the split and the serial route, each
+   with two walking consumer warpgroups or one) and the weight product's
+   bf16 instances (``rowwise_matmul.kernel.INSTANCES``) must hold HGMMA
+   (tensor-core) instructions in their SASS;
 2. every kernel against its plain PyTorch version on the card: the paged
    kernel per instance at the serving shapes (qwen2-0.5b heads, h = 128 and
    gemma-2b heads in bf16 on the tensor-core instance, at contexts up to
@@ -56,7 +58,8 @@ Phases (each failed check raises; the script then exits non-zero):
    greedy's on 8 of 8 sequences (gated: the decoder's weight products and
    norms are row-invariant, phases 25 and 26);
 6. a ``torch.profiler`` window over 3 full-width decode steps: the device's
-   busy share and the kernels that fill it (informational);
+   busy share, the device kernels a step and the kernels that fill it, by
+   time and by count (informational);
 7. full-width prefill: ``LM.prefill`` and ``make_eval_step`` of qwen2-0.5b
    (B = 4) and gemma-2b (B = 1) at S = 4096, every layer's attention
    through the flash kernel's tensor-core instance (counters zeroed before
@@ -341,15 +344,19 @@ Phases (each failed check raises; the script then exits non-zero):
    same inputs (up to three standard errors); bf16 times at M = 8, 40,
    256 beside ``torch.matmul`` and the bound, each shape's plan (wgmma
    width, splits of K, blocks a row tile) and the wrapper's host
-   microseconds a call. The RMSNorm at each model's
-   width, both dtypes: rows bit-equal across M, within two bf16 ulps of
-   the plain version; whether torch's own reduction keeps rows across M,
-   logged; times at M = 8 beside ``F.rms_norm`` and the bound;
+   microseconds a call. The fused residual add + RMSNorm at each model's
+   width, both dtypes: ``s`` equal to torch's ``x + y``, the rows of ``s``
+   and ``h`` bit-equal across M (with ``y`` and without), ``h`` within two
+   bf16 ulps of the plain version; whether torch's own reduction keeps
+   rows across M, logged; times at M = 8 and 256 beside torch's ``x + y``
+   followed by the launch without ``y`` (the two launches it replaces) or
+   by ``F.rms_norm`` (the library pair), and the bound;
 26. a row through the whole full-width decoder (qwen2-0.5b, phase 4's
    weights; runs after phase 4): alone, in a batch-8 decode step and in
    an 8 x 25 verify chunk, the same logits and K/V bit for bit, every
    batch row equal to row 0 of its chunk; the same rows with the products
-   as ``a @ w`` and with the norms as torch's reduction, logged (F7's
+   as ``a @ w`` and with the norms as torch's add and reduction, logged
+   (F7's
    cause).
 
 The lines before the last two are phases 19-22's records, then the
@@ -365,7 +372,10 @@ paged rows also carry phases 10-13's ``coda_launches``,
 summed over the zoo's two modes, and phase 23's ``contract_launches``;
 then a ``rowwise_matmul`` and a ``rowwise_rmsnorm`` row at qwen2-0.5b,
 gemma-2b and qwen2-vl-7b, timed by phase 25 at decode (the head's
-product, the final norm), launched by that model's serving run, the
+product, the final norm with its residual add), launched by that model's
+serving run (the norm's row with its fused launches, ``add_launches``,
+and, since no one PyTorch call adds and normalises, ``library_ms`` null
+beside ``library_pair_ms``, torch's ``x + y`` then ``F.rms_norm``), the
 qwen2-0.5b rows with phase 5's ``spec_launches`` and phase 10's
 ``coda_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
@@ -498,22 +508,26 @@ def phase_build() -> None:
                         f"; {kernel.smem_bytes(dtype, h, PS)} bytes dynamic "
                         f"shared memory at page {PS}")
             log(f"  ptxas[{name}] {fn}: {regs}; {spill}{smem}")
-            # the weight product's tensor-core instances must not spill
-            if "rowwise_wgmma" in fn and \
+            # the weight product's tensor-core instances and the norm's
+            # instances must not spill
+            if ("rowwise_wgmma" in fn or name == "rowwise_rmsnorm") and \
                     "0 bytes spill stores, 0 bytes spill loads" not in spill:
                 spills.append(f"{fn}: {spill}")
         # ptxas's performance warnings; serialised wgmma (C7510-C7520)
         # in a tensor-core instance fails the phase, any C75xx warning in
-        # the weight product's
+        # the weight product's or the norm's
         for line in out.splitlines():
             if "(C75" in line:
                 log(f"  ptxas[{name}] {line.split('info', 1)[-1].strip()}")
                 check("serialized" not in line or "wgmma_kernel" not in line,
                       f"ptxas serialised a tensor-core instance's wgmma: "
                       f"{line.strip()}")
-                check("rowwise_wgmma" not in line,
-                      f"ptxas warns on the weight product: {line.strip()}")
-    check(not spills, f"ptxas spills in the weight product: {spills}")
+                check("rowwise_wgmma" not in line
+                      and name != "rowwise_rmsnorm",
+                      f"ptxas warns on {name}: {line.strip()}")
+    check(not spills, f"ptxas spills in the weight product or the norm: "
+          f"{spills}")
+    _check_norm_vectors(build)
     _check_tensor_cores(build, "flash_attention", "flash_wgmma_kernel",
                         len(fkernel.WGMMA_HEAD_DIMS))
     # a paged instance per head dim, route, and block shape (two consumer
@@ -537,6 +551,41 @@ def phase_build() -> None:
     log("paged tensor-core layout (keys a tile, tiles a key chunk): "
         + ", ".join(f"h {h}: {kernel.TILE_KEYS[h]}, {kernel.CHUNK_TILES[h]}"
                     for h in kernel.WGMMA_HEAD_DIMS))
+
+
+def _check_norm_vectors(build) -> None:
+    """Every instance of the fused add + RMSNorm built for the vector
+    layout (16-byte chunks: template argument VEC 8 in bf16, 4 in fp32)
+    loads and stores 128 bits at a time in its SASS (``LDG.E.128``,
+    ``STG.E.128``); the scalar instances are listed beside them."""
+    so = build.library_path("rowwise_rmsnorm")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "LDG.E.128" in line
+            counts[fn][1] += "STG.E.128" in line
+    vec, scalar, bad = [], [], []
+    for name, (ld, st) in zip(_short_names(build, list(counts)),
+                              counts.values()):
+        m = re.match(r"add_rmsnorm_rows<\w+, \w+, (\d+), \d+, \w+>", name)
+        if m is None:
+            continue
+        wide = int(m.group(1)) > 1
+        (vec if wide else scalar).append(f"{name} {ld}/{st}")
+        if wide and (ld == 0 or st == 0):
+            bad.append(name)
+    log(f"SASS of {so.name}: 128-bit loads/stores per vector instance: "
+        + ", ".join(vec) + f"; {len(scalar)} scalar instances")
+    check(len(vec) == 32 and not bad,
+          f"rowwise_rmsnorm: {len(vec)} vector instances, want 32; "
+          f"without 128-bit loads or stores: {bad}")
 
 
 def _ptxas_report(build, out) -> list[tuple[str, str, str]]:
@@ -1306,13 +1355,17 @@ def _check_rowwise(cfg, r) -> None:
     row-invariant kernels, on the instance the compute dtype selects: a
     forward runs 4 attention and 2 or 3 MLP products and 2 norms a layer,
     and the head and the final norm where it returns logits (a decode
-    launch or a verify step, not a prefill step)."""
+    launch or a verify step, not a prefill step). Every norm but layer 0's
+    first adds its residual in the same launch, but in a prefill step the
+    last layer's add, which nothing reads: 2L fused launches a logits
+    forward, 2L - 1 a prefill step."""
     nl, n = cfg.num_layers, r["launches"]
     per_layer = 4 + (3 if cfg.act in ("silu", "geglu") else 2)
     logits = n["paged_attention"] // nl + r["verify_steps"]
     prefill = r["prefill_steps"]
     want_mm = logits * (per_layer * nl + 1) + prefill * per_layer * nl
     want_norm = logits * (2 * nl + 1) + prefill * 2 * nl
+    want_add = logits * 2 * nl + prefill * (2 * nl - 1)
     inst = rkernel.instance(getattr(torch, cfg.compute_dtype))
     check(n["rowwise_matmul"] == want_mm and n[inst] == want_mm,
           f"{cfg.name}: {n['rowwise_matmul']} row-invariant products "
@@ -1320,6 +1373,9 @@ def _check_rowwise(cfg, r) -> None:
     check(n["rowwise_rmsnorm"] == want_norm,
           f"{cfg.name}: {n['rowwise_rmsnorm']} row-invariant norms, want "
           f"{want_norm}")
+    check(n["rowwise_add_rmsnorm"] == want_add,
+          f"{cfg.name}: {n['rowwise_add_rmsnorm']} fused residual adds, "
+          f"want {want_add}")
 
 
 def _report(tag, r) -> None:
@@ -1405,11 +1461,12 @@ def phase_spec(device, cfg, params) -> dict:
     return spec
 
 
-def _profile(tag: str, fn, reps: int, unit: str, cpu: bool = True) -> None:
+def _profile(tag: str, fn, reps: int, unit: str, cpu: bool = True) -> float:
     """torch.profiler over ``reps`` calls of ``fn``: the device's busy share
-    of the window and the kernels that fill it. Informational: nothing
-    here gates. ``cpu=False`` records the device's activity only (a train
-    step's ~10^5 host ops take longer to process than the step)."""
+    of the window, the number of device kernels a call and the kernels that
+    fill it. Informational: nothing here gates. ``cpu=False`` records the
+    device's activity only (a train step's ~10^5 host ops take longer to
+    process than the step). Returns the device kernels a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1424,16 +1481,22 @@ def _profile(tag: str, fn, reps: int, unit: str, cpu: bool = True) -> None:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launched = sum(e.count for e in kernels) / reps
     log(f"profile, {tag}: {1e3 * wall / reps:.2f} ms per {unit} (profiler "
-        f"on), device busy {busy / wall:.1%} of the window -- {smi_line()}")
+        f"on), device busy {busy / wall:.1%} of the window, {launched:g} "
+        f"device kernels a {unit} -- {smi_line()}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms/{unit} "
             f"{e.count // reps:5d}/{unit}  {e.key[:90]}")
+    log("  by count: " + ", ".join(
+        f"{e.count / reps:g} {e.key[:60]}"
+        for e in sorted(kernels, key=lambda e: -e.count)[:8]))
+    return launched
 
 
-def phase_profile(device, cfg, params) -> None:
+def phase_profile(device, cfg, params) -> float:
     """The profile of 3 full-width decode steps at batch 8 (context
-    ~400)."""
+    ~400); returns the device kernels a step."""
     from repro_torch.placement.pool import BwapPagePool
     from repro_torch.serve.engine import ServeEngine
     pool = BwapPagePool(cfg, _domains(), page_size=PS, device=device)
@@ -1445,7 +1508,8 @@ def phase_profile(device, cfg, params) -> None:
     while eng.waiting or any(s.produced == 0 for s in eng.active):
         eng.step()                               # prefill, first token
     eng.step()
-    _profile(f"{cfg.name}, 3 decode steps at batch 8", eng.step, 3, "step")
+    return _profile(f"{cfg.name}, 3 decode steps at batch 8", eng.step, 3,
+                    "step")
 
 
 # -- phases 7 and 8 ------------------------------------------------------------
@@ -5513,39 +5577,62 @@ def _row_case(k, n, tied, dtype, gen, what) -> tuple:
 
 
 def _norm_case(d, dtype, gen, arch) -> tuple:
-    """The RMSNorm kernel at width ``d``: rows of M-row launches equal bit
-    for bit to the same rows of a 256-row launch; within two bf16 ulps of
-    the plain version (fp32: 1e-6 relative); whether torch's own reduction
-    (the plain version on the card) keeps rows across M, logged."""
+    """The fused add + RMSNorm at width ``d``: ``s`` equal to torch's ``x +
+    y`` bit for bit; the rows of ``s`` and ``h`` of M-row launches (offsets
+    0, 7 and the end) equal bit for bit to the same rows of a 256-row
+    launch, and the launch without ``y`` alike; ``h`` within two bf16 ulps
+    of the plain version (fp32: 1e-6 relative), with ``y`` and without;
+    whether torch's own reduction (the plain version on the card) keeps
+    rows across M, logged. Returns (x, y, gamma, max |err|, that flag)."""
     big = max(ROW_M)
     x = (torch.randn(big, d, generator=gen, device="cuda") * 3).to(dtype)
+    y = torch.randn(big, d, generator=gen, device="cuda").to(dtype)
     g = torch.randn(d, generator=gen, device="cuda") * 0.1
-    whole = nkernel.rmsnorm(x, g, 1e-6)
-    plain = nref.rmsnorm_ref(x, g, 1e-6)
+    what = f"rowwise_rmsnorm {arch} d {d} {dtype}"
+    s, h = nkernel.add_rmsnorm(x, y, g, 1e-6)
+    alone = nkernel.rmsnorm(x, g, 1e-6)
+    check(torch.equal(s, x + y), f"{what}: s differs from torch's x + y")
+    plain, plain_alone = nref.add_rmsnorm_ref(x, y, g, 1e-6)[1], \
+        nref.rmsnorm_ref(x, g, 1e-6)
     torch_rows = True
     for m in ROW_M[:-1]:
-        check(torch.equal(nkernel.rmsnorm(x[:m], g, 1e-6), whole[:m]),
-              f"rowwise_rmsnorm {arch} d {d} {dtype}: rows of an M = {m} "
-              f"launch differ from the M = {big} launch's")
+        for lo in sorted({0, 7, big - m}):
+            rows = slice(lo, lo + m)
+            sm, hm = nkernel.add_rmsnorm(x[rows], y[rows], g, 1e-6)
+            check(torch.equal(sm, s[rows]) and torch.equal(hm, h[rows])
+                  and torch.equal(nkernel.rmsnorm(x[rows], g, 1e-6),
+                                  alone[rows]),
+                  f"{what}: rows {lo}..{lo + m} of an M = {m} launch differ "
+                  f"from the M = {big} launch's")
         torch_rows &= torch.equal(nref.rmsnorm_ref(x[:m], g, 1e-6),
-                                  plain[:m])
-    err = (whole.float() - plain.float()).abs()
-    if dtype == torch.bfloat16:
-        bound = BF16_ULPS[0] * plain.float().abs() + BF16_ULPS[1]
-    else:
-        bound = 1e-6 * plain.abs() + 1e-7
-    check(bool((err <= bound).all()),
-          f"rowwise_rmsnorm {arch} d {d} {dtype}: max |err| vs the plain "
-          f"version {float(err.max()):.4g}")
-    return x, g, float(err.max()), torch_rows
+                                  plain_alone[:m])
+    worst = 0.0
+    for got, want in ((h, plain), (alone, plain_alone)):
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            bound = BF16_ULPS[0] * want.float().abs() + BF16_ULPS[1]
+        else:
+            bound = 1e-6 * want.abs() + 1e-7
+        check(bool((err <= bound).all()),
+              f"{what}: max |err| vs the plain version {float(err.max()):.4g}")
+        worst = max(worst, float(err.max()))
+    return x, y, g, worst, torch_rows
+
+
+def _norm_bound(m, d) -> float:
+    """Least ms of the fused launch in bf16 with fp32 gamma: x and y read,
+    s and h written (2 bytes each), gamma read (4 bytes), at the HBM
+    rate."""
+    return 1e3 * (2 * 4 * m * d + 4 * d) / HBM_BYTES_PER_S
 
 
 def phase_rowwise() -> dict:
     """Phase 25: the row-invariant product at every weight shape of the
-    served decoders and the RMSNorm at their widths, in bf16 and fp32;
-    times (bf16) against torch.matmul / F.rms_norm and the bound. Returns
-    the kernels line's rows a model (the head's product at decode, the
-    final norm at decode)."""
+    served decoders and the fused add + RMSNorm at their widths, in bf16
+    and fp32; times (bf16) against torch.matmul, against torch's ``x + y``
+    followed by the norm's launch without ``y`` or by ``F.rms_norm``, and
+    the bound. Returns the kernels line's rows a model (the head's product
+    at decode, the final norm at decode)."""
     import torch.nn.functional as F
     from repro_torch.configs import registry
     t0 = time.perf_counter()
@@ -5593,26 +5680,39 @@ def phase_rowwise() -> dict:
     for arch in ROW_ARCHS:
         d = registry.get_config(arch).d_model
         for dtype in (torch.float32, torch.bfloat16):
-            x, g, err, torch_rows = _norm_case(d, dtype, gen, arch)
-            line = (f"rowwise_rmsnorm {arch} d {d} {str(dtype)[6:]}: rows "
-                    f"bit-equal across M {ROW_M}, max |err| vs the plain "
-                    f"version {err:.4g}; torch's reduction keeps rows "
-                    f"across M: {torch_rows}")
+            x, y, g, err, torch_rows = _norm_case(d, dtype, gen, arch)
+            vec, cpt, threads = nkernel.layout(d, dtype)
+            line = (f"rowwise_rmsnorm {arch} d {d} {str(dtype)[6:]} (layout "
+                    f"{vec} elements a chunk, {cpt} chunks a thread, "
+                    f"{threads} threads): s = torch's x + y; rows of s and "
+                    f"h bit-equal across M {ROW_M}, with y and without; max "
+                    f"|err| vs the plain version {err:.4g}; torch's "
+                    f"reduction keeps rows across M: {torch_rows}")
             if dtype == torch.bfloat16:
-                m = 8
-                ms = _timed(lambda: nkernel.rmsnorm(x[:m], g, 1e-6))
-                plain = _timed(lambda: nref.rmsnorm_ref(x[:m], g, 1e-6))
                 w1 = 1 + g       # the library's weight, made once
-                lib = _timed(lambda: F.rms_norm(x[:m], (d,), w1, 1e-6)) \
-                    if hasattr(F, "rms_norm") else None
-                bound = 1e3 * (2 * 2 * m * d + 4 * d) / HBM_BYTES_PER_S
-                norms[arch] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                   bound_by="bytes", library_ms=lib,
-                                   shape=f"[8, {d}]", max_abs_err=err)
-                line += (f"; M 8: {ms:.5f} ms (plain {plain:.5f}, "
-                         f"F.rms_norm {lib if lib is None else f'{lib:.5f}'}, "
-                         f"bound {bound:.5f}, bytes) -- {card}")
+                times = []
+                for m in (8, 256):
+                    xm, ym = x[:m], y[:m]
+                    ms = _timed(lambda: nkernel.add_rmsnorm(xm, ym, g, 1e-6))
+                    two = _timed(lambda: nkernel.rmsnorm(xm + ym, g, 1e-6))
+                    pair = _timed(lambda: F.rms_norm(xm + ym, (d,), w1,
+                                                     1e-6))
+                    bound = _norm_bound(m, d)
+                    times.append(f"M {m}: {ms:.5f} ms (x + y then the "
+                                 f"launch without y {two:.5f}, x + y then "
+                                 f"F.rms_norm {pair:.5f}, bound {bound:.5f}"
+                                 f", bytes)")
+                    if m == 8:
+                        plain = _timed(lambda: nref.add_rmsnorm_ref(
+                            xm, ym, g, 1e-6))
+                        norms[arch] = dict(
+                            ms=ms, plain_ms=plain, bound_ms=bound,
+                            bound_by="bytes", library_ms=None,
+                            library_pair_ms=pair, two_launch_ms=two,
+                            shape=f"[8, {d}] + [8, {d}]", max_abs_err=err)
+                line += "; " + "; ".join(times) + f" -- {card}"
             log(line)
+            del x, y
     torch.cuda.empty_cache()
     log(f"phase 25: {time.perf_counter() - t0:.1f} s -- {smi_line()}")
     return {"matmul": rows, "rmsnorm": norms}
@@ -5665,7 +5765,7 @@ def phase_layer_rows(device, cfg, params) -> None:
     verify chunk must give the same logits and write the same K/V, bit
     for bit; every row of the batch-8 step must equal row 0 of its chunk.
     Then the same rows with the products as ``a @ w`` (a library GEMM) and
-    with the norms as torch's reduction, logged: what F7 was."""
+    with the norms as torch's add and reduction, logged: what F7 was."""
     from repro_torch.models import layers as L
     from repro_torch.placement.pool import BwapPagePool
     from repro_torch.serve.engine import PagedDecoder
@@ -5691,22 +5791,24 @@ def phase_layer_rows(device, cfg, params) -> None:
     check(got["rows"], "phase 26: a batch-8 decode row differs from row 0 "
           "of its verify chunk")
     seen = {}
+    def torch_norm(p, x, delta):
+        s = x if delta is None else x + delta
+        return s, L.apply_norm(cfg, p, s)
     for what, mm, norm in (
             ("the products as a library GEMM (a @ w)", lambda a, w: a @ w,
              None),
-            ("the norms as torch's reduction", None,
-             lambda p, x: L.apply_norm(cfg, p, x))):
+            ("the norms as torch's add and reduction", None, torch_norm)):
         if mm is not None:
             dec._mm = mm
         if norm is not None:
-            dec._norm = norm
+            dec._add_norm = norm
         _fill_pool(pool, gen.manual_seed(26))
         r = _row_variants(dec, starts, toks, tables)
         seen[what] = (torch.equal(r["batch"][0], r["alone"][0]),
                       torch.equal(r["chunk"][0], r["alone"][0]),
                       r["rows"])
         dec.__dict__.pop("_mm", None)
-        dec.__dict__.pop("_norm", None)
+        dec.__dict__.pop("_add_norm", None)
     log(f"phase 26 ({cfg.name}, {cfg.num_layers} layers, {cfg.compute_dtype}"
         f", positions {starts.tolist()}): a row alone, in a batch-8 decode "
         f"step and in an 8 x {VERIFY_T} verify chunk gives equal logits and "
@@ -5901,11 +6003,13 @@ def main() -> int:
                 rows[-1]["zoo_launches"] = zoo["launches"][name]
                 rows[-1]["contract_launches"] = contract["launches"][name]
     # the row-invariant kernels replace no pallas_call: "replaces" names
-    # the reference decoder's XLA code they stand for (its products and
-    # norms, src/repro/serve/engine.py); each row's time is one shape of
-    # phase 25 at decode (the head's product, the final norm), its
+    # the reference decoder's XLA code they stand for (its products, and
+    # its residual adds with the norms that read them, fused by XLA;
+    # src/repro/serve/engine.py); each row's time is one shape of phase 25
+    # at decode (the head's product, the final norm with its add), its
     # launches a model's phase-4 serving run (phase 9 for gemma-2b, 16 for
-    # qwen2-vl-7b), and on qwen2-0.5b phase 5's and 10's runs too
+    # qwen2-vl-7b), and on qwen2-0.5b phase 5's and 10's runs too; the
+    # norm's row also counts its fused launches (``add_launches``)
     ref_engine = "src/repro/serve/engine.py"
     for tag in ROW_ARCHS:
         for name, key, src, replaces in (
@@ -5914,7 +6018,8 @@ def main() -> int:
                  f"none (XLA's dot: {ref_engine}:112-141, 158-185)"),
                 ("rowwise_rmsnorm", "rmsnorm",
                  "src/repro_torch/csrc/rowwise_rmsnorm.cu",
-                 f"none (jnp rmsnorm: {ref_engine}:111-138, 157-182)")):
+                 f"none (XLA-fused x + ... and apply_norm: {ref_engine}"
+                 f":111, 131-135, 139, 159, 178-182)")):
             launches = served[tag][name]
             check(launches > 0, f"{name} never launched on the {tag} path")
             row = dict(rowwise[key][tag])
@@ -5924,6 +6029,8 @@ def main() -> int:
                 launches=launches, max_abs_err=err, **row,
                 instance=(rkernel.instance(torch.bfloat16)
                           if key == "matmul" else name), heads=tag))
+            if key == "rmsnorm":
+                rows[-1]["add_launches"] = served[tag]["rowwise_add_rmsnorm"]
             if tag == "qwen2-0.5b":
                 rows[-1]["spec_launches"] = spec["launches"][name]
                 rows[-1]["coda_launches"] = coda["launches"][name]

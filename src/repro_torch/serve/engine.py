@@ -20,13 +20,19 @@ Differences from the reference, all on the data plane:
 - one device-to-host copy per decode launch brings the argmax tokens back
   (one a step, or one a domain micro-batch under ``coda``);
 - the decoder's weight products and norms are row-invariant
-  (``PagedDecoder._mm``, ``_norm``): on a card the hand-written kernels
-  ``kernels/rowwise_matmul`` and ``kernels/rowwise_rmsnorm`` (a library
-  GEMM or reduction rounds by the row count), on the CPU a ``bmm`` of one
-  row a product and the model's own rmsnorm. So a token's K/V and logits
-  do not depend on how many rows share the launch: a verify step or a
-  ``coda`` micro-batch writes the bits greedy decode writes, as the
-  reference's rollback contract asks.
+  (``PagedDecoder._mm``, ``_add_norm``): on a card the hand-written
+  kernels ``kernels/rowwise_matmul`` and ``kernels/rowwise_rmsnorm`` (a
+  library GEMM or reduction rounds by the row count), on the CPU a ``bmm``
+  of one row a product and the model's own rmsnorm. So a token's K/V and
+  logits do not depend on how many rows share the launch: a verify step
+  or a ``coda`` micro-batch writes the bits greedy decode writes, as the
+  reference's rollback contract asks;
+- each residual add runs in the launch of the norm that reads it (the
+  reference's XLA fuses the two): a layer hands its MLP output on unsummed
+  to the next layer's first norm, or to the final norm, and a prefill
+  forward that returns no logits skips the last layer's add, which nothing
+  reads. On the CPU the plain version adds, then normalises: the same
+  bits as adding in the layer.
 
 Heat-driven re-homing (``rehome=True``, the ``coda`` policy's default)
 moves hot shared pages into fast domains on the pool's device, through the
@@ -111,10 +117,16 @@ class PagedDecoder:
         than a verify chunk (T rows) at the same position."""
         return rowwise_ops.rowwise_matmul(a, w)
 
-    def _norm(self, p, x):
-        """``layers.apply_norm``'s rmsnorm, row-invariant on a card (the
-        CUDA RMSNorm of ``kernels/rowwise_rmsnorm``)."""
-        return norm_ops.rmsnorm(x, p["gamma"], self.cfg.rms_eps)
+    def _add_norm(self, p, x, delta):
+        """``(x + delta, rmsnorm(x + delta))``: the residual add and
+        ``layers.apply_norm``'s rmsnorm of its sum, one row-invariant
+        launch on a card (``kernels/rowwise_rmsnorm``); with ``delta`` None,
+        ``x`` and its norm. Every residual add is the one before a norm, so
+        the decoder runs no ``x + ...`` op of its own."""
+        eps = self.cfg.rms_eps
+        if delta is None:
+            return x, norm_ops.rmsnorm(x, p["gamma"], eps)
+        return norm_ops.add_rmsnorm(x, delta, p["gamma"], eps)
 
     def _mlp(self, p, h):
         """``layers.mlp_apply`` (weights already in the compute dtype)
@@ -129,10 +141,12 @@ class PagedDecoder:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
-    def _qkv(self, p, x, pos, b: int, t: int):
+    def _qkv(self, p, x, delta, pos, b: int, t: int):
+        """The residual ``x + delta`` (``delta`` the last layer's MLP
+        output, None at layer 0) and the layer's q, k, v from its norm."""
         cfg = self.cfg
         nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-        h = self._norm(p["norm1"], x)
+        x, h = self._add_norm(p["norm1"], x, delta)
         a = p["attn"]
         q = self._mm(h, a["wq"]).reshape(b, t, nq, hd)
         k = self._mm(h, a["wk"]).reshape(b, t, nkv, hd)
@@ -144,18 +158,21 @@ class PagedDecoder:
         if cfg.use_rope:
             q = L.apply_rope(q, pos, cfg.rope_theta)
             k = L.apply_rope(k, pos, cfg.rope_theta)
-        return q, k, v
+        return x, q, k, v
 
     def _out_mlp(self, p, x, att, b: int, t: int):
+        """The residual with the attention output added (by norm2's
+        launch) and the MLP's output, not yet added: the next layer's
+        norm1, or the final norm, adds it."""
         cfg = self.cfg
-        x = x + self._mm(att.reshape(b, t, cfg.num_heads * cfg.head_dim_),
-                         p["attn"]["wo"])
-        h = self._norm(p["norm2"], x)
-        return x + self._mlp(p["mlp"], h)
+        o = self._mm(att.reshape(b, t, cfg.num_heads * cfg.head_dim_),
+                     p["attn"]["wo"])
+        x, h = self._add_norm(p["norm2"], x, o)
+        return x, self._mlp(p["mlp"], h)
 
-    def _logits(self, x):
-        x = self._norm(self.params["final_norm"], x)
-        return self._mm(x, self.head)
+    def _logits(self, x, delta):
+        _, h = self._add_norm(self.params["final_norm"], x, delta)
+        return self._mm(h, self.head)
 
     def prefill_chunk(self, token_ids, pages, lo: int, hi: int):
         """Single-sequence incremental prefill (kept for callers/tests):
@@ -208,8 +225,9 @@ class PagedDecoder:
         if cfg.embed_scale:
             x = x * np.sqrt(cfg.d_model)
         kp, vp = self.view.k_pool, self.view.v_pool
+        delta = None                 # the MLP output the next norm adds
         for l, p in enumerate(self.layers):
-            q, k, v = self._qkv(p, x, pos, b, t)
+            x, q, k, v = self._qkv(p, x, delta, pos, b, t)
             # real positions' K/V lands before attention: the causal mask
             # then covers prefix and intra-chunk keys uniformly (padded
             # positions never land)
@@ -217,10 +235,10 @@ class PagedDecoder:
             vp[l, pids, slots] = v[seq_i, tok_i]
             att = paged_ops.paged_prefill_attention_batch(
                 q, kp[l], vp[l], tbl, qs, impl=self.impl)
-            x = self._out_mlp(p, x, att, b, t)
+            x, delta = self._out_mlp(p, x, att, b, t)
         if not want_logits:
-            return None
-        return self._logits(x)                             # [B,T,V]
+            return None              # nothing reads the last layer's add
+        return self._logits(x, delta)                      # [B,T,V]
 
     def decode_step(self, tokens, tables, lens, positions):
         """tokens [B,1] int64; tables [B,MP] int32; lens [B] int32;
@@ -239,13 +257,14 @@ class PagedDecoder:
         slots = positions % ps
         seen = (lens + 1).to(torch.int32)
         kp, vp = self.view.k_pool, self.view.v_pool
+        delta = None
         for l, p in enumerate(self.layers):
-            q, k, v = self._qkv(p, x, pos_b, b, 1)
+            x, q, k, v = self._qkv(p, x, delta, pos_b, b, 1)
             self.view.write_decode_batch(l, pages, slots, k[:, 0], v[:, 0])
             att = paged_ops.paged_attention(q[:, 0], kp[l], vp[l], tables,
                                             seen, impl=self.impl)
-            x = self._out_mlp(p, x, att, b, 1)
-        return self._logits(x)[:, 0]                       # [B, V]
+            x, delta = self._out_mlp(p, x, att, b, 1)
+        return self._logits(x, delta)[:, 0]                # [B, V]
 
 
 class ServeEngine:
@@ -618,7 +637,7 @@ class ServeEngine:
         attention launch; the longest draft prefix the model's own argmax
         confirms is accepted, plus one bonus token. A row's arithmetic
         does not depend on the launch's row count (``PagedDecoder._mm``,
-        ``_norm``, the paged kernels' bitwise properties), so tokens and
+        ``_add_norm``, the paged kernels' bitwise properties), so tokens and
         the committed K/V are greedy decoding's bit for bit, on the CPU and
         on a card.
 

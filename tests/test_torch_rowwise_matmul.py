@@ -181,9 +181,10 @@ def test_workspace_is_grown_never_shrunk(monkeypatch):
 
 
 def test_decoder_runs_its_products_and_norms_through_the_ops():
-    """``PagedDecoder._mm`` and ``_norm`` on the CPU are the plain
-    versions, bit for bit (the F6 repair moved into ``ref.py``), and a
-    tied head is the embedding's transpose, not a copy."""
+    """``PagedDecoder._mm`` and ``_add_norm`` on the CPU are the plain
+    versions, bit for bit (the F6 repair moved into ``ref.py``): the norm
+    alone without a delta, torch's add then the norm with one; and a tied
+    head is the embedding's transpose, not a copy."""
     from repro_torch.models.lm import LM
     from repro_torch.placement.pool import BwapPagePool, MemoryDomain
     from repro_torch.serve.engine import PagedDecoder
@@ -199,7 +200,12 @@ def test_decoder_runs_its_products_and_norms_through_the_ops():
     for w in (dec.layers[0]["attn"]["wq"], dec.head):
         assert torch.equal(dec._mm(x, w), ref.rowwise_matmul_ref(x, w))
     p = dec.layers[0]["norm1"]
-    assert torch.equal(dec._norm(p, x), L.apply_norm(cfg, p, x))
+    s, h = dec._add_norm(p, x, None)
+    assert s is x and torch.equal(h, L.apply_norm(cfg, p, x))
+    y = _data(8, (3, 5, cfg.d_model), torch.float32)
+    s, h = dec._add_norm(p, x, y)
+    assert torch.equal(s, x + y)
+    assert torch.equal(h, L.apply_norm(cfg, p, x + y))
 
 
 # -- against the reference ----------------------------------------------------
