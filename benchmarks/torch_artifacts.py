@@ -36,9 +36,9 @@ EXPECTED = tuple(SCHEMAS)
 
 def problems(name: str, data) -> list[str]:
     """What is wrong with one parsed artifact: required keys missing,
-    non-finite numbers."""
-    required = SCHEMAS[name]
-    if not isinstance(data, dict):
+    non-finite numbers (``artifacts.check``'s rules and messages)."""
+    required = SCHEMAS.get(name, ())
+    if required and not isinstance(data, dict):
         return [f"{name}: expected a JSON object, got "
                 f"{type(data).__name__}"]
     out = []
@@ -54,19 +54,25 @@ def problems(name: str, data) -> list[str]:
 def check(names=EXPECTED, root: pathlib.Path = artifacts.ROOT) -> None:
     """Fail (SystemExit) unless every named port artifact exists under
     ``root``, parses, carries its reference schema's keys and holds only
-    finite numbers."""
+    finite numbers. The messages are ``artifacts.check``'s: missing files
+    first, all of them in one message, then each file's faults."""
     root = pathlib.Path(root)
+    missing = [n for n in names if not (root / n).is_file()]
+    if missing:
+        raise SystemExit(
+            f"missing benchmark artifacts at {root}: {', '.join(missing)}")
     errors: list[str] = []
     for n in names:
         try:
-            errors += problems(n, json.loads((root / n).read_text()))
-        except (OSError, ValueError) as e:
-            errors.append(f"{n}: missing or unparseable ({e})")
+            data = json.loads((root / n).read_text())
+        except ValueError as e:
+            errors.append(f"{n}: unparseable ({e})")
+            continue
+        errors += problems(n, data)
     if errors:
-        raise SystemExit("port artifact check failed:\n  "
+        raise SystemExit("benchmark artifact check failed:\n  "
                          + "\n  ".join(errors))
     print(f"[port artifacts OK — {len(names)} checked at {root}]")
-
 
 if __name__ == "__main__":
     check(tuple(sys.argv[1:]) or EXPECTED)

@@ -332,7 +332,17 @@ Phases (each failed check raises; the script then exits non-zero):
    gated, the step ratio logged against the reference's 1.3), then
    ``python -m benchmarks.torch_run --device cuda`` in its own process
    (exit 0, every ``BENCH_torch_*.json`` written and passing
-   ``torch_artifacts.check()``; each section's seconds printed);
+   ``torch_artifacts.check()``; each section's seconds printed); then the
+   serving CLIs side by side, each in a process of its own on the card
+   with its defaults and then with ``--device cpu``:
+   ``python -m repro_torch.launch.serve`` (4/4 sequences served on cuda,
+   sequences and steps equal to the host run's),
+   ``examples/torch_serve_paged.py`` (N/N finished, swaps out equal swaps
+   in), its ``--restart-demo`` (the restored trie matches every exported
+   page) and ``examples/torch_coscheduled.py`` (tokens equal between the
+   fabric run and isolated partitions, the loan ending with 0
+   outstanding); each exits 0 and prints the host run's summary, token
+   snippets aside;
 25. the row-invariant kernels (``csrc/rowwise_matmul.cu``,
    ``csrc/rowwise_rmsnorm.cu``; runs after phase 3): the product at every
    weight shape of qwen2-0.5b, gemma-2b and qwen2-vl-7b (each weight the
@@ -357,7 +367,28 @@ Phases (each failed check raises; the script then exits non-zero):
    batch row equal to row 0 of its chunk; the same rows with the products
    as ``a @ w`` and with the norms as torch's add and reduction, logged
    (F7's
-   cause).
+   cause);
+27. the reference's observability contract at full width
+   (``tests/test_obs.py``'s ``traced_runs``; qwen2-0.5b, phase 4's
+   weights; runs after phase 23): a poisson trace of 5 requests in two
+   classes (drawn over the smoke config's vocabulary) over domains of 8,
+   8 and 40 pages at page 4, Eq.-1 bandwidths x 48 as phases 10-13,
+   ``max_batch`` 3, 90 % of the slow domains reserved for swap, the
+   virtual clock at 0.01 s a step; once with ``Observatory(pool,
+   drift=False)`` and once without, a contract validator on every fabric
+   event, counts zeroed before the two runs. Gates: equal tokens, swaps
+   out (> 0) equal swaps in; the preempted request's admit, prefill,
+   decode, swap_out, swap_in and finish spans, no queued span negative,
+   its track opening with admit and closing with finish; the exported
+   trace Perfetto-loadable by the reference case's rules and its events
+   (names, tracks, virtual-clock times, arguments) equal to the same
+   scenario's on the host at the one-layer fp32 smoke config; 5 admits
+   and 5 finishes; the step-latency histogram's count and p50 above 0;
+   no contract violation and no subscriber error; every Prometheus line
+   a HELP, TYPE or sample line, every family of the host run present;
+   every prefill step through ``paged_prefill_attention_batch`` and every
+   decode step through ``paged_attention`` (24 a step) on the
+   tensor-core instance, nothing through flash.
 
 The lines before the last two are phases 19-22's records, then the
 kernels' JSON record (a row per entry
@@ -369,15 +400,16 @@ phase-3 inputs against the plain version, and their launches from phases
 16 and 17; the qwen2-0.5b
 paged rows also carry phases 10-13's ``coda_launches``,
 ``persist_launches``, ``disagg_launches`` and ``zoo_launches``, the last
-summed over the zoo's two modes, and phase 23's ``contract_launches``;
+summed over the zoo's two modes, phase 23's ``contract_launches`` and
+phase 27's ``obs_launches``;
 then a ``rowwise_matmul`` and a ``rowwise_rmsnorm`` row at qwen2-0.5b,
 gemma-2b and qwen2-vl-7b, timed by phase 25 at decode (the head's
 product, the final norm with its residual add), launched by that model's
 serving run (the norm's row with its fused launches, ``add_launches``,
 and, since no one PyTorch call adds and normalises, ``library_ms`` null
 beside ``library_pair_ms``, torch's ``x + y`` then ``F.rms_norm``), the
-qwen2-0.5b rows with phase 5's ``spec_launches`` and phase 10's
-``coda_launches``) and the card's
+qwen2-0.5b rows with phase 5's ``spec_launches``, phase 10's
+``coda_launches`` and phase 27's ``obs_launches``) and the card's
 ``nvidia-smi`` name and power limit; the last
 line is the result JSON. Nothing here imports JAX: the machine with the
 card has none.
@@ -388,8 +420,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -5434,14 +5468,15 @@ def phase_contract(device, cfg, params) -> dict:
 SERVE_MIN_RATIO = 1.3            # serve_bench.speculative_compare's gate
 
 
-def phase_entry_points(device) -> None:
+def phase_entry_points(device) -> float:
     """Phase 24: ``torch_serve_bench.speculative_compare`` on the card at
     the reference's smoke config (seeded random params): zero failed
     requests and greedy's tokens, gated; the decode-step ratio logged
     against the reference's 1.3 (its counters follow the params). Then
     ``python -m benchmarks.torch_run --device cuda`` in a process of its
     own: exit 0, which includes its ``torch_artifacts.check()``, and the
-    check again here; each section's seconds printed."""
+    check again here; each section's seconds printed. Then the serving
+    CLIs (``phase_clis``). Returns the CLIs' seconds."""
     from benchmarks import torch_artifacts, torch_serve_bench
     t0 = time.perf_counter()
     rows = torch_serve_bench.speculative_compare(device=device, check=False)
@@ -5468,8 +5503,332 @@ def phase_entry_points(device) -> None:
     check(r.returncode == 0, f"phase 24: benchmarks.torch_run exited "
           f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
     torch_artifacts.check()
-    log(f"phase 24: torch_run {time.perf_counter() - t1:.1f} s, the phase "
+    log(f"phase 24: torch_run {time.perf_counter() - t1:.1f} s -- "
+        f"{smi_line()}")
+    t2 = time.perf_counter()
+    phase_clis()
+    cli_s = time.perf_counter() - t2
+    log(f"phase 24: the serving CLIs {cli_s:.1f} s, the phase "
         f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return cli_s
+
+
+# the serving CLIs README.md lists for the card: (tag, arguments after the
+# interpreter); each runs with its defaults on the card and again with
+# ``--device cpu``
+CLIS = (("launch.serve", ("-m", "repro_torch.launch.serve")),
+        ("serve_paged", ("examples/torch_serve_paged.py",)),
+        ("serve_paged --restart-demo",
+         ("examples/torch_serve_paged.py", "--restart-demo")),
+        ("coscheduled", ("examples/torch_coscheduled.py",)))
+CLI_TIMEOUT = 300
+CLI_REQUESTS = 4                 # launch.serve's default --requests
+_SNIPPET = re.compile(r"^\s+seq \d+ \[\w+\]: \[")   # token snippets
+
+
+def _summary(out: str) -> list[str]:
+    """What an example prints alike on every device: all but its token
+    snippets (``tests/_torch_parity.example_summary``)."""
+    return [ln for ln in out.splitlines() if not _SNIPPET.match(ln)]
+
+
+def _cli_gates(tag, card: str, host: str) -> str:
+    """A CLI's own printed checks on the card, and its summary against the
+    host run's; returns what it printed that the log keeps."""
+    def find(pattern, out, what):
+        m = re.search(pattern, out)
+        check(m, f"phase 24, {tag} ({what}): no {pattern!r} in:\n{out}")
+        return m
+    if tag == "launch.serve":
+        pat = r"served (\d+) sequences in (\d+) engine steps on (\w+)"
+        m, h = find(pat, card, "card"), find(pat, host, "host")
+        check(int(m[1]) == CLI_REQUESTS and m[3] == "cuda",
+              f"phase 24, {tag}: served {m[1]}/{CLI_REQUESTS} on {m[3]}")
+        check(m.groups()[:2] == h.groups()[:2],
+              f"phase 24, {tag}: {m[0]!r} on the card, {h[0]!r} on the host")
+        return m[0]
+    check(_summary(card) == _summary(host),
+          f"phase 24, {tag}: the summary differs from the host run's:\n"
+          f"{card}\n--- host ---\n{host}")
+    if tag == "serve_paged":
+        m = find(r"finished (\d+)/(\d+) sequences in [\d.]+ virtual s; "
+                 r"swaps (\d+) out / (\d+) in", card, "card")
+        check(m[1] == m[2] and m[3] == m[4] and int(m[3]) > 0,
+              f"phase 24, {tag}: {m[0]!r}")
+        return m[0]
+    if tag.endswith("--restart-demo"):
+        e = find(r"exported (\d+) chain\(s\) \((\d+) pages\)", card, "card")
+        m = find(r"matched (\d+) pages from the restored trie", card, "card")
+        check(int(e[1]) > 0 and m[1] == e[2],
+              f"phase 24, {tag}: {e[0]!r}, {m[0]!r}")
+        return f"{e[0]}; {m[0]}"
+    find(r"token-identical outputs fabric vs isolated: True", card, "card")
+    m = find(r"swap-slot loan A->B: granted [1-9]\d* slots, .*outstanding 0",
+             card, "card")
+    f = find(r"A finished \d+ sequences", card, "card")
+    return f"{m[0]}; {f[0]}; tokens equal fabric vs isolated"
+
+
+def phase_clis() -> None:
+    """Phase 24's serving CLIs: ``python -m repro_torch.launch.serve``,
+    ``examples/torch_serve_paged.py`` (with and without
+    ``--restart-demo``) and ``examples/torch_coscheduled.py``, each in a
+    process of its own on the card (their defaults), then with
+    ``--device cpu``; the four CLIs run side by side, each on the card
+    first and then on the host (the two restart demos share one on-disk
+    store). Gates: exit 0, each
+    script's own printed checks, and its summary equal to the host run's
+    (token snippets aside; for ``launch.serve``, sequences and steps)."""
+    from concurrent.futures import ThreadPoolExecutor
+    # two threads each: four processes share the host's cores
+    env = {**os.environ, "PYTHONPATH": f"{SRC}:{ROOT}",
+           "OMP_NUM_THREADS": "2"}
+    store = ROOT / "benchmarks" / "results" / "torch_persist_store_demo"
+    existed = store.exists()
+
+    def run(argv, host: bool):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv,
+                            *(("--device", "cpu") if host else ())],
+                           cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=CLI_TIMEOUT)
+        return r, time.perf_counter() - t
+
+    def chain(argv):
+        return [run(argv, host) for host in (False, True)]
+
+    try:
+        with ThreadPoolExecutor(max_workers=len(CLIS)) as pool:
+            results = dict(zip([tag for tag, _ in CLIS],
+                               pool.map(chain, [a for _, a in CLIS])))
+    finally:
+        if not existed:
+            shutil.rmtree(store, ignore_errors=True)
+    for tag, _ in CLIS:
+        (card, card_s), (host, host_s) = results[tag]
+        for r, where in ((card, "card"), (host, "host")):
+            check(r.returncode == 0, f"phase 24, {tag} on the {where} "
+                  f"exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                  f"{r.stderr[-3000:]}")
+        note = _cli_gates(tag, card.stdout, host.stdout)
+        log(f"phase 24, {tag}: exit 0 on the card ({card_s:.1f} s) and "
+            f"with --device cpu ({host_s:.1f} s), summary equal; {note}")
+
+
+# -- phase 27 ------------------------------------------------------------------
+
+# tests/test_obs.py's traced_runs: its pool (pages, Eq.-1 bandwidths) at
+# page 4, the bandwidths x CODA_BW_SCALE on the card so the schedule is
+# the smoke run's; its trace is drawn over the smoke config's vocabulary
+# on both devices, so the prompts are the same too
+OBS_DOMAINS = (("hbm_local", 8, 819.0, True), ("hbm_peer", 8, 0.05, False),
+               ("host", 40, 0.016, False))
+OBS_SPANS = ("admit", "prefill", "decode", "swap_out", "swap_in", "finish")
+_PROM_LINE = re.compile(r"^(# (HELP|TYPE) \S+ .*|[a-zA-Z_:][a-zA-Z0-9_:]*"
+                        r"(\{.*\})? \S+)$")
+
+
+def _obs_trace(vocab: int):
+    from repro_torch.scheduler import WorkloadSpec, generate
+    return generate(WorkloadSpec(
+        kind="poisson", num_requests=5, mean_interarrival_s=0.005,
+        prompt_mean=10, prompt_max=20, max_new=6, vocab_size=vocab,
+        class_mix=(("hi", 0.4), ("lo", 0.6)), seed=0))
+
+
+def _obs_run(cfg, params, device, trace, tally, *, with_obs,
+             scale) -> dict:
+    """``traced_runs``'s ``run`` on ``device``: the engine over the
+    scenario's pool (bandwidths x ``scale``), a contract validator on every
+    fabric event, an ``Observatory(pool, drift=False)`` when
+    ``with_obs``; the fabric's invariants after every step (``tally``)."""
+    from repro_torch.core.dwp import DWPConfig
+    from repro_torch.obs import Observatory
+    from repro_torch.placement.fabric import (EVENT_FIELDS, EVENTS,
+                                              SHARE_KIND_FIELDS)
+    from repro_torch.placement.pool import BwapPagePool, MemoryDomain
+    from repro_torch.scheduler import (KVSwapManager, PriorityClass,
+                                       RequestScheduler, SloSpec)
+    from repro_torch.serve.engine import ServeEngine
+    pool = BwapPagePool(cfg, [MemoryDomain(n, p, bw * scale, fast)
+                              for n, p, bw, fast in OBS_DOMAINS],
+                        page_size=4, dwp_config=DWPConfig(n=10 ** 6, c=1),
+                        device=device)
+    swap = KVSwapManager(pool, placement="bwap_canonical",
+                         reserve_fraction=0.9)
+    sched = RequestScheduler(
+        pool, max_batch=3, prefill_token_budget=16,
+        classes=[PriorityClass("hi", 2, SloSpec(ttft_s=0.5, tpot_s=0.1)),
+                 PriorityClass("lo", 0)],
+        default_class="lo", default_max_new=6, swap=swap)
+    eng = ServeEngine(cfg, params, pool, scheduler=sched, wall_clock=False,
+                      sim_step_s=0.01, device=device)
+    fab, violations, events = eng.view.fabric, [], []
+
+    def validator(event):
+        def check_fields(**kw):
+            need = set(EVENT_FIELDS[event])
+            if event == "share":
+                need |= set(SHARE_KIND_FIELDS.get(kw.get("kind"), ()))
+            events.append(event)
+            if not need <= set(kw):
+                violations.append((event, sorted(need - set(kw))))
+        return check_fields
+
+    for ev in EVENTS:
+        fab.subscribe(ev, validator(ev))
+    obs = Observatory(pool, drift=False) if with_obs else None
+    for t in trace:
+        eng.submit(list(t.prompt), cls=t.cls, max_new=t.max_new,
+                   arrival_s=t.arrival_s)
+    tally.drain(eng)
+    tel = pool.telemetry
+    return dict(tokens=[list(s.tokens) for s in sorted(
+                    eng.finished, key=lambda s: s.sid)],
+                obs=obs, swaps=(tel.swap_outs, tel.swap_ins),
+                violations=violations, events=len(events),
+                errors=tel.subscriber_errors, reclaimed=_c_reclaimed(pool),
+                page_bytes=pool.page_bytes)
+
+
+def _obs_spans(run, what) -> int:
+    """The reference case's gates on a preempted request's spans; returns
+    its sid."""
+    tr = run["obs"].tracer
+    preempted = sorted({e["tid"] - 1 for e in tr.spans("swap_out")})
+    check(preempted, f"{what}: no request was swapped out")
+    sid = preempted[0]
+    for name in OBS_SPANS:
+        check(tr.spans(name, sid=sid),
+              f"{what}: preempted request {sid} has no {name!r} span")
+    check(all(e["dur"] >= 0 for e in tr.spans("queued")),
+          f"{what}: a queued span has a negative duration")
+    track = sorted(tr.spans(sid=sid), key=lambda e: e["ts"])
+    check(track[0]["name"] == "admit" and track[-1]["name"] == "finish",
+          f"{what}: request {sid}'s track runs {track[0]['name']} .. "
+          f"{track[-1]['name']}, want admit .. finish")
+    return sid
+
+
+def _perfetto(path, what) -> list:
+    """The reference case's rules for a trace Perfetto loads; returns its
+    events."""
+    data = json.loads(Path(path).read_text())
+    check(data["displayTimeUnit"] == "ms", f"{what}: displayTimeUnit")
+    evs = data["traceEvents"]
+    check(evs and all("ph" in e and "pid" in e and "tid" in e for e in evs),
+          f"{what}: an event without ph, pid or tid")
+    names = {e["name"] for e in evs if e["ph"] == "M"}
+    check({"process_name", "thread_name"} <= names,
+          f"{what}: no process or thread names")
+    check(all(e["dur"] >= 0 and e["ts"] >= 0 for e in evs if e["ph"] == "X"),
+          f"{what}: a span at a negative time or of negative duration")
+    return evs
+
+
+def _obs_lifecycle(obs, what) -> tuple[int, float]:
+    req = obs.metrics.get("repro_requests_total")
+    admits = sum(req.value("admit", "default", c) for c in ("hi", "lo"))
+    finishes = sum(req.value("finish", "default", c) for c in ("hi", "lo"))
+    check(admits == 5 and finishes == 5,
+          f"{what}: {admits} admits and {finishes} finishes, want 5 and 5")
+    lat = obs.metrics.get("repro_step_latency_seconds").labels("default")
+    check(lat.count > 0 and lat.quantile(0.5) > 0,
+          f"{what}: step latency count {lat.count}, p50 "
+          f"{lat.quantile(0.5)}")
+    return lat.count, lat.quantile(0.5)
+
+
+def _prom_families(text, what) -> set:
+    bad = [ln for ln in text.splitlines() if not _PROM_LINE.match(ln)]
+    check(not bad, f"{what}: lines neither HELP, TYPE nor a sample: "
+          f"{bad[:3]}")
+    return {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def phase_obs(device, cfg, params) -> dict:
+    """Phase 27: the reference's observability contract
+    (``tests/test_obs.py``'s ``traced_runs`` and its cases) at full width
+    through the paged kernels, once with the observatory and once
+    without; the same scenario on the host at the smoke config gives the
+    trace the card's must equal (see the module docstring)."""
+    t0 = time.perf_counter()
+    scfg, sparams = _smoke_model()
+    trace = _obs_trace(scfg.vocab_size)
+    torch.cuda.synchronize()
+    _reset_counts()
+    tally = _Tally()
+    traced = _obs_run(cfg, params, device, trace, tally, with_obs=True,
+                      scale=CODA_BW_SCALE)
+    base = _obs_run(cfg, params, device, trace, tally, with_obs=False,
+                    scale=CODA_BW_SCALE)
+    torch.cuda.synchronize()
+    launches = _counts()
+    t1 = time.perf_counter()
+    host = _obs_run(scfg, sparams, "cpu", trace, _Tally(),
+                    with_obs=True, scale=1)
+    t2 = time.perf_counter()
+    check(traced["page_bytes"] == CODA_BW_SCALE * host["page_bytes"],
+          f"phase 27: page bytes {traced['page_bytes']}, want "
+          f"{CODA_BW_SCALE} x the host's {host['page_bytes']}")
+    for r, what in ((traced, "traced"), (base, "untraced"), (host, "host")):
+        check(len(r["tokens"]) == 5 and r["reclaimed"],
+              f"phase 27, {what}: {len(r['tokens'])}/5 finished, pool "
+              f"reclaimed {r['reclaimed']}")
+        check(not r["violations"] and r["errors"] == 0,
+              f"phase 27, {what}: contract violations {r['violations'][:3]}"
+              f", subscriber errors {r['errors']}")
+    check(traced["tokens"] == base["tokens"],
+          "phase 27: the traced run's tokens differ from the untraced run's")
+    outs, ins = traced["swaps"]
+    check(outs > 0 and outs == ins and base["swaps"] == traced["swaps"]
+          == host["swaps"],
+          f"phase 27: swaps {traced['swaps']} traced, {base['swaps']} "
+          f"untraced, {host['swaps']} on the host")
+    sid = _obs_spans(traced, "phase 27")
+    _obs_spans(host, "phase 27, host")
+    with tempfile.TemporaryDirectory() as out:
+        evs = _perfetto(traced["obs"].tracer.export(Path(out) / "card.json"),
+                        "phase 27")
+        hevs = _perfetto(host["obs"].tracer.export(Path(out) / "host.json"),
+                         "phase 27, host")
+    check(evs == hevs, f"phase 27: the exported trace's events ({len(evs)}) "
+          f"differ from the host run's ({len(hevs)})")
+    count, p50 = _obs_lifecycle(traced["obs"], "phase 27")
+    _obs_lifecycle(host["obs"], "phase 27, host")
+    fams = _prom_families(traced["obs"].metrics.prometheus_text(),
+                          "phase 27")
+    hfams = _prom_families(host["obs"].metrics.prometheus_text(),
+                           "phase 27, host")
+    check(hfams <= fams, f"phase 27: families of the host run missing on "
+          f"the card: {sorted(hfams - fams)}")
+    nl = cfg.num_layers
+    check(launches["paged_prefill_attention_batch"] == tally.prefill * nl
+          and tally.verify == 0,
+          f"phase 27: a prefill step missed the prefill kernel ({launches}, "
+          f"{tally.prefill} prefill steps)")
+    check(launches["paged_attention"] == tally.decode * nl,
+          f"phase 27: a decode step missed the decode kernel ({launches}, "
+          f"{tally.decode} decode steps)")
+    check(launches["flash_attention"] == 0
+          and launches["flash_attention_wgmma"] == 0,
+          "phase 27 ran a full-sequence forward")
+    _check_instances(cfg, {"launches": launches})
+    log(f"phase 27, the observability contract at full width ({cfg.name}, "
+        f"{cfg.compute_dtype}, page 4, bandwidths x {CODA_BW_SCALE}): "
+        f"tokens equal with and without the observatory; swaps {outs} out "
+        f"/ {ins} in; preempted request {sid} holds "
+        f"{', '.join(OBS_SPANS)}; {len(evs)} trace events, Perfetto-"
+        f"loadable and equal to the host run's; 5 admits, 5 finishes; step latency count "
+        f"{count}, p50 {p50:.4g} s; {traced['events']} bus events, 0 "
+        f"contract violations, 0 subscriber errors; {len(fams)} metric "
+        f"families ({len(hfams)} on the host)")
+    log(f"phase 27: {tally.prefill} prefill and {tally.decode} decode steps "
+        f"over both card runs, launches {launches}; {t1 - t0:.1f} s on the "
+        f"card, {t2 - t1:.1f} s on the host, the phase "
+        f"{time.perf_counter() - t0:.1f} s -- {smi_line()}")
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
 
 
 # -- phases 25 and 26 ----------------------------------------------------------
@@ -5918,6 +6277,8 @@ def main() -> int:
     done("15")
     contract = phase_contract(device, s["cfg"], s["params"])
     done("23")
+    obs = phase_obs(device, s["cfg"], s["params"])
+    done("27")
     del s["params"], g["params"]           # phase 16 needs the room
     fam = phase_families(device)
     done("16")
@@ -5936,7 +6297,7 @@ def main() -> int:
             fam[tag]["flash"] += n
     done("22")
     t_new = time.perf_counter()
-    phase_entry_points(device)
+    cli_s = phase_entry_points(device)
     added += time.perf_counter() - t_new
     done("24")
     served = {"qwen2-0.5b": s["greedy"]["launches"],
@@ -6002,6 +6363,7 @@ def main() -> int:
                 rows[-1]["disagg_launches"] = disagg["launches"][name]
                 rows[-1]["zoo_launches"] = zoo["launches"][name]
                 rows[-1]["contract_launches"] = contract["launches"][name]
+                rows[-1]["obs_launches"] = obs["launches"][name]
     # the row-invariant kernels replace no pallas_call: "replaces" names
     # the reference decoder's XLA code they stand for (its products, and
     # its residual adds with the norms that read them, fused by XLA;
@@ -6034,8 +6396,11 @@ def main() -> int:
             if tag == "qwen2-0.5b":
                 rows[-1]["spec_launches"] = spec["launches"][name]
                 rows[-1]["coda_launches"] = coda["launches"][name]
+                rows[-1]["obs_launches"] = obs["launches"][name]
     log(f"total {time.perf_counter() - t0:.1f} s, of it phases 24-26 "
-        f"{added:.1f} s -- {smi_line()}")
+        f"{added:.1f} s, phase 27 and phase 24's CLIs "
+        f"{obs['seconds'] + cli_s:.1f} s ({obs['seconds']:.1f} + "
+        f"{cli_s:.1f}) -- {smi_line()}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

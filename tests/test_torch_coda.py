@@ -327,12 +327,16 @@ def test_coda_traces_equal_the_reference(spec):
     port = t_sched.generate(t_sched.WorkloadSpec(**spec))
     assert [dataclasses.asdict(t) for t in port] \
         == [dataclasses.asdict(t) for t in ref]
+    again = t_sched.generate(t_sched.WorkloadSpec(**spec))
+    assert [t.prompt for t in again] == [t.prompt for t in port]
     if spec["kind"] == "domain_skew":
         flood, tail = port[:4], port[4:]
         prefix = tail[0].prompt[:8]
         assert all(len(t.prompt) == 24 for t in flood)
         assert all(t.prompt[:8] != prefix for t in flood)
+        assert flood[-1].arrival_s < 4 * 0.02 / 50      # gaps at mean/100
         assert all(t.prompt[:8] == prefix for t in tail)
+        assert all(len(t.prompt) < 24 for t in tail)
     else:
         head = port[0].prompt[:12]
         assert all(t.prompt[:12] == head for t in port)

@@ -2,8 +2,8 @@
 reference's: both are numpy, so the synthetic and memory-mapped batches,
 the router's shard assignments after every scripted fetch (the
 reference's straggler case included), its migration counts and host
-weights are equal exactly. The reference's prefetch-loader case runs on
-the port."""
+weights are equal exactly, and so are the prefetch loaders' first steps
+and batches."""
 
 import numpy as np
 import pytest
@@ -83,16 +83,20 @@ def test_router_equals_the_reference(case):
 
 
 def test_prefetch_loader_yields_deterministic_batches():
-    """The reference's case (tests/test_fault_tolerance.py), on the port:
-    the loader's batch is the dataset's batch of its step's shard."""
-    ds = t_pipe.ShardedTokenDataset(vocab_size=97, seq_len=8, num_shards=4,
-                                    seed=1)
-    router = t_pipe.BwapDataRouter(4, [1, 1, 1, 1])
-    loader = t_pipe.PrefetchLoader(ds, router, host=0, batch_size=2)
-    try:
-        s1, b1 = next(loader)
-    finally:
-        loader.close()
+    """The reference's case (tests/test_fault_tolerance.py) on both
+    packages: the loader's batch is the dataset's batch of its step's
+    shard, and the port's step and batch equal the reference's."""
+    got = []
+    for p in PIPES:
+        ds = p.ShardedTokenDataset(vocab_size=97, seq_len=8, num_shards=4,
+                                   seed=1)
+        router = p.BwapDataRouter(4, [1, 1, 1, 1])
+        loader = p.PrefetchLoader(ds, router, host=0, batch_size=2)
+        try:
+            s1, b1 = next(loader)
+        finally:
+            loader.close()
+        got.append((s1, b1))
     loader._thread.join(timeout=5)
     assert not loader._thread.is_alive()
     shards = router.shards_of(0)
@@ -101,3 +105,5 @@ def test_prefetch_loader_yields_deterministic_batches():
     assert b1.shape == (2, 8)
     assert b1.dtype == np.int32
     np.testing.assert_array_equal(b1, again)
+    assert got[1][0] == got[0][0]
+    np.testing.assert_array_equal(got[1][1], got[0][1])

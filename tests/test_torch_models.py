@@ -195,3 +195,31 @@ def test_bf16_compute_lm_close():
     np.testing.assert_allclose(th.float().numpy(),
                                np.asarray(rh, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+# ``tests/test_models_smoke.py::test_param_counts_match_assignment``'s
+# ranges for the headline sizes (the roofline's MODEL_FLOPS read them)
+PARAM_RANGES = {
+    "deepseek-v3-671b": (600e9, 760e9),
+    "gemma3-27b": (23e9, 31e9),
+    "internlm2-20b": (17e9, 23e9),
+    "qwen2-0.5b": (0.4e9, 0.65e9),
+    "gemma-2b": (2.0e9, 3.2e9),
+    "qwen2-vl-7b": (6.5e9, 8.5e9),
+    "hymba-1.5b": (1.1e9, 2.0e9),
+    "xlstm-125m": (0.10e9, 0.20e9),
+    "granite-moe-3b-a800m": (2.5e9, 3.9e9),
+    "whisper-tiny": (0.025e9, 0.06e9),
+}
+
+
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+def test_param_counts_match_assignment(arch):
+    """``ModelConfig.param_counts()`` equals the reference's, every field,
+    and its total lies in the reference case's range."""
+    assert set(PARAM_RANGES) == set(registry.ARCH_IDS)
+    ref = registry.get_config(arch).param_counts()
+    port = t_registry.get_config(arch).param_counts()
+    assert port == ref
+    lo, hi = PARAM_RANGES[arch]
+    assert lo <= port["total"] <= hi, (arch, port["total"])
