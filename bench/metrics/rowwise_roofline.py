@@ -1,0 +1,8 @@
+"""Launches of the row-invariant product: the sum of each launch's least time
+over the sum of their device times, in %."""
+
+from bench import readings
+
+
+def read(rec):
+    return readings.roofline(rec, "rowwise")
